@@ -1,0 +1,275 @@
+"""Covisibility factor graph, frontend part (mirror of engine/factor_graph.py).
+
+Host bookkeeping (add / remove / dedup / proximity selection) runs in
+numpy.  ``update_fused`` runs K rounds of {reproject -> correlation lookup
+-> ConvGRU update + GraphAgg -> dense BA} as a Python loop: the correlation
+pyramid is built once per call (K2), each round looks it up once (K3) and
+each BA iteration builds its blocks once (K1).  Edge counts and BA windows
+are padded to buckets as in the JAX package; padded edges add nothing.
+"""
+import numpy as np
+import torch
+
+from .. import native
+from ..ba.solver import ba_iterations
+from ..geom import coords_grid, frame_distance, neighbourhood_graph, projective_transform
+from ..ops.cuda_corr import corr_build, corr_lookup
+
+
+def _round_up(x, m):
+    return ((x + m - 1) // m) * m
+
+
+class FactorGraph:
+    def __init__(self, video, update_apply, params, max_factors=-1):
+        self.video = video
+        self.update_apply = update_apply  # update_apply(params, net, inp, corr, motn, kk, M, emask)
+        self.params = params
+        self.max_factors = max_factors
+        self.cfg = video.cfg
+        self.device = dev = video.device
+
+        self.ii = np.zeros(0, np.int64)
+        self.jj = np.zeros(0, np.int64)
+        self.age = np.zeros(0, np.int64)
+
+        h8, w8 = video.h8, video.w8
+        self.net = torch.zeros(0, h8, w8, 128, device=dev)
+        self.target = torch.zeros(0, h8, w8, 2, device=dev)
+        self.weight = torch.zeros(0, h8, w8, 2, device=dev)
+
+        # inactive / bad stores (reference :36-42)
+        self.ii_inac = np.zeros(0, np.int64)
+        self.jj_inac = np.zeros(0, np.int64)
+        self.target_inac = torch.zeros(0, h8, w8, 2, device=dev)
+        self.weight_inac = torch.zeros(0, h8, w8, 2, device=dev)
+        self.ii_bad = np.zeros(0, np.int64)
+        self.jj_bad = np.zeros(0, np.int64)
+
+    def _t(self, x):
+        """Host index array -> long tensor on the engine's device."""
+        return torch.as_tensor(np.asarray(x, np.int64), device=self.device)
+
+    # ------------------------------------------------------------- edge mgmt
+
+    def add_factors(self, ii, jj, remove=False):
+        """Add edges, dropping duplicates (reference :86-134)."""
+        ii = np.asarray(ii, np.int64).reshape(-1)
+        jj = np.asarray(jj, np.int64).reshape(-1)
+        keep = native.dedup_edges(ii, jj, np.concatenate([self.ii, self.ii_inac]),
+                                  np.concatenate([self.jj, self.jj_inac]))
+        ii, jj = ii[keep], jj[keep]
+        if len(ii) == 0:
+            return
+
+        # cap the factor count, evicting the oldest (reference :103-107)
+        if (self.max_factors > 0 and len(self.ii) + len(ii) > self.max_factors
+                and len(self.ii) > 0 and remove):
+            ix = np.argsort(self.age)[::-1]
+            n_evict = len(self.ii) + len(ii) - self.max_factors
+            mask = np.zeros(len(self.ii), bool)
+            mask[ix[:n_evict]] = True
+            self.rm_factors(mask, store=True)
+
+        net = self.video.nets[self._t(ii)]
+        target, _ = self.video.reproject(ii, jj)
+        target = target[0]
+        self.ii = np.concatenate([self.ii, ii])
+        self.jj = np.concatenate([self.jj, jj])
+        self.age = np.concatenate([self.age, np.zeros(len(ii), np.int64)])
+        self.net = torch.cat([self.net, net], 0)
+        self.target = torch.cat([self.target, target], 0)
+        self.weight = torch.cat([self.weight, torch.zeros_like(target)], 0)
+
+    def rm_factors(self, mask, store=False):
+        """Remove edges; optionally keep them as inactive (reference :137-161)."""
+        mask = np.asarray(mask, bool)
+        if store and mask.any():
+            sel = self._t(np.nonzero(mask)[0])
+            self.ii_inac = np.concatenate([self.ii_inac, self.ii[mask]])
+            self.jj_inac = np.concatenate([self.jj_inac, self.jj[mask]])
+            self.target_inac = torch.cat([self.target_inac, self.target[sel]], 0)
+            self.weight_inac = torch.cat([self.weight_inac, self.weight[sel]], 0)
+        keep = ~mask
+        kd = self._t(np.nonzero(keep)[0])
+        self.ii, self.jj, self.age = self.ii[keep], self.jj[keep], self.age[keep]
+        self.net = self.net[kd]
+        self.target = self.target[kd]
+        self.weight = self.weight[kd]
+
+    def rm_keyframe(self, ix):
+        """Drop keyframe ix: shift the buffers, reindex edges (reference :165-194)."""
+        self.video.remove_keyframe(ix)
+
+        m = (self.ii_inac == ix) | (self.jj_inac == ix)
+        self.ii_inac = np.where(self.ii_inac >= ix, self.ii_inac - 1, self.ii_inac)
+        self.jj_inac = np.where(self.jj_inac >= ix, self.jj_inac - 1, self.jj_inac)
+        if m.any():
+            keep = self._t(np.nonzero(~m)[0])
+            self.ii_inac = self.ii_inac[~m]
+            self.jj_inac = self.jj_inac[~m]
+            self.target_inac = self.target_inac[keep]
+            self.weight_inac = self.weight_inac[keep]
+
+        m = (self.ii == ix) | (self.jj == ix)
+        self.ii = np.where(self.ii >= ix, self.ii - 1, self.ii)
+        self.jj = np.where(self.jj >= ix, self.jj - 1, self.jj)
+        self.rm_factors(m, store=False)
+
+    # ----------------------------------------------------------------- update
+
+    def _padded_edges(self):
+        """Pad edge arrays to the bucketed count with (0, 0) zero-weight edges."""
+        n = len(self.ii)
+        n_pad = _round_up(max(n, 1), self.cfg.edge_bucket)
+        ii = np.zeros(n_pad, np.int64)
+        jj = np.zeros(n_pad, np.int64)
+        ii[:n] = self.ii
+        jj[:n] = self.jj
+        return n, n_pad, ii, jj
+
+    def update_fused(self, rounds, t0=None, t1=None, itrs=2, use_inactive=True,
+                     cull_pair=None, motion_only=False):
+        """``rounds`` x (update operator + dense BA) over the active edges.
+
+        Inactive edges inside the window join the BA with frozen target and
+        weight (reference :224-231).  cull_pair: optional (i, j) global frame
+        pair whose bidirectional flow distance on the final state is
+        returned (the frontend's keyframe-culling test); else None.
+        """
+        if len(self.ii) == 0 or rounds == 0:
+            return None
+        video, cfg, dev = self.video, self.cfg, self.device
+        n, n_pad, ii_p, jj_p = self._padded_edges()
+        if t0 is None:
+            t0 = max(1, int(self.ii.min()) + 1)
+        if t1 is None:
+            t1 = int(max(self.ii.max(), self.jj.max())) + 1
+
+        h8, w8 = video.h8, video.w8
+        if use_inactive and len(self.ii_inac):
+            m = (self.ii_inac >= t0 - 3) & (self.jj_inac >= t0 - 3)
+            ii_i, jj_i = self.ii_inac[m], self.jj_inac[m]
+            sel = self._t(np.nonzero(m)[0])
+            tgt_i, wgt_i = self.target_inac[sel], self.weight_inac[sel]
+        else:
+            ii_i = jj_i = np.zeros(0, np.int64)
+            tgt_i = wgt_i = torch.zeros(0, h8, w8, 2, device=dev)
+        ni = len(ii_i)
+        ni_pad = _round_up(ni, cfg.edge_bucket) if ni else 0
+        zpad = torch.zeros(ni_pad - ni, h8, w8, 2, device=dev)
+        tgt_i = torch.cat([tgt_i, zpad], 0)
+        wgt_i = torch.cat([wgt_i, zpad], 0)
+
+        # window covering every referenced frame and the free range [t0, t1)
+        lows = [int(self.ii.min()), int(self.jj.min()), t0]
+        if ni:
+            lows += [int(ii_i.min()), int(jj_i.min())]
+        MW = _round_up(t1 - min(lows), cfg.window_bucket)
+        m0 = max(0, t1 - MW)
+        if m0 == 0:
+            MW = _round_up(t1, cfg.window_bucket)
+
+        # local indices; padded slots anchor at local frame 0
+        ii_a = ii_p - m0
+        jj_a = jj_p - m0
+        ii_a[n:] = 0
+        jj_a[n:] = 0
+        ii_il = np.zeros(ni_pad, np.int64)
+        jj_il = np.zeros(ni_pad, np.int64)
+        ii_il[:ni] = ii_i - m0
+        jj_il[:ni] = jj_i - m0
+        ii_all = np.concatenate([ii_il, ii_a])
+        jj_all = np.concatenate([jj_il, jj_a])
+        be, bm = native.bucket_tables(ii_all, MW)
+
+        free = np.zeros(MW, bool)
+        free[t0 - m0: t1 - m0] = True
+        has_edge = np.zeros(MW, bool)
+        has_edge[self.ii - m0] = True
+        active = torch.as_tensor(np.arange(n_pad) < n, device=dev).float()
+
+        ii_pt, jj_pt = self._t(ii_p), self._t(jj_p)
+        ii_at, jj_at = self._t(ii_a), self._t(jj_a)
+        ii_all, jj_all = self._t(ii_all), self._t(jj_all)
+        kk = ii_at.clamp(0, MW - 1)
+        free_t = torch.as_tensor(free, device=dev)
+        be_t = self._t(be)
+        bm_t = torch.as_tensor(bm, device=dev)
+        has_edge_t = torch.as_tensor(has_edge, device=dev)[:, None, None]
+
+        pad = n_pad - n
+        nets = torch.cat([self.net, torch.zeros(pad, h8, w8, 128, device=dev)], 0)
+        inps = video.inps[ii_pt]
+        target_a = torch.cat([self.target, torch.zeros(pad, h8, w8, 2, device=dev)], 0)
+        win = slice(m0, m0 + MW)
+        poses, disps = video.poses[win], video.disps[win]
+        dsens, damping = video.disps_sens[win], video.damping[win]
+        intr = video.intrinsics[0]
+        intr_win = intr.expand(MW, 4)
+
+        # the correlation pyramid, built once per call (K2)
+        levels = corr_build(video.fmaps[ii_pt, 0], video.fmaps[jj_pt, 0])
+        coords0 = coords_grid(h8, w8, device=dev)
+        amask = active[:, None, None, None]
+        weight_a = torch.zeros_like(target_a)
+
+        for _ in range(rounds):
+            coords1 = projective_transform(poses[None], disps[None], intr_win[None],
+                                           ii_at, jj_at)[0][0]
+            motn = torch.cat([coords1 - coords0, target_a - coords1], -1).clamp(-64.0, 64.0)
+            corr = corr_lookup(levels, coords1.reshape(n_pad, h8 * w8, 2).contiguous())
+            corr = corr.reshape(n_pad, h8, w8, -1)
+
+            # the active mask keeps padded edges out of GraphAgg's per-frame mean
+            nets, delta, weight, eta, _ = self.update_apply(
+                self.params, nets[None], inps[None], corr[None], motn[None], kk, MW, active)
+            nets = nets[0]
+            target_a = coords1 + delta[0]
+            weight_a = weight[0] * amask
+
+            damping = torch.where(has_edge_t, eta[0], damping)
+            eta_ba = 0.2 * damping + cfg.damping_eps
+            poses, disps = ba_iterations(
+                poses, disps, intr, dsens, torch.cat([tgt_i, target_a], 0),
+                torch.cat([wgt_i, weight_a], 0), eta_ba, ii_all, jj_all, free_t, be_t, bm_t,
+                iterations=itrs, lm=cfg.frontend_lm, ep=cfg.frontend_ep,
+                motion_only=motion_only, alpha=cfg.rgbd_alpha, min_depth=cfg.min_depth)
+            disps = disps.clamp_min(0.001)
+
+        d_cull = None
+        if cull_pair is not None:
+            cij = self._t([cull_pair[0] - m0, cull_pair[1] - m0])
+            d2 = frame_distance(poses, disps, intr, cij, cij.flip(0),
+                                beta=cfg.beta, min_depth=cfg.min_depth)
+            d_cull = float(0.5 * (d2[0] + d2[1]))  # the per-keyframe host sync
+
+        video.poses[win] = poses
+        video.disps[win] = disps
+        video.damping[win] = damping
+        self.net = nets[:n]
+        self.target = target_a[:n]
+        self.weight = weight_a[:n]
+        self.age += rounds
+        return d_cull
+
+    # ------------------------------------------------------- edge proposals
+
+    def add_neighborhood_factors(self, t0, t1, r=3):
+        """Edges between frames within radius r (reference :302-312)."""
+        ii, jj = neighbourhood_graph(t1 - t0, r)
+        self.add_factors(ii + t0, jj + t0)
+
+    def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,
+                              thresh=16.0, remove=False):
+        """Distance-based edge selection with NMS (reference :315-379)."""
+        t = self.video.counter
+        if t - t0 <= 0 or t - t1 <= 0:
+            return
+        d = self.video.distance_matrix(t0, t1, t, beta=beta)
+        ii, jj = native.proximity_select(
+            d, t0, t1, t, rad, nms, thresh, self.max_factors,
+            np.concatenate([self.ii, self.ii_bad, self.ii_inac]),
+            np.concatenate([self.jj, self.jj_bad, self.jj_inac]), self.video.stereo)
+        if len(ii):
+            self.add_factors(ii, jj, remove)

@@ -1,0 +1,55 @@
+"""Keyframe admission by flow magnitude (mirror of engine/motion_filter.py).
+
+Per frame: fnet features, a one-step update-operator motion check against
+the last keyframe (a 1-edge correlation at the grid coords, one GRU step,
+no BA) and, when the frame is admitted, cnet context features.  The 1-edge
+correlation goes through K2 and K3 like the frontend's.
+"""
+import numpy as np
+import torch
+
+from ..geom import coords_grid
+from ..lie import se3_identity
+from ..ops.cuda_corr import corr_build, corr_lookup
+from .net_ops import cnet_apply, fnet_apply
+
+
+class MotionFilter:
+    def __init__(self, net, video, thresh=2.4):
+        self.net = net
+        self.video = video
+        self.thresh = thresh
+        self.count = 0
+        self.fmap = None
+        self.hidden = None
+        self.inp = None
+
+    def track(self, tstamp, image, depth=None, intrinsics=None):
+        """Process one frame: image [H, W, 3] uint8 BGR (host)."""
+        video = self.video
+        dev = video.device
+        imgs = torch.as_tensor(np.asarray(image, np.float32), device=dev)[None]
+        intr = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev) / 8.0
+        gmap = fnet_apply(self.net, imgs)
+
+        if video.counter == 0:
+            net, inp = cnet_apply(self.net, imgs)
+            self.hidden, self.inp, self.fmap = net[0], inp[0], gmap
+            video.append(tstamp, image, se3_identity(device=dev), 1.0, depth, intr,
+                         gmap, net[0], inp[0])
+            return
+
+        h8, w8 = gmap.shape[1:3]
+        coords0 = coords_grid(h8, w8, device=dev).reshape(1, h8 * w8, 2)
+        levels = corr_build(self.fmap.contiguous(), gmap.contiguous())
+        corr = corr_lookup(levels, coords0).reshape(1, 1, h8, w8, -1)
+        _, delta, _ = self.net.update(self.hidden[None, None], self.inp[None, None], corr)
+        delta_norm = delta[0, 0].norm(dim=-1).mean()
+
+        if float(delta_norm) > self.thresh:  # the per-frame host sync
+            self.count = 0
+            net, inp = cnet_apply(self.net, imgs)
+            self.hidden, self.inp, self.fmap = net[0], inp[0], gmap
+            video.append(tstamp, image, None, None, depth, intr, gmap, net[0], inp[0])
+        else:
+            self.count += 1

@@ -1,0 +1,93 @@
+"""Recurrent update operator + graph aggregation (mirror of models/update.py).
+
+Tensors are NHWC at the module boundary: net/inp [B, N, H, W, 128],
+corr [B, N, H, W, 196], flow [B, N, H, W, 4].  Edges are flattened into the
+batch dim for the convolutions.  Parameter names are the upstream
+checkpoint's (``corr_encoder.0``, ``gru.convq``, ``agg.eta.0``, ...).
+"""
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .gru import ConvGRU
+from .layers import GradientClip, tconv, to_nchw, to_nhwc
+
+
+class GraphAgg(nn.Module):
+    """Per-keyframe aggregation of edge hidden states.
+
+    The masked per-frame mean is an ``index_add_`` segment mean over the
+    real edges: ``emask`` (0 on padded edges) keeps padding out of both
+    the sums and the counts.  Returns eta [B, M, H, W] and the upsampling
+    mask [B, M, H, W, 576].
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = tconv(128, 128, 3)
+        self.conv2 = tconv(128, 128, 3)
+        self.eta = nn.Sequential(tconv(128, 1, 3), GradientClip(), nn.Softplus())
+        self.upmask = nn.Sequential(tconv(128, 8 * 8 * 9, 1, padding=0))
+
+    def forward(self, net, kk, num_segments, emask=None):
+        """net: [B*N, 128, H, W] NCHW edge states; kk: [N] long segment ids."""
+        BN, C, H, W = net.shape
+        N = kk.shape[0]
+        B = BN // N
+        M = num_segments
+        x = F.relu(self.conv1(net)).reshape(B, N, 128, H, W)
+        if emask is None:
+            emask = torch.ones(N, dtype=x.dtype, device=x.device)
+        emask = emask.to(x.dtype)
+        sums = x.new_zeros(B, M, 128, H, W).index_add_(1, kk, x * emask[None, :, None, None, None])
+        counts = x.new_zeros(M).index_add_(0, kk, emask)
+        mean = sums / counts.clamp_min(1.0)[None, :, None, None, None]
+
+        y = F.relu(self.conv2(mean.reshape(B * M, 128, H, W)))
+        eta = 0.01 * self.eta(y).reshape(B, M, H, W)
+        upmask = to_nhwc(self.upmask(y)).reshape(B, M, H, W, 8 * 8 * 9)
+        return eta, upmask
+
+
+class UpdateModule(nn.Module):
+    """The recurrent update operator.
+
+    Returns updated net, flow correction delta [B,N,H,W,2], confidence
+    weight [B,N,H,W,2] and, when kk/num_segments are given, (eta, upmask).
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.corr_encoder = nn.Sequential(
+            tconv(4 * 49, 128, 1, padding=0), nn.ReLU(), tconv(128, 128, 3), nn.ReLU()
+        )
+        self.flow_encoder = nn.Sequential(
+            tconv(4, 128, 7, padding=3), nn.ReLU(), tconv(128, 64, 3), nn.ReLU()
+        )
+        self.weight = nn.Sequential(
+            tconv(128, 128, 3), nn.ReLU(), tconv(128, 2, 3), GradientClip(), nn.Sigmoid()
+        )
+        self.delta = nn.Sequential(
+            tconv(128, 128, 3), nn.ReLU(), tconv(128, 2, 3), GradientClip()
+        )
+        self.gru = ConvGRU(128, 128 + 128 + 64)
+        self.agg = GraphAgg()
+
+    def forward(self, net, inp, corr, flow=None, kk=None, num_segments=None, emask=None):
+        B, N, H, W, _ = net.shape
+        if flow is None:
+            flow = net.new_zeros(B, N, H, W, 4)
+
+        def flat(x):
+            return to_nchw(x.reshape(B * N, H, W, x.shape[-1]))
+
+        net_f = self.gru(
+            flat(net), flat(inp), self.corr_encoder(flat(corr)), self.flow_encoder(flat(flow))
+        )
+        delta = to_nhwc(self.delta(net_f)).reshape(B, N, H, W, 2)
+        weight = to_nhwc(self.weight(net_f)).reshape(B, N, H, W, 2)
+        net_out = to_nhwc(net_f).reshape(B, N, H, W, 128)
+        if kk is not None:
+            eta, upmask = self.agg(net_f, kk, num_segments, emask)
+            return net_out, delta, weight, eta, upmask
+        return net_out, delta, weight

@@ -1,0 +1,122 @@
+"""K1 (per-edge BA blocks): the CUDA kernel and its plain PyTorch version.
+
+The counterpart of the JAX package's ops/pallas_ba.py and, for the plain
+version, of ba/system.py::build_system_blocks.  For CUDA tensors
+``ba_system_blocks`` launches csrc/ba_blocks.cu or raises; for CPU tensors
+it runs ``build_system_blocks``.  ``launches`` / ``calls`` count each.
+
+Conventions: weights are scaled by 0.001, pixels behind min_depth get zero
+weight, and stereo self-edges (ii == jj) contribute only depth terms.
+"""
+import torch
+
+from . import build
+from ..geom.projective import projective_transform, relative_poses
+from ..lie import quat_to_matrix
+
+
+def build_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
+                        min_depth=0.25, w_scale=0.001):
+    """Plain K1.  target/weight [N, H, W, 2]; poses [MW, 7]; disps
+    [MW, H, W]; intrinsics [4]; ii/jj [N] local frame indices.
+
+    Returns Hii/Hij/Hji/Hjj [N, 6, 6], vi/vj [N, 6], Ei/Ej [N, 6, HW] and
+    Ck/wk [N, HW], computed through projective_transform's Jacobians.
+    """
+    build_system_blocks.calls += 1
+    N = target.shape[0]
+    MW = poses.shape[0]
+    HW = disps.shape[-2] * disps.shape[-1]
+    intr = intrinsics.expand(MW, 4)
+    coords, valid, (Ji, Jj, Jz) = projective_transform(
+        poses[None], disps[None], intr[None], ii, jj, jacobian=True, min_depth=min_depth)
+    coords, valid, Ji, Jj, Jz = coords[0], valid[0], Ji[0], Jj[0], Jz[0]
+
+    r = target - coords                                 # [N, H, W, 2]
+    w = w_scale * valid * weight
+    wp = w * (ii != jj).to(w.dtype)[:, None, None, None]
+    Jz0 = Jz[..., 0]                                    # [N, H, W, 2]
+
+    def hblock(Ja, Jb):
+        return torch.einsum("nhwcx,nhwc,nhwcy->nxy", Ja, wp, Jb)
+
+    Hij = hblock(Ji, Jj)
+    return {
+        "Hii": hblock(Ji, Ji), "Hij": Hij, "Hji": Hij.transpose(-1, -2), "Hjj": hblock(Jj, Jj),
+        "vi": torch.einsum("nhwcx,nhwc,nhwc->nx", Ji, wp, r),
+        "vj": torch.einsum("nhwcx,nhwc,nhwc->nx", Jj, wp, r),
+        "Ei": torch.einsum("nhwcx,nhwc,nhwc->nxhw", Ji, wp, Jz0).reshape(N, 6, HW),
+        "Ej": torch.einsum("nhwcx,nhwc,nhwc->nxhw", Jj, wp, Jz0).reshape(N, 6, HW),
+        "Ck": (w * Jz0 * Jz0).sum(-1).reshape(N, HW),
+        "wk": (w * r * Jz0).sum(-1).reshape(N, HW),
+    }
+
+
+build_system_blocks.calls = 0
+
+
+def edge_inputs(poses, intrinsics, ii, jj):
+    """The kernel's per-edge inputs: gij [N, 12] (row-major R of Gij, then
+    its t), int32 ii/jj and float32 intrinsics, all on the poses' device."""
+    N, dev = ii.shape[0], poses.device
+    Gij = relative_poses(poses[None], ii, jj)[0]
+    gij = torch.cat([quat_to_matrix(Gij[:, 3:7]).reshape(N, 9), Gij[:, :3]], 1).float().contiguous()
+    return (gij, ii.to(device=dev, dtype=torch.int32).contiguous(),
+            jj.to(device=dev, dtype=torch.int32).contiguous(),
+            intrinsics.to(device=dev, dtype=torch.float32).contiguous())
+
+
+def launch(target, weight, gij, ii32, jj32, intr, disps, min_depth=0.25, w_scale=0.001):
+    """One launch of csrc/ba_blocks.cu on inputs the wrapper has checked.
+    Returns H [N, 12, 12], v [N, 12], E [N, 12, HW], C [N, HW], w [N, HW]."""
+    N, H, W, _ = target.shape
+    dev, HW = target.device, H * W
+    Hb = torch.empty(N, 12, 12, device=dev)
+    vb = torch.empty(N, 12, device=dev)
+    Eb = torch.empty(N, 12, HW, device=dev)
+    Cb = torch.empty(N, HW, device=dev)
+    wb = torch.empty(N, HW, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ba_blocks_launch(
+            target.data_ptr(), weight.data_ptr(), gij.data_ptr(), disps.data_ptr(),
+            ii32.data_ptr(), jj32.data_ptr(), intr.data_ptr(), float(min_depth),
+            float(w_scale), N, H, W, Hb.data_ptr(), vb.data_ptr(), Eb.data_ptr(),
+            Cb.data_ptr(), wb.data_ptr(), stream)
+    build.check(err, "ba_system_blocks")
+    return Hb, vb, Eb, Cb, wb
+
+
+def ba_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
+                     min_depth=0.25, w_scale=0.001):
+    """Per-edge GN blocks (K1); arguments and result as build_system_blocks."""
+    if target.device.type == "cpu":
+        return build_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
+                                   min_depth=min_depth, w_scale=w_scale)
+    dev = target.device
+    for name, x in (("target", target), ("weight", weight), ("disps", disps)):
+        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"ba_system_blocks: {name} must be contiguous float32 on {dev}")
+    N, H, W, two = target.shape
+    if (two != 2 or tuple(weight.shape) != (N, H, W, 2) or tuple(disps.shape[1:]) != (H, W)
+            or tuple(poses.shape) != (disps.shape[0], 7) or poses.device != dev):
+        raise ValueError(f"ba_system_blocks: target {tuple(target.shape)}, weight "
+                         f"{tuple(weight.shape)}, poses {tuple(poses.shape)} on {poses.device}, "
+                         f"disps {tuple(disps.shape)}")
+    if target.data_ptr() % 8 or weight.data_ptr() % 8:
+        raise ValueError("ba_system_blocks: target/weight must be 8-byte aligned")
+    if ii.shape != (N,) or jj.shape != (N,):
+        raise ValueError(f"ba_system_blocks: ii {tuple(ii.shape)}, jj {tuple(jj.shape)}")
+
+    Hb, vb, Eb, Cb, wb = launch(target, weight, *edge_inputs(poses, intrinsics, ii, jj),
+                                disps, min_depth, w_scale)
+    ba_system_blocks.launches += 1
+    return {
+        "Hii": Hb[:, :6, :6], "Hij": Hb[:, :6, 6:], "Hji": Hb[:, 6:, :6], "Hjj": Hb[:, 6:, 6:],
+        "vi": vb[:, :6], "vj": vb[:, 6:], "Ei": Eb[:, :6], "Ej": Eb[:, 6:],
+        "Ck": Cb, "wk": wb,
+    }
+
+
+ba_system_blocks.launches = 0

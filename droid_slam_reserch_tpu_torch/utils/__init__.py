@@ -1,0 +1,9 @@
+from .config import (
+    DroidConfig,
+    EUROC_CONFIG,
+    TUM_CONFIG,
+    TARTANAIR_CONFIG,
+    ETH3D_CONFIG,
+)
+
+__all__ = [k for k in dir() if not k.startswith("_")]

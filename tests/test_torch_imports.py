@@ -1,0 +1,29 @@
+"""The port and chip_smoke.py never import JAX, Flax or the JAX package:
+walk the AST of every module (imports inside functions included)."""
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "droid_slam_reserch_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "droid_slam_reserch_tpu")
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_jax_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_walk_sees_the_whole_port():
+    names = {p.name for p in FILES}
+    assert {"chip_smoke.py", "cuda_corr.py", "cuda_ba.py", "factor_graph.py"} <= names
