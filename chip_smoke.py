@@ -4,28 +4,36 @@
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits nonzero):
-1. build   nvcc-compiles the port's CUDA kernels from csrc/ (sm_90a);
+1. build   nvcc-compiles the port's CUDA kernels from csrc/ (sm_90a), one
+           process per source, all started together;
 2. kernels holds each kernel (K1 BA blocks, K2 correlation build, K3
-           correlation lookup) against its plain PyTorch version on the card
-           at the main path's shapes, and times kernel, plain version and,
-           where one PyTorch call computes the same function, that call;
-3. card vs CPU  the oracle frontend gate on the card (ATE < 0.01), and the
-           port's Droid.track at 64x96 on the card against the same run with
-           device="cpu";
-4. main path    Droid.track with EUROC_CONFIG (mono, 320x512, fp32, full
-           network widths, seeded random weights) over synthetic frames, with
-           every kernel's launch count and every plain version's call count
-           set to 0 just before and read just after.
+           correlation lookup, K4 window-cache build, K5 windowed lookup)
+           against its plain PyTorch version on the card at the main path's
+           shapes, K5(K4) against K3(K2) where the drift rule holds, and times
+           kernel, plain version and, where one PyTorch call computes the same
+           function, that call;
+3. drift   the frontend's windowed lookup with coords that leave the cached
+           windows: the fallback (K2 once, K3) is taken, counted and exact;
+4. card vs CPU  the oracle frontend and backend gates on the card (ATE <
+           0.01), and the port's Droid.track + terminate_eva at 64x96 on the
+           card against the same run with device="cpu";
+5. main path    Droid.track with EUROC_CONFIG (mono, 320x512, fp32, full
+           network widths, seeded random weights) over synthetic frames, then
+           Droid.terminate_eva over the same frames (backend 7 + 12 steps,
+           trajectory filler); before each of the two, every kernel's launch
+           count and every plain version's call count is set to 0, and read
+           just after.
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as its last line the device JSON.  The script needs only
 torch, numpy and scipy, and the CUDA toolkit for nvcc.
 
     python3 chip_smoke.py --profile
 
-adds a phase after the main path: 12 more keyframes, half of them timed
-per stage on the host clock and half under torch.profiler, with the device
-kernel time grouped and the device's idle share printed; the full tables go
-to chiprun_out/profile_main_path.txt.
+adds a phase between tracking and terminate_eva: 12 more keyframes, half of
+them timed per stage on the host clock and half under torch.profiler, with
+the device kernel time grouped and the device's idle share printed, and
+runs terminate_eva under torch.profiler too; the full tables go to
+chiprun_out/profile_main_path.txt and chiprun_out/profile_terminate.txt.
 """
 import json
 import os
@@ -45,6 +53,8 @@ PEAK_BYTES = 3.35e12
 
 # main-path shapes: EuRoC 320x512 -> 40x64 feature maps, 48 active edges
 E_MAIN, H8, W8, C = 48, 40, 64, 128
+INTR_EUROC = np.array([296.3, 290.1, 250.2, 168.1], np.float32)
+N_MAIN = 40                    # frames of the main path
 N_BA, MW_BA = 64, 24           # 48 active + 16 inactive edges over a 24-frame window
 K1_OPS_PER_PIXEL = 580         # flops per pixel, counted from csrc/ba_blocks.cu
 
@@ -104,6 +114,7 @@ def small_config(DroidConfig):
         image_size=(64, 96), buffer=32, warmup=5, filter_thresh=-1.0,
         frontend_window=8, frontend_thresh=32.0, max_factors=32, keyframe_thresh=0.0,
         init_iters=2, iters1=1, iters2=1, edge_bucket=8, window_bucket=4,
+        backend_steps_first=2, backend_steps_second=3,
     )
 
 
@@ -129,6 +140,7 @@ def phase_kernels(torch):
     from droid_slam_reserch_tpu_torch.geom import coords_grid
     from droid_slam_reserch_tpu_torch.lie import se3_exp
     from droid_slam_reserch_tpu_torch.ops import cuda_ba, cuda_corr
+    from droid_slam_reserch_tpu_torch.ops.corr import level_sizes, window_drift_ok
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -197,7 +209,66 @@ def phase_kernels(torch):
                                       library_ms=lib_ms2, bound_ms=bound2[0], bound_by=bound2[1])
             rows["corr_lookup"] = dict(max_abs_err=err3, ms=ms3, plain_ms=plain_ms3,
                                        library_ms=None, bound_ms=bound3[0], bound_by=bound3[1])
-        del levels, out
+
+        # ---- K4 / K5: the window cache around first-round coords, and its lookup
+        c0 = (grid + randn(E, P, 2, scale=2.0)).contiguous()
+        c0[:, :64] += 50.0                         # some windows at the level's edge
+        wins, bases = cuda_corr.corr_build_windows(f1, f2, c0)
+        pwins, pbases = cuda_corr.corr_build_windows_plain(f1, f2, c0)
+        torch.cuda.synchronize()
+        same_bases = bool((bases == pbases).all())
+        err4 = float((wins - pwins).abs().max())
+        tol4 = 1e-5 * max(1.0, float(pwins.abs().max()))
+        say("kernels", f"K4 corr_build_windows E={E}: bases equal {same_bases}, windows "
+                       f"max_abs_err {err4:.3e} (tol {tol4:.1e})")
+        if not (same_bases and err4 <= tol4):
+            fail(f"K4 disagrees with its plain version at E={E}")
+        del pwins, pbases
+        c1 = (c0 + 4.0 * torch.rand(E, P, 2, generator=gen, device=dev) - 2.0).contiguous()
+        if not bool(window_drift_ok(bases, c1, level_sizes(H8, W8))):
+            fail("a drift of at most 2 px left the cached windows")
+        out5 = cuda_corr.corr_lookup_windows(wins, bases, c1, (H8, W8))
+        ref5 = cuda_corr.corr_lookup_windows_plain(wins, bases, c1, (H8, W8))
+        full = cuda_corr.corr_lookup(levels, c1)
+        torch.cuda.synchronize()
+        err5 = float((out5 - ref5).abs().max())
+        tol5 = 1e-5 * max(1.0, float(ref5.abs().max()))
+        err53 = float((out5 - full).abs().max())
+        tol53 = 1e-5 * max(1.0, float(full.abs().max()))
+        say("kernels", f"K5 corr_lookup_windows E={E}: max_abs_err {err5:.3e} (tol {tol5:.1e}); "
+                       f"K5(K4) against K3(K2) where the drift rule holds: {err53:.3e} "
+                       f"(tol {tol53:.1e})")
+        if not (err5 <= tol5 and err53 <= tol53):
+            fail(f"K5 disagrees with its plain version or with K3 at E={E}")
+        del ref5, full
+
+        ms4 = cuda_ms(torch, lambda: cuda_corr.corr_build_windows(f1, f2, c0), reps)
+        plain_ms4 = cuda_ms(torch, lambda: cuda_corr.corr_build_windows_plain(f1, f2, c0),
+                            max(reps // 5, 2))
+        pooled = sum(v.numel() for v in levels[1:])       # 4 operations per pooled cell
+        bound4 = bound(2.0 * E * P * Q * C + 4.0 * pooled,
+                       (f1.numel() + f2.numel() + c0.numel() + wins.numel() + bases.numel()) * 4)
+        ms5 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_windows(wins, bases, c1, (H8, W8)),
+                      4 * reps)
+        plain_ms5 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_windows_plain(
+            wins, bases, c1, (H8, W8)), max(reps // 5, 2))
+        # reads the 8x8 block of each window it samples, the bases and coords
+        bound5 = bound(E * P * 4 * (7 * 8 * 3 + 49 * 3),
+                       (E * P * 4 * 64 + bases.numel() + c1.numel() + out5.numel()) * 4)
+        say("kernels", f"E={E}: K4 {ms4:.4f} ms (plain {plain_ms4:.4f}, torch.bmm volume "
+                       f"{lib_ms2:.4f}, bound {bound4[0]:.4f} by {bound4[1]}); K5 {ms5:.4f} ms "
+                       f"(plain {plain_ms5:.4f}, bound {bound5[0]:.4f} by {bound5[1]})")
+        say("kernels", f"E={E}: one update_fused call of 6 rounds, correlation only: "
+                       f"K4 + 6 x K5 = {ms4 + 6 * ms5:.4f} ms against K2 + 6 x K3 = "
+                       f"{ms2 + 6 * ms3:.4f} ms")
+        if E == E_MAIN:
+            rows["corr_build_windows"] = dict(max_abs_err=err4, ms=ms4, plain_ms=plain_ms4,
+                                              library_ms=lib_ms2, bound_ms=bound4[0],
+                                              bound_by=bound4[1])
+            rows["corr_lookup_windows"] = dict(max_abs_err=max(err5, err53), ms=ms5,
+                                               plain_ms=plain_ms5, library_ms=None,
+                                               bound_ms=bound5[0], bound_by=bound5[1])
+        del levels, out, wins, bases, out5
 
     # ---- K1 at N = 64 edges over a 24-frame window
     xi = torch.cat([0.05 * torch.arange(MW_BA, device=dev)[:, None].expand(MW_BA, 3),
@@ -243,6 +314,49 @@ def phase_kernels(torch):
     return rows
 
 
+def phase_drift(torch, ops):
+    """The frontend's per-call correlation (engine.factor_graph.WindowedLookup)
+    at the main path's shapes: a small drift reads the windows (K5), drifts
+    past the windows take the full lookup (K2 built once, K3 each time), and
+    every answer equals the plain full lookup."""
+    from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
+    from droid_slam_reserch_tpu_torch.geom import coords_grid
+    from droid_slam_reserch_tpu_torch.ops import cuda_corr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    E, P = E_MAIN, H8 * W8
+    f1 = torch.randn(E, H8, W8, C, generator=gen, device=dev)
+    f2 = torch.randn(E, H8, W8, C, generator=gen, device=dev)
+    c0 = (coords_grid(H8, W8, device=dev).reshape(1, P, 2)
+          + torch.randn(E, P, 2, generator=gen, device=dev)).contiguous()
+    ops.reset_counts()
+    fg.reset_corr_rounds()
+    lookup = fg.WindowedLookup(f1, f2, c0)
+    drifts = (1.0, 12.0, -12.0)
+    outs = [lookup((c0 + d).contiguous()) for d in drifts]
+    torch.cuda.synchronize()
+    counts, rounds = ops.counts(), dict(fg.CORR_ROUNDS)
+    levels = cuda_corr.corr_build_plain(f1, f2)
+    err = 0.0
+    for d, out in zip(drifts, outs):
+        ref = cuda_corr.corr_lookup_plain(levels, (c0 + d).contiguous())
+        err = max(err, float((out - ref).abs().max()) / max(1.0, float(ref.abs().max())))
+    say("drift", f"E={E}: drifts {drifts} px -> rounds {rounds}; launches K4 "
+                 f"{counts['corr_build_windows'][0]}, K5 {counts['corr_lookup_windows'][0]}, "
+                 f"K2 {counts['corr_build'][0]}, K3 {counts['corr_lookup'][0]}; max error "
+                 f"against the plain full lookup {err:.3e} relative (tol 1e-5)")
+    want = {"corr_build_windows": 1, "corr_lookup_windows": 1, "corr_build": 1, "corr_lookup": 2}
+    if rounds != {"windowed": 1, "fallback": 2} or any(counts[k][0] != n for k, n in want.items()):
+        fail("the drift fallback was not taken as the rule says")
+    if not err <= 1e-5:
+        fail("the windowed lookup or its fallback is not exact")
+
+
+FRONTEND_KERNELS = ("ba_blocks", "corr_build_windows", "corr_lookup_windows")
+BACKEND_KERNELS = ("ba_blocks", "corr_build", "corr_lookup")
+
+
 def phase_card_vs_cpu(torch, ops):
     from droid_slam_reserch_tpu_torch.engine import Droid
     from droid_slam_reserch_tpu_torch.eval import oracle
@@ -261,50 +375,81 @@ def phase_card_vs_cpu(torch, ops):
                        f"keyframes {v.counter}, launches {counts}")
     if not (err < 0.01 and v.counter == oracle.T):
         fail("oracle frontend gate on the card")
-    if any(n == 0 or p != 0 for n, p in counts.values()):
-        fail(f"oracle gate did not run through every kernel: {counts}")
+    if (any(counts[k][0] == 0 for k in FRONTEND_KERNELS)
+            or any(p != 0 for _, p in counts.values())):
+        fail(f"oracle gate did not run through every kernel of the frontend: {counts}")
+
+    ops.reset_counts()
+    graph = oracle.drive_backend(v, gt, steps=2, itrs=2)
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    err, _ = ate_rmse(oracle.cam_centers(v.poses[:oracle.T]), oracle.cam_centers(gt[0]),
+                      align=True, correct_scale=True)
+    say("card-vs-cpu", f"oracle backend gate on the card (2 update_lowmem steps over "
+                       f"{len(graph.ii)} edges): ATE {err:.3e} (limit 1e-2), launches {counts}")
+    if not err < 0.01:
+        fail("oracle backend gate on the card")
+    if (any(counts[k][0] == 0 for k in BACKEND_KERNELS)
+            or any(p != 0 for _, p in counts.values())):
+        fail(f"oracle backend gate did not run through K1, K2 and K3: {counts}")
 
     params = init_params(seed=0)
+    intr = np.array([60.0, 60.0, 48.0, 32.0], np.float32)
     runs = {}
     for device in ("cuda", "cpu"):
         d = Droid(small_config(DroidConfig), params=params, device=device)
         rng = np.random.RandomState(0)
+        frames = [synth_small(t, rng) for t in range(10)]
         hist = []
-        for t in range(10):
-            d.track(float(t), synth_small(t, rng),
-                    intrinsics=np.array([60.0, 60.0, 48.0, 32.0], np.float32))
+        for t, img in enumerate(frames):
+            d.track(float(t), img, intrinsics=intr)
             hist.append((d.video.counter, d.frontend.graph.ii.copy(), d.frontend.graph.jj.copy()))
-        runs[device] = (hist, d.video.poses[:d.video.counter].cpu().numpy())
-    (h_gpu, p_gpu), (h_cpu, p_cpu) = runs["cuda"], runs["cpu"]
+        poses = d.video.poses[:d.video.counter].cpu().numpy().copy()   # terminate_eva moves them
+        traj = d.terminate_eva(iter([(float(t), img, intr) for t, img in enumerate(frames)]))
+        runs[device] = (hist, poses, traj)
+    (h_gpu, p_gpu, tr_gpu), (h_cpu, p_cpu, tr_cpu) = runs["cuda"], runs["cpu"]
     same_graph = all(a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
                      for a, b in zip(h_gpu, h_cpu))
     dp = float(np.abs(p_gpu - p_cpu).max()) if p_gpu.shape == p_cpu.shape else float("inf")
+    dt = float(np.abs(tr_gpu - tr_cpu).max()) if tr_gpu.shape == tr_cpu.shape else float("inf")
     say("card-vs-cpu", f"Droid.track 64x96, 10 frames: keyframes {h_gpu[-1][0]} vs "
                        f"{h_cpu[-1][0]}, edges equal every frame: {same_graph}, "
-                       f"max |pose diff| {dp:.3e} (tol 1e-3)")
+                       f"max |pose diff| {dp:.3e} (tol 1e-3); terminate_eva (backend 2 + 3 "
+                       f"steps, filler): trajectory {tr_gpu.shape}, max |diff| {dt:.3e} (tol 1e-3)")
     if not (same_graph and dp <= 1e-3):
         fail("the card run and the CPU run of Droid.track disagree")
+    if not (tr_gpu.shape == (10, 7) and np.isfinite(tr_gpu).all() and dt <= 1e-3):
+        fail("the card run and the CPU run of Droid.terminate_eva disagree")
 
 
-def phase_main_path(torch, ops, n_frames=40, extra=0):
+def check_counts(counts, what):
+    for name, (launches, plain) in counts.items():
+        if launches == 0 or plain != 0:
+            fail(f"{name}: {launches} kernel launches, {plain} plain calls on {what}")
+
+
+def phase_main_path(torch, ops, frames):
+    """Droid.track over EuRoC-size frames; returns the kernel counts, the
+    Droid and the tracked (tstamp, image) pairs."""
     from droid_slam_reserch_tpu_torch.engine import Droid
+    from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
     from droid_slam_reserch_tpu_torch.utils import EUROC_CONFIG
 
     cfg = EUROC_CONFIG.replace(filter_thresh=-1.0, keyframe_thresh=0.0)
-    frames = euroc_frames(n_frames + extra)
-    intr = np.array([296.3, 290.1, 250.2, 168.1], np.float32)
+    n_frames = len(frames)
     droid = Droid(cfg, device="cuda")
     torch.cuda.synchronize()
 
     ops.reset_counts()
+    fg.reset_corr_rounds()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     t_init = None
-    for t, img in enumerate(frames[:n_frames]):
-        droid.track(float(t), img, intrinsics=intr)
+    for t, img in enumerate(frames):
+        droid.track(float(t), img, intrinsics=INTR_EUROC)
         if t_init is None and droid.frontend.is_initialized:
             torch.cuda.synchronize()
-            t_init = (time.time(), t + 1)
+            t_init = (time.time(), t + 1, droid.video.counter, dict(fg.CORR_ROUNDS))
     torch.cuda.synchronize()
     t1 = time.time()
     counts = ops.counts()
@@ -318,25 +463,89 @@ def phase_main_path(torch, ops, n_frames=40, extra=0):
     steady = n_frames - t_init[1]
     fps_all = n_frames / (t1 - t0)
     fps_steady = steady / (t1 - t_init[0]) if steady > 0 else float("nan")
-    say("main-path", f"EUROC_CONFIG mono 320x512 fp32: {n_frames} frames, {n_kf} keyframes, "
-                     f"{len(droid.frontend.graph.ii)} active edges; {fps_all:.2f} frames/s and "
-                     f"{n_kf / (t1 - t0):.2f} keyframes/s overall, {fps_steady:.2f} frames/s "
-                     f"after initialisation; peak memory "
+    rounds = dict(fg.CORR_ROUNDS)
+    steady_rounds = sum(rounds.values()) - sum(t_init[3].values())
+    steady_kf = n_kf - t_init[2]
+    say("main-path", f"track: EUROC_CONFIG mono 320x512 fp32: {n_frames} frames, {n_kf} "
+                     f"keyframes, {len(droid.frontend.graph.ii)} active edges; {fps_all:.2f} "
+                     f"frames/s and {n_kf / (t1 - t0):.2f} keyframes/s overall, {fps_steady:.2f} "
+                     f"frames/s after initialisation; peak memory "
                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    say("main-path", f"counts (kernel launches, plain calls): {counts}")
+    say("main-path", f"track: correlation rounds {rounds} (one host read of the drift rule "
+                     f"each; {steady_rounds / max(steady_kf, 1):.2f} per keyframe after "
+                     f"initialisation); counts (kernel launches, plain calls): {counts}")
     if not finite:
         fail("non-finite poses or disparities on the main path")
     if n_kf < cfg.warmup:
         fail(f"only {n_kf} keyframes (< warmup {cfg.warmup})")
-    for name, (launches, plain) in counts.items():
-        if launches == 0 or plain != 0:
-            fail(f"{name}: {launches} kernel launches, {plain} plain calls on the main path")
-    return counts, droid, frames[n_frames:], intr
+    check_counts(counts, "the main path's track")
+    return counts, droid, [(float(t), img) for t, img in enumerate(frames)]
+
+
+class Timed:
+    """Wraps a callable; records the seconds and the peak device memory
+    (GiB) of each call, synchronised."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.seconds, self.peak = torch, fn, [], []
+
+    def __call__(self, *args, **kw):
+        cuda = self.torch.cuda
+        cuda.synchronize()
+        cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = self.fn(*args, **kw)
+        cuda.synchronize()
+        self.seconds.append(time.time() - t0)
+        self.peak.append(cuda.max_memory_allocated() / 2**30)
+        return out
+
+
+def phase_terminate(torch, ops, droid, tracked, profiling=False):
+    """Droid.terminate_eva over every tracked frame: the backend's two runs
+    and the trajectory filler, timed apart on the host clock.  With
+    profiling, the call runs under torch.profiler (whose overhead then
+    enters the host-clock times)."""
+    from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
+
+    n_kf = droid.video.counter
+    backend = droid.backend = Timed(torch, droid.backend)
+    filler = droid.traj_filler = Timed(torch, droid.traj_filler)
+    call = Timed(torch, droid.terminate_eva)
+    stream = iter([(t, img, INTR_EUROC) for t, img in tracked])
+    ops.reset_counts()
+    fg.reset_corr_rounds()
+    if profiling:
+        traj = profiled(torch, lambda: call(stream), "terminate_eva", 1, "call",
+                        "profile_terminate.txt")
+    else:
+        traj = call(stream)
+    counts = ops.counts()
+    rounds = dict(fg.CORR_ROUNDS)
+    runs = backend.fn.runs
+    say("main-path", f"terminate_eva: {call.seconds[0]:.2f} s: backend {backend.seconds[0]:.2f} s "
+                     f"({droid.cfg.backend_steps_first} steps, {runs[0]}) + "
+                     f"{backend.seconds[1]:.2f} s ({droid.cfg.backend_steps_second} steps, "
+                     f"{runs[1]}), filler {filler.seconds[0]:.2f} s over {len(tracked)} frames "
+                     f"and {n_kf} keyframes; peak memory: backend {max(backend.peak):.2f} GiB, "
+                     f"filler {filler.peak[0]:.2f} GiB")
+    say("main-path", f"terminate_eva: filler correlation rounds {rounds}; counts (kernel "
+                     f"launches, plain calls): {counts}")
+    q = np.linalg.norm(traj[:, 3:], axis=1) if traj.ndim == 2 else np.zeros(0)
+    say("main-path", f"terminate_eva: trajectory {traj.shape}, finite {bool(np.isfinite(traj).all())}, "
+                     f"|q| in [{q.min():.6f}, {q.max():.6f}]")
+    if not (traj.shape == (len(tracked), 7) and np.isfinite(traj).all()
+            and np.abs(q - 1.0).max() < 1e-3):
+        fail("terminate_eva did not return a finite trajectory of unit quaternions")
+    check_counts(counts, "the main path's terminate_eva")
+    return counts
 
 
 KERNEL_GROUPS = (      # substrings of device kernel names -> group, first match wins
     ("port K2 corr_build", ("corr_volume_kernel", "pool2x_kernel")),
     ("port K3 corr_lookup", ("corr_lookup_kernel",)),
+    ("port K4 corr_build_windows", ("windows_build_kernel",)),
+    ("port K5 corr_lookup_windows", ("windows_lookup_kernel",)),
     ("port K1 ba_blocks", ("ba_blocks_kernel",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "winograd", "fft", "_complex")),
     ("matrix products (cuBLAS)", ("gemm", "gemv", "cutlass")),
@@ -345,20 +554,56 @@ KERNEL_GROUPS = (      # substrings of device kernel names -> group, first match
 )
 
 
-def phase_profile(torch, droid, frames, intr):
-    """Where a steady-state keyframe's time goes, after the main path.
-
-    The first half of `frames` is tracked with the motion filter and the
-    frontend timed apart on the host clock (each ends in a synchronize);
-    the second half runs Droid.track under torch.profiler, whose device
-    kernels are summed by name and by group against the wall time.  The
-    full tables go to chiprun_out/profile_main_path.txt.
-    """
+def profiled(torch, fn, what, per, unit, filename):
+    """Run fn under torch.profiler; print the wall time, the device's busy
+    and idle share and the device time by kernel group, each divided by
+    `per` `unit`s, and write the full tables to chiprun_out/filename."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    avgs = prof.key_averages()
+    dev = sorted(((e.self_device_time_total, e.count, e.key) for e in avgs
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                 reverse=True)
+    busy_us = sum(us for us, _, _ in dev)
+    if busy_us == 0:
+        fail("torch.profiler recorded no device time")
+    groups = {}
+    for us, _, name in dev:
+        low = name.lower()
+        g = next((g for g, keys in KERNEL_GROUPS if any(s in low for s in keys)), "other kernels")
+        groups[g] = groups.get(g, 0.0) + us
+    say("profile", f"{what} under torch.profiler: wall {wall_us / 1e3 / per:.1f} ms per {unit}, "
+                   f"device busy {busy_us / 1e3 / per:.1f} ms ({100 * busy_us / wall_us:.1f} %), "
+                   f"idle {100 * (1 - busy_us / wall_us):.1f} %")
+    say("profile", f"device time per {unit} by group: " + "; ".join(
+        f"{g} {us / 1e3 / per:.2f} ms" for g, us in sorted(groups.items(), key=lambda x: -x[1])))
+    path = os.path.join(OUT_DIR, filename)
+    with open(path, "w") as f:
+        f.write(f"{what}: wall {wall_us:.0f} us, device busy {busy_us:.0f} us\n\n")
+        f.write("device kernels by total time (us, count, name):\n")
+        for us, n, name in dev:
+            f.write(f"{us:12.1f} {n:7d}  {name[:160]}\n")
+        f.write("\n" + avgs.table(sort_by="self_cpu_time_total", row_limit=40))
+    say("profile", f"tables in {os.path.relpath(path, REPO)}")
+    return out
+
+
+def phase_profile(torch, droid, frames, t_base, intr=INTR_EUROC):
+    """Where a steady-state keyframe's time goes, after the main path's track.
+
+    The frames get timestamps from t_base on.  The first half of `frames`
+    is tracked with the motion filter and the frontend timed apart on the
+    host clock (each ends in a synchronize); the second half runs
+    Droid.track under torch.profiler.  Returns the tracked (tstamp, image)
+    pairs.
+    """
     half = len(frames) // 2
-    t_base = float(droid.video.tstamp[droid.video.counter - 1]) + 1.0
     mf, fe = [], []
     with torch.no_grad():
         for k, img in enumerate(frames[:half]):
@@ -375,37 +620,14 @@ def phase_profile(torch, droid, frames, intr):
                    f"(median {1e3 * np.median(fe):.1f})")
 
     rest = frames[half:]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def track_rest():
         for k, img in enumerate(rest):
             droid.track(t_base + half + k, img, intrinsics=intr)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    avgs = prof.key_averages()
-    dev = sorted(((e.self_device_time_total, e.count, e.key) for e in avgs
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                 reverse=True)
-    busy_us = sum(us for us, _, _ in dev)
-    if busy_us == 0:
-        fail("torch.profiler recorded no device time")
-    groups = {}
-    for us, _, name in dev:
-        low = name.lower()
-        g = next((g for g, keys in KERNEL_GROUPS if any(s in low for s in keys)), "other kernels")
-        groups[g] = groups.get(g, 0.0) + us
-    say("profile", f"{len(rest)} keyframes under torch.profiler: wall {wall_us / 1e3 / len(rest):.1f} "
-                   f"ms per keyframe, device busy {busy_us / 1e3 / len(rest):.1f} ms "
-                   f"({100 * busy_us / wall_us:.1f} %), idle {100 * (1 - busy_us / wall_us):.1f} %")
-    say("profile", "device time per keyframe by group: " + "; ".join(
-        f"{g} {us / 1e3 / len(rest):.2f} ms" for g, us in sorted(groups.items(), key=lambda x: -x[1])))
-    path = os.path.join(OUT_DIR, "profile_main_path.txt")
-    with open(path, "w") as f:
-        f.write(f"{len(rest)} keyframes, wall {wall_us:.0f} us, device busy {busy_us:.0f} us\n\n")
-        f.write("device kernels by total time (us, count, name):\n")
-        for us, n, name in dev:
-            f.write(f"{us:12.1f} {n:7d}  {name[:160]}\n")
-        f.write("\n" + avgs.table(sort_by="self_cpu_time_total", row_limit=40))
-    say("profile", f"tables in {os.path.relpath(path, REPO)}")
+
+    profiled(torch, track_rest, f"{len(rest)} keyframes", len(rest), "keyframe",
+             "profile_main_path.txt")
+    return [(t_base + k, img) for k, img in enumerate(frames)]
 
 
 def main():
@@ -433,10 +655,13 @@ def main():
 
     profiling = "--profile" in sys.argv[1:]
     rows = phase_kernels(torch)
+    phase_drift(torch, ops)
     phase_card_vs_cpu(torch, ops)
-    counts, droid, extra, intr = phase_main_path(torch, ops, extra=12 if profiling else 0)
+    frames = euroc_frames(N_MAIN + (12 if profiling else 0))
+    counts, droid, tracked = phase_main_path(torch, ops, frames[:N_MAIN])
     if profiling:
-        phase_profile(torch, droid, extra, intr)
+        tracked += phase_profile(torch, droid, frames[N_MAIN:], float(N_MAIN))
+    counts_term = phase_terminate(torch, ops, droid, tracked, profiling)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -450,12 +675,17 @@ def main():
                        "droid_slam_reserch_tpu/ops/pallas_corr.py:182"),
         "corr_lookup": ("droid_slam_reserch_tpu_torch/csrc/corr_lookup.cu",
                         "droid_slam_reserch_tpu/ops/pallas_corr.py:265"),
+        "corr_build_windows": ("droid_slam_reserch_tpu_torch/csrc/corr_windows_build.cu",
+                               "droid_slam_reserch_tpu/ops/pallas_corr.py:715"),
+        "corr_lookup_windows": ("droid_slam_reserch_tpu_torch/csrc/corr_windows_lookup.cu",
+                                "droid_slam_reserch_tpu/ops/pallas_corr.py:474"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[name][0], "max_abs_err": r["max_abs_err"],
+                        "launches": counts[name][0] + counts_term[name][0],
+                        "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)

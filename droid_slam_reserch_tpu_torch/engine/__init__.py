@@ -1,11 +1,13 @@
-"""SLAM runtime of this slice: keyframe buffer, motion filter, factor graph,
-frontend and the Droid facade.  Host Python owns the data-dependent
-decisions (admission, edge selection, culling); the numeric steps run on
-the engine's device."""
+"""SLAM runtime of the port: keyframe buffer, motion filter, factor graph,
+frontend, backend, trajectory filler and the Droid facade.  Host Python
+owns the data-dependent decisions (admission, edge selection, culling, the
+drift fallback); the numeric steps run on the engine's device."""
+from .backend import Backend
 from .droid import Droid
 from .factor_graph import FactorGraph
 from .frontend import Frontend
 from .motion_filter import MotionFilter
+from .trajectory_filler import TrajectoryFiller
 from .video import Video
 
 __all__ = [k for k in dir() if not k.startswith("_")]

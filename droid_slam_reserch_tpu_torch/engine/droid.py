@@ -1,21 +1,23 @@
-"""Droid facade (mirror of engine/droid.py): motion filter -> frontend.
+"""Droid facade (mirror of engine/droid.py): motion filter -> frontend ->
+backend -> trajectory filler.
 
-This slice runs online mono tracking; the backend, the trajectory filler
-and the other sensor modes raise ``NotImplementedError``.
+This slice runs mono tracking and the global refinement that ends it; the
+other sensor modes, upsampling, bf16 and the viewer raise
+``NotImplementedError``.
 """
 import os
 
 import numpy as np
 import torch
 
+from ..lie import se3_inv
 from ..models import DroidNet, init_params
+from .backend import Backend
 from .frontend import Frontend
 from .motion_filter import MotionFilter
 from .net_ops import update_apply
+from .trajectory_filler import TrajectoryFiller
 from .video import Video
-
-_SLICE2 = ("is slice 2 of the PyTorch port (backend update_lowmem with altcorr, "
-           "trajectory filler); not implemented yet")
 
 
 def resolve_device(device):
@@ -45,6 +47,8 @@ class Droid:
         self.video = Video(config, self.device)
         self.filterx = MotionFilter(self.net, self.video, thresh=config.filter_thresh)
         self.frontend = Frontend(update_apply, self.net.update, self.video, config)
+        self.backend = Backend(update_apply, self.net.update, self.video, config)
+        self.traj_filler = TrajectoryFiller(self.net, update_apply, self.video, config)
 
     @torch.no_grad()
     def track(self, tstamp, image, depth=None, intrinsics=None):
@@ -54,11 +58,26 @@ class Droid:
         self.filterx.track(tstamp, image, depth, intrinsics)
         self.frontend()
 
+    @torch.no_grad()
     def terminate(self, stream=None):
-        raise NotImplementedError("Droid.terminate " + _SLICE2)
+        """Global refinement (reference droid.py:114-126): two backend runs."""
+        del self.frontend
+        self.backend(self.cfg.backend_steps_first)
+        self.backend(self.cfg.backend_steps_second)
 
-    def terminate_eva(self, stream=None):
-        raise NotImplementedError("Droid.terminate_eva " + _SLICE2)
+    def terminate_eva(self, stream):
+        """Backend, then the trajectory filler over ``stream`` (tstamp, image,
+        intrinsics); returns the camera trajectory [T, 7] (the inverted
+        world-to-camera poses, reference droid.py:132-146)."""
+        self.terminate()
+        return self.terminate_eva_second(stream)
+
+    def terminate_eva_second(self, stream):
+        """Trajectory fill only (reference droid.py:148-153)."""
+        if hasattr(self, "frontend"):
+            del self.frontend
+        poses = torch.as_tensor(self.traj_filler(stream))
+        return se3_inv(poses).numpy()
 
     def save_reconstruction(self, path):
         """Dump the session state as reconstruction.npz plus one .npy per key."""
@@ -67,3 +86,9 @@ class Droid:
         np.savez_compressed(os.path.join(path, "reconstruction.npz"), **state)
         for k, v in state.items():
             np.save(os.path.join(path, f"{k}.npy"), v)
+
+    def save_backend_finished_poses(self, path):
+        """reference droid.py:108-111."""
+        os.makedirs(path, exist_ok=True)
+        np.save(os.path.join(path, "backend_finished_poses.npy"),
+                self.video.poses[: self.video.counter].cpu().numpy())

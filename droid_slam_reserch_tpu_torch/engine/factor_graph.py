@@ -1,11 +1,16 @@
-"""Covisibility factor graph, frontend part (mirror of engine/factor_graph.py).
+"""Covisibility factor graph (mirror of engine/factor_graph.py).
 
 Host bookkeeping (add / remove / dedup / proximity selection) runs in
-numpy.  ``update_fused`` runs K rounds of {reproject -> correlation lookup
--> ConvGRU update + GraphAgg -> dense BA} as a Python loop: the correlation
-pyramid is built once per call (K2), each round looks it up once (K3) and
-each BA iteration builds its blocks once (K1).  Edge counts and BA windows
-are padded to buckets as in the JAX package; padded edges add nothing.
+numpy.  ``update_fused`` (frontend and trajectory filler) runs K rounds of
+{reproject -> correlation lookup -> ConvGRU update + GraphAgg -> dense BA}
+as a Python loop, on the JAX package's default TPU path: each call caches
+every pixel's per-level correlation window around the first round's coords
+(K4), and each round looks the windows up (K5) while the drift rule holds,
+else takes the exact full lookup (K2, built at most once per call, then
+K3).  ``update_lowmem`` (backend) refreshes every edge chunk by chunk with
+K2 + K3 and runs one global BA per step.  Each BA iteration builds its
+blocks once (K1).  Edge counts and BA windows are padded to buckets as in
+the JAX package; padded edges add nothing.
 """
 import numpy as np
 import torch
@@ -13,11 +18,42 @@ import torch
 from .. import native
 from ..ba.solver import ba_iterations
 from ..geom import coords_grid, frame_distance, neighbourhood_graph, projective_transform
-from ..ops.cuda_corr import corr_build, corr_lookup
+from ..ops.corr import level_sizes, window_drift_ok
+from ..ops.cuda_corr import corr_build, corr_build_windows, corr_lookup, corr_lookup_windows
+
+# Rounds of update_fused that read the window cache (K5) and rounds that
+# fell back to the full lookup (K2 + K3), since the last reset_corr_rounds().
+CORR_ROUNDS = {"windowed": 0, "fallback": 0}
+
+
+def reset_corr_rounds():
+    CORR_ROUNDS.update(windowed=0, fallback=0)
 
 
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
+
+
+class WindowedLookup:
+    """The per-call correlation of update_fused: K4 once, then per round K5
+    where the drift rule holds, else K2 (built lazily, once) and K3."""
+
+    def __init__(self, f1, f2, coords_init):
+        self.f1, self.f2 = f1, f2
+        self.hw = tuple(f2.shape[1:3])
+        self.sizes = level_sizes(*self.hw)
+        self.wins, self.bases = corr_build_windows(f1, f2, coords_init)
+        self.levels = None
+
+    def __call__(self, coords):
+        # the round's one host read: the fallback decision
+        if bool(window_drift_ok(self.bases, coords, self.sizes)):
+            CORR_ROUNDS["windowed"] += 1
+            return corr_lookup_windows(self.wins, self.bases, coords, self.hw)
+        CORR_ROUNDS["fallback"] += 1
+        if self.levels is None:
+            self.levels = corr_build(self.f1, self.f2)
+        return corr_lookup(self.levels, coords)
 
 
 class FactorGraph:
@@ -116,6 +152,18 @@ class FactorGraph:
         self.jj = np.where(self.jj >= ix, self.jj - 1, self.jj)
         self.rm_factors(m, store=False)
 
+    def filter_edges(self):
+        """Cull low-confidence long-range edges (reference :71-78)."""
+        conf = self.weight.mean(dim=(1, 2, 3)).cpu().numpy()
+        mask = (np.abs(self.ii - self.jj) > 2) & (conf < 0.001)
+        self.ii_bad = np.concatenate([self.ii_bad, self.ii[mask]])
+        self.jj_bad = np.concatenate([self.jj_bad, self.jj[mask]])
+        self.rm_factors(mask, store=False)
+
+    def clear_edges(self):
+        self.rm_factors(np.ones(len(self.ii), bool))
+        self.net = self.net.new_zeros((0,) + tuple(self.net.shape[1:]))
+
     # ----------------------------------------------------------------- update
 
     def _padded_edges(self):
@@ -208,17 +256,23 @@ class FactorGraph:
         intr = video.intrinsics[0]
         intr_win = intr.expand(MW, 4)
 
-        # the correlation pyramid, built once per call (K2)
-        levels = corr_build(video.fmaps[ii_pt, 0], video.fmaps[jj_pt, 0])
+        def reproject():
+            return projective_transform(poses[None], disps[None], intr_win[None],
+                                        ii_at, jj_at)[0][0]
+
+        # the window cache around the first round's coords, once per call (K4)
+        coords1 = reproject()
+        lookup = WindowedLookup(video.fmaps[ii_pt, 0], video.fmaps[jj_pt, 0],
+                                 coords1.reshape(n_pad, h8 * w8, 2).contiguous())
         coords0 = coords_grid(h8, w8, device=dev)
         amask = active[:, None, None, None]
         weight_a = torch.zeros_like(target_a)
 
-        for _ in range(rounds):
-            coords1 = projective_transform(poses[None], disps[None], intr_win[None],
-                                           ii_at, jj_at)[0][0]
+        for r in range(rounds):
+            if r > 0:
+                coords1 = reproject()
             motn = torch.cat([coords1 - coords0, target_a - coords1], -1).clamp(-64.0, 64.0)
-            corr = corr_lookup(levels, coords1.reshape(n_pad, h8 * w8, 2).contiguous())
+            corr = lookup(coords1.reshape(n_pad, h8 * w8, 2).contiguous())
             corr = corr.reshape(n_pad, h8, w8, -1)
 
             # the active mask keeps padded edges out of GraphAgg's per-frame mean
@@ -252,6 +306,96 @@ class FactorGraph:
         self.weight = weight_a[:n]
         self.age += rounds
         return d_cull
+
+    def _chunk_tables(self, s):
+        """Host tables of update_lowmem: edges sorted by source frame, one
+        chunk per s-frame band, each padded to EB slots (reference :270)."""
+        t = self.video.counter
+        order = np.argsort(self.ii, kind="stable")
+        ii_s = self.ii[order]
+        nC = int(ii_s.max()) // s + 1
+        counts = np.array([np.count_nonzero((ii_s >= c * s) & (ii_s < (c + 1) * s))
+                           for c in range(nC)])
+        EB = _round_up(max(int(counts.max()), 1), self.cfg.edge_bucket)
+
+        ii_ck = np.zeros((nC, EB), np.int64)
+        jj_ck = np.zeros((nC, EB), np.int64)
+        emask_ck = np.zeros((nC, EB), np.float32)
+        pos_ck = np.zeros((nC, EB), np.int64)     # chunk slot -> edge index
+        kk_ck = np.zeros((nC, EB), np.int64)
+        frame_ck = np.full((nC, s), t, np.int64)  # sentinel t: no edges
+        ofs = 0
+        for c in range(nC):
+            n = int(counts[c])
+            sel = order[ofs: ofs + n]
+            ii_ck[c, :n] = self.ii[sel]
+            jj_ck[c, :n] = self.jj[sel]
+            emask_ck[c, :n] = 1.0
+            pos_ck[c, :n] = sel
+            kk_ck[c, :n] = self.ii[sel] - c * s
+            has = np.unique(self.ii[sel]) - c * s
+            frame_ck[c, has] = c * s + has
+            ofs += n
+        slots = np.nonzero(emask_ck.reshape(-1) > 0)[0]
+        take_back = np.empty(len(self.ii), np.int64)   # edge -> flat chunk slot
+        take_back[pos_ck.reshape(-1)[slots]] = slots
+        return nC, EB, ii_ck, jj_ck, emask_ck, pos_ck, kk_ck, frame_ck, take_back
+
+    def update_lowmem(self, steps=8, itrs=2):
+        """Global BA over all edges, chunked over source frames
+        (reference factor_graph.py:253-300).
+
+        Each step refreshes every edge's update-operator state chunk by
+        chunk (8 source frames, up to EB edges) against the same poses, then
+        runs one dense BA over the whole video.  A chunk's correlation is
+        K2 over its edges followed by K3: the JAX package's altcorr_pyramid
+        (ops.corr) computes the same function from a pooled feature pyramid.
+        """
+        video, cfg, dev = self.video, self.cfg, self.device
+        t = video.counter
+        s = 8
+        if len(self.ii) == 0:
+            return
+        h8, w8 = video.h8, video.w8
+        nC, EB, ii_ck, jj_ck, emask_ck, pos_ck, kk_ck, frame_ck, take_back = \
+            self._chunk_tables(s)
+        self.chunks = (nC, EB)
+        ii_ck, jj_ck, kk_ck = self._t(ii_ck), self._t(jj_ck), self._t(kk_ck)
+        frame_ck, flat_src = self._t(frame_ck), self._t(pos_ck.reshape(-1))
+        take_back = self._t(take_back)
+        emask_ck = torch.as_tensor(emask_ck, device=dev)
+        coords0 = coords_grid(h8, w8, device=dev)
+        intr = video.intrinsics[:t]
+
+        for _ in range(steps):
+            nets_ck = self.net[flat_src].reshape(nC, EB, h8, w8, -1)
+            target_ck = self.target[flat_src].reshape(nC, EB, h8, w8, 2)
+            poses, disps = video.poses[:t], video.disps[:t]
+            damping_ext = torch.cat([video.damping[:t], video.damping.new_zeros(1, h8, w8)], 0)
+            nets_out, target_out, weight_out = [], [], []
+            for c in range(nC):
+                ii, jj, emask = ii_ck[c], jj_ck[c], emask_ck[c]
+                coords1 = projective_transform(poses[None], disps[None], intr[None], ii, jj)[0][0]
+                motn = torch.cat([coords1 - coords0, target_ck[c] - coords1], -1).clamp(-64.0, 64.0)
+                levels = corr_build(video.fmaps[ii, 0], video.fmaps[jj, 0])
+                corr = corr_lookup(levels, coords1.reshape(EB, h8 * w8, 2).contiguous())
+                del levels
+                nets, delta, weight, eta, _ = self.update_apply(
+                    self.params, nets_ck[c][None], video.inps[ii][None],
+                    corr.reshape(1, EB, h8, w8, -1), motn[None], kk_ck[c], s, emask)
+                damping_ext[frame_ck[c]] = eta[0]   # slots without edges land in row t
+                nets_out.append(nets[0])
+                target_out.append(coords1 + delta[0])
+                weight_out.append(weight[0] * emask[:, None, None, None])
+            self.net = torch.cat(nets_out, 0)[take_back]
+            self.target = torch.cat(target_out, 0)[take_back]
+            self.weight = torch.cat(weight_out, 0)[take_back]
+            video.damping[:t] = damping_ext[:t]
+
+            # one dense BA over the whole video (reference :297)
+            video.ba(self.target, self.weight, self.ii, self.jj, 1, t,
+                     iterations=itrs, lm=cfg.backend_lm, ep=cfg.backend_ep)
+            video.dirty[:t] = True
 
     # ------------------------------------------------------- edge proposals
 

@@ -3,8 +3,14 @@ the engine's device, updated in place; images stay on the host."""
 import numpy as np
 import torch
 
+from .. import native
+from ..ba.solver import ba_iterations
 from ..geom import frame_distance, projective_transform
 from ..lie import se3_identity
+
+
+def _round_up(x, m):
+    return ((x + m - 1) // m) * m
 
 
 class Video:
@@ -20,6 +26,7 @@ class Video:
         self.counter = 0
         self.tstamp = np.zeros(buf, dtype=np.float64)
         self.images = np.zeros((buf, ht, wd, 3), dtype=np.uint8)
+        self.dirty = np.zeros(buf, dtype=bool)
 
         self.poses = se3_identity((buf,), device=dev)
         self.disps = torch.ones(buf, h8, w8, device=dev)
@@ -37,12 +44,19 @@ class Video:
         image [ht, wd, 3] uint8 (host) or None; pose [7] or None; disp a
         scalar or [h8, w8] or None; fmap [1, h8, w8, 128]; net/inp [h8, w8, 128].
         """
+        ix = self.counter
+        self.set_slot(ix, tstamp, image, pose, disp, depth, intrinsics, fmap, net, inp)
+        self.counter = ix + 1
+
+    def set_slot(self, ix, tstamp, image, pose, disp, depth, intrinsics, fmap, net=None,
+                 inp=None):
+        """Write slot ix in place (reference depth_video.py:56-114)."""
         if depth is not None:
             raise NotImplementedError("RGB-D tracking is not part of this slice of the port")
-        ix = self.counter
         self.tstamp[ix] = tstamp
         if image is not None:
             self.images[ix] = np.asarray(image, dtype=np.uint8)
+        self.dirty[ix] = True
         if pose is not None:
             self.poses[ix] = torch.as_tensor(pose, dtype=torch.float32, device=self.device)
         if disp is not None:
@@ -56,7 +70,6 @@ class Video:
             self.nets[ix] = net
         if inp is not None:
             self.inps[ix] = inp
-        self.counter = ix + 1
 
     def remove_keyframe(self, ix):
         """Copy slot ix+1 down into ix (reference factor_graph.py:165-178)."""
@@ -66,6 +79,14 @@ class Video:
                      "inps", "damping"):
             buf = getattr(self, name)
             buf[ix] = buf[ix + 1]
+
+    def normalize(self):
+        """Mono gauge fix: scale by the mean disparity (reference depth_video.py:140-147)."""
+        t = self.counter
+        s = self.disps[:t].mean()
+        self.disps[:t] /= s
+        self.poses[:t, :3] *= s
+        self.dirty[:t] = True
 
     def _index(self, ix):
         return torch.as_tensor(np.asarray(ix, np.int64).reshape(-1), device=self.device)
@@ -91,6 +112,46 @@ class Video:
         """Bidirectional distances for the pairs [t0, t) x [t1, t)."""
         ii, jj = np.meshgrid(np.arange(t0, t), np.arange(t1, t), indexing="ij")
         return self.distance(ii, jj, beta=beta).reshape(t - t0, t - t1)
+
+    def ba(self, target, weight, ii, jj, t0, t1, iterations=2, lm=1e-4, ep=0.1):
+        """Windowed dense BA over the free frames [t0, t1) (mirror of video.py:218-290).
+
+        target/weight [N, h8, w8, 2] on the device (N = the edge count);
+        ii/jj global edge indices (host); damping 0.2 * damping + eps.  The
+        window, edge count and Schur degree are padded to buckets as in the
+        JAX package.
+        """
+        cfg = self.cfg
+        ii, jj = np.asarray(ii, np.int64), np.asarray(jj, np.int64)
+        n = len(ii)
+        m0 = int(min(ii.min(), jj.min(), t0))
+        MW = _round_up(t1 - m0, cfg.window_bucket)
+        m0 = max(0, t1 - MW)
+        MW = t1 - m0 if m0 == 0 else MW
+        MW = _round_up(MW, cfg.window_bucket)
+
+        n_pad = _round_up(n, cfg.edge_bucket)
+        ii_l = np.zeros(n_pad, np.int64)
+        jj_l = np.zeros(n_pad, np.int64)
+        ii_l[:n] = ii - m0
+        jj_l[:n] = jj - m0
+        pad = target.new_zeros(n_pad - n, self.h8, self.w8, 2)
+        be, bm = native.bucket_tables(ii_l[:n], MW)
+        free = np.zeros(MW, bool)
+        free[t0 - m0: t1 - m0] = True
+
+        sl = slice(m0, m0 + MW)
+        eta = 0.2 * self.damping[sl] + cfg.damping_eps
+        dev = self.device
+        poses, disps = ba_iterations(
+            self.poses[sl], self.disps[sl], self.intrinsics[0], self.disps_sens[sl],
+            torch.cat([target, pad], 0), torch.cat([weight, pad], 0), eta,
+            torch.as_tensor(ii_l, device=dev), torch.as_tensor(jj_l, device=dev),
+            torch.as_tensor(free, device=dev), torch.as_tensor(be, dtype=torch.int64, device=dev),
+            torch.as_tensor(bm, device=dev), iterations=iterations, lm=lm, ep=ep,
+            alpha=cfg.rgbd_alpha, min_depth=cfg.min_depth)
+        self.poses[sl] = poses
+        self.disps[sl] = disps.clamp_min(0.001)   # reference depth_video.py:204
 
     def state_dict(self):
         t = self.counter

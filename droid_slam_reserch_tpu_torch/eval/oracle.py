@@ -1,7 +1,7 @@
-"""Oracle frontend gate: the real Frontend / FactorGraph / BA machinery on a
-known trajectory, with an oracle update operator injected at the
-``update_apply`` seam (mirror of the JAX package's
-tests/test_engine_oracle_gate.py).
+"""Oracle gates: the real Frontend / FactorGraph / BA machinery, and the
+backend's chunked update_lowmem, on a known trajectory, with an oracle
+update operator injected at the ``update_apply`` seam (mirror of the JAX
+package's tests/test_engine_oracle_gate.py).
 
 The stored per-edge targets are seeded from ground-truth geometry and the
 oracle returns ``delta = target - coords1`` with weight 1 and constant
@@ -121,3 +121,13 @@ def drive_frontend(gt, device="cuda", **cfg_kw):
             v.append(float(t), None, pose, disp, None, intr, zf, z, z)
             front()
     return v, front
+
+
+def drive_backend(video, gt, steps=2, itrs=2):
+    """The backend gate (tests/test_engine_oracle_gate.py:163-177): a global
+    oracle graph over every keyframe of ``video``, refined by update_lowmem."""
+    graph = OracleGraph(video, gt, max_factors=16 * T)
+    graph.add_proximity_factors(rad=2, nms=2, thresh=64.0, beta=0.3)
+    with torch.no_grad():
+        graph.update_lowmem(steps=steps, itrs=itrs)
+    return graph

@@ -5,14 +5,27 @@ for CPU tensors:
 - K1 ``cuda_ba.ba_system_blocks``  (plain: ``cuda_ba.build_system_blocks``)
 - K2 ``cuda_corr.corr_build``      (plain: ``cuda_corr.corr_build_plain``)
 - K3 ``cuda_corr.corr_lookup``     (plain: ``cuda_corr.corr_lookup_plain``)
+- K4 ``cuda_corr.corr_build_windows``  (plain: ``cuda_corr.corr_build_windows_plain``)
+- K5 ``cuda_corr.corr_lookup_windows`` (plain: ``cuda_corr.corr_lookup_windows_plain``)
 """
 from .cuda_ba import ba_system_blocks, build_system_blocks
-from .cuda_corr import corr_build, corr_build_plain, corr_lookup, corr_lookup_plain
+from .cuda_corr import (
+    corr_build,
+    corr_build_plain,
+    corr_build_windows,
+    corr_build_windows_plain,
+    corr_lookup,
+    corr_lookup_plain,
+    corr_lookup_windows,
+    corr_lookup_windows_plain,
+)
 
 KERNELS = {
     "ba_blocks": (ba_system_blocks, build_system_blocks),
     "corr_build": (corr_build, corr_build_plain),
     "corr_lookup": (corr_lookup, corr_lookup_plain),
+    "corr_build_windows": (corr_build_windows, corr_build_windows_plain),
+    "corr_lookup_windows": (corr_lookup_windows, corr_lookup_windows_plain),
 }
 
 

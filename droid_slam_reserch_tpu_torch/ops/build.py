@@ -30,6 +30,8 @@ _SIGNATURES = {
     "ba_blocks_launch": [_P] * 7 + [_F] * 2 + [_I] * 3 + [_P] * 6,
     "corr_build_launch": [_P, _P] + [_I] * 5 + [_P] * 5,
     "corr_lookup_launch": [_P] * 5 + [_I] * 4 + [_P, _P],
+    "corr_windows_build_launch": [_P] * 3 + [_I] * 5 + [_P] * 3,
+    "corr_windows_lookup_launch": [_P] * 3 + [_I] * 4 + [_P, _P],
 }
 
 

@@ -1,4 +1,6 @@
-"""Correlation volumes and the radius-3 bilinear pyramid lookup, plain PyTorch.
+"""Correlation volumes and the radius-3 bilinear pyramid lookup, plain PyTorch:
+the full pyramid (K2, K3), the per-pixel window cache and its drift rule
+(K4, K5), and the backend's altcorr over a pooled feature pyramid.
 
 The spec that the CUDA kernels of ops/cuda_corr.py match:
 - features dot products are scaled by 1/16 and accumulated in fp32;
@@ -66,3 +68,160 @@ def corr_lookup_pyramid_flat(pyramid, coords, radius=3):
         [_lookup_level(vol, coords / (2.0 ** lvl), radius) for lvl, vol in enumerate(pyramid)],
         dim=-1,
     )
+
+
+# ---------------------------------------------------------------- windows
+#
+# The per-pixel window cache of the frontend (K4 builds it, K5 reads it).
+# Each level is thought of with an 8-pixel zero border (padded level
+# Hp x Wp); a pixel's window at level l is the WH x WW block of the padded
+# level whose top-left corner is its base (by, bx), centred on the 8-tap
+# span of the FIRST round's coords.  Windows of all levels are packed along
+# the rows: [E, P, sum(WH), max(WW)], level l at rows off_l .. off_l + WH_l.
+
+PPAD = 8    # zero border of a padded level
+WIN = 24    # window extent: +-(WIN - 8) / 2 = 8 px of drift tolerance
+
+
+def level_sizes(H2, W2, num_levels=4):
+    """[(h_l, w_l)] of the pyramid (floor halving)."""
+    return [(H2 >> l, W2 >> l) for l in range(num_levels)]
+
+
+def win_shape(h, w):
+    """Window extent (WH, WW) of a level; the whole padded level when small."""
+    return min(h + 2 * PPAD, WIN), min(w + 2 * PPAD, WIN)
+
+
+def pack_offsets(sizes):
+    """Row offset of each level's window in the packed tile, and the total
+    rows; plus the packed column count (the widest window)."""
+    offs, off = [], 0
+    for h, w in sizes:
+        offs.append(off)
+        off += win_shape(h, w)[0]
+    return offs, off, max(win_shape(h, w)[1] for h, w in sizes)
+
+
+def _floor_int(x):
+    """floor(x) as int64, clamped to +-1e6 first (the CUDA kernels' rule)."""
+    return torch.floor(x).clamp(-1e6, 1e6).long()
+
+
+def window_bases(coords, sizes, radius=3):
+    """Window starts [E, 2L, P] int32 (by_l, bx_l per level) in padded-level
+    rows/cols: the 8-tap span of coords [E, P, 2] sits centred in the window."""
+    out = []
+    for l, (h, w) in enumerate(sizes):
+        WH, WW = win_shape(h, w)
+        c = coords / (2.0 ** l)
+        by = (_floor_int(c[..., 1]) + PPAD - radius - (WH - 8) // 2).clamp(0, h + 2 * PPAD - WH)
+        bx = (_floor_int(c[..., 0]) + PPAD - radius - (WW - 8) // 2).clamp(0, w + 2 * PPAD - WW)
+        out += [by, bx]
+    return torch.stack(out, 1).to(torch.int32)
+
+
+def extract_windows(pyramid, bases):
+    """Cut each pixel's per-level window out of the zero-bordered levels.
+
+    pyramid: levels [E, P, h_l, w_l]; bases [E, 2L, P].  Returns the packed
+    windows [E, P, sum(WH), max(WW)]; columns past a level's WW are 0.
+    """
+    sizes = [tuple(v.shape[-2:]) for v in pyramid]
+    offs, sum_wh, ww_max = pack_offsets(sizes)
+    E, P = pyramid[0].shape[:2]
+    out = pyramid[0].new_zeros(E, P, sum_wh, ww_max)
+    for l, (v, off, (h, w)) in enumerate(zip(pyramid, offs, sizes)):
+        WH, WW = win_shape(h, w)
+        vp = torch.nn.functional.pad(v, (PPAD, PPAD, PPAD, PPAD))      # [E, P, Hp, Wp]
+        rows = bases[:, 2 * l].long()[..., None] + torch.arange(WH, device=v.device)
+        cols = bases[:, 2 * l + 1].long()[..., None] + torch.arange(WW, device=v.device)
+        g = vp.gather(2, rows[..., None].expand(E, P, WH, vp.shape[-1]))
+        out[:, :, off:off + WH, :WW] = g.gather(3, cols[:, :, None, :].expand(E, P, WH, WW))
+    return out
+
+
+def lookup_windows(wins, bases, coords, sizes, radius=3):
+    """Radius-r bilinear lookup inside the packed windows -> [E, P, L*(2r+1)**2].
+
+    The 8-tap span start is clipped into the window; it equals the full
+    lookup (corr_lookup_pyramid_flat) wherever ``window_drift_ok`` holds.
+    """
+    coords = coords.detach().float()
+    offs, _, _ = pack_offsets(sizes)
+    E, P = coords.shape[:2]
+    rd = 2 * radius + 1
+    taps = torch.arange(rd + 1, device=coords.device)
+    out = []
+    for l, (off, (h, w)) in enumerate(zip(offs, sizes)):
+        WH, WW = win_shape(h, w)
+        c = coords / (2.0 ** l)
+        x, y = c[..., 0], c[..., 1]
+        xf, yf = torch.floor(x), torch.floor(y)
+        dx, dy = (x - xf)[..., None, None], (y - yf)[..., None, None]
+        sy = (_floor_int(y) + PPAD - radius - bases[:, 2 * l].long()).clamp(0, WH - 8)
+        sx = (_floor_int(x) + PPAD - radius - bases[:, 2 * l + 1].long()).clamp(0, WW - 8)
+        win = wins[:, :, off:off + WH, :WW]
+        g = win.gather(2, (sy[..., None] + taps)[..., None].expand(E, P, rd + 1, WW))
+        g = g.gather(3, (sx[..., None] + taps)[:, :, None, :].expand(E, P, rd + 1, rd + 1))
+        yb = (1.0 - dy) * g[:, :, :rd, :] + dy * g[:, :, 1:, :]       # [E, P, b, rd+1]
+        xb = (1.0 - dx) * yb[..., :rd] + dx * yb[..., 1:]              # [E, P, b, a]
+        out.append(xb.transpose(-1, -2).reshape(E, P, rd * rd))
+    return torch.cat(out, -1)
+
+
+def window_drift_ok(bases, coords, sizes, radius=3):
+    """True (a bool tensor on the coords' device) iff the windowed lookup
+    equals the full lookup for every pixel at every level.
+
+    Both clip the 8-tap span: the full lookup reads zeros outside the level,
+    the window clips its start into [0, WH - 8].  A span outside that range
+    is safe only when both land on the same zero rows: the pixel wholly
+    above the level with the base at the top edge, or wholly below with the
+    base at the bottom edge (and likewise for columns).
+    """
+    coords = coords.detach()
+    ok = torch.ones((), dtype=torch.bool, device=coords.device)
+    for l, (h, w) in enumerate(sizes):
+        Hp, Wp = h + 2 * PPAD, w + 2 * PPAD
+        WH, WW = win_shape(h, w)
+        c = coords / (2.0 ** l)
+        yl = _floor_int(c[..., 1]) + PPAD - radius
+        xl = _floor_int(c[..., 0]) + PPAD - radius
+        by, bx = bases[:, 2 * l].long(), bases[:, 2 * l + 1].long()
+        sy, sx = yl - by, xl - bx
+        bad_y = (((sy < 0) & ((yl > 0) | (by > 0)))
+                 | ((sy > WH - 8) & ((yl < Hp - 8) | (by < Hp - WH))))
+        bad_x = (((sx < 0) & ((xl > 0) | (bx > 0)))
+                 | ((sx > WW - 8) & ((xl < Wp - 8) | (bx < Wp - WW))))
+        ok = ok & ~(bad_y | bad_x).any()
+    return ok
+
+
+# ---------------------------------------------------------------- altcorr
+
+def pool2x_fmap(f):
+    """2x average pool over the spatial dims of [E, H, W, C] (floor semantics)."""
+    E, H, W, C = f.shape
+    h, w = H // 2, W // 2
+    return f[:, : 2 * h, : 2 * w].reshape(E, h, 2, w, 2, C).mean(dim=(2, 4))
+
+
+def altcorr(f1, f2, coords, radius=3):
+    """Correlation lookup against one target feature level: f1 [E, H1, W1, C],
+    f2 [E, H2, W2, C], coords [E, H1, W1, 2] in that level's pixels
+    -> [E, H1, W1, (2r+1)**2], scaled 1/16."""
+    E, H1, W1, _ = f1.shape
+    vol = corr_volume_flat(f1, f2)
+    out = _lookup_level(vol, coords.detach().float().reshape(E, H1 * W1, 2), radius)
+    return out.reshape(E, H1, W1, -1)
+
+
+def altcorr_pyramid(f1, f2_pyramid, coords, radius=3):
+    """The backend's correlation: altcorr over a pooled feature pyramid,
+    coords [E, H, W, 2] level-0 pixels -> [E, H, W, L*(2r+1)**2].
+
+    Pooling the features commutes with the dot product, so this equals the
+    volume pyramid's lookup (K2 then K3) up to float rounding."""
+    return torch.cat([altcorr(f1, f2, coords / (2.0 ** l), radius)
+                      for l, f2 in enumerate(f2_pyramid)], dim=-1)

@@ -1,16 +1,34 @@
-"""K2 (correlation build) and K3 (pyramid lookup): CUDA kernels and their
-plain PyTorch versions.
+"""Correlation kernels and their plain PyTorch versions:
 
-The counterpart of the JAX package's ops/pallas_corr.py on the path the port
-runs (corr_build_pmajor_pallas + corr_lookup_blocked_pallas).  For a CUDA
-tensor each wrapper launches its hand-written kernel (csrc/corr_build.cu,
-csrc/corr_lookup.cu) or raises; for a CPU tensor it runs the plain version.
-``launches`` / ``calls`` count each, so a run can show which one it took.
+- K2 ``corr_build``          all-pairs volume and its 4-level pyramid
+                             (csrc/corr_build.cu; JAX corr_build_pmajor_pallas)
+- K3 ``corr_lookup``         radius-3 lookup in that pyramid
+                             (csrc/corr_lookup.cu; JAX corr_lookup_blocked_pallas)
+- K4 ``corr_build_windows``  the same volume and pyramid, kept in shared
+                             memory; writes only each pixel's per-level window
+                             and its base (csrc/corr_windows_build.cu; JAX
+                             corr_build_windows_light_pallas)
+- K5 ``corr_lookup_windows`` the radius-3 lookup inside those windows
+                             (csrc/corr_windows_lookup.cu; JAX
+                             corr_lookup_windows_pallas)
+
+For a CUDA tensor each wrapper launches its hand-written kernel or raises;
+for a CPU tensor it runs the plain version.  ``launches`` / ``calls`` count
+each, so a run can show which one it took.
 """
 import torch
 
 from . import build
-from .corr import build_pyramid_flat, corr_lookup_pyramid_flat, corr_volume_flat
+from .corr import (
+    build_pyramid_flat,
+    corr_lookup_pyramid_flat,
+    corr_volume_flat,
+    extract_windows,
+    level_sizes,
+    lookup_windows,
+    pack_offsets,
+    window_bases,
+)
 
 NUM_LEVELS = 4
 RADIUS = 3
@@ -102,3 +120,98 @@ def corr_lookup(levels, coords):
 
 
 corr_lookup.launches = 0
+
+
+def corr_build_windows_plain(f1, f2, coords0):
+    """Plain K4: the plain pyramid, zero-bordered, cut into each pixel's
+    per-level window around coords0 [E, P, 2].  Returns (windows
+    [E, P, sum(WH), max(WW)], bases [E, 2L, P] int32)."""
+    corr_build_windows_plain.calls += 1
+    pyramid = build_pyramid_flat(corr_volume_flat(f1, f2), NUM_LEVELS)
+    sizes = [tuple(v.shape[-2:]) for v in pyramid]
+    bases = window_bases(coords0.detach().float(), sizes, RADIUS)
+    return extract_windows(pyramid, bases), bases
+
+
+corr_build_windows_plain.calls = 0
+
+
+def corr_lookup_windows_plain(wins, bases, coords, target_hw):
+    """Plain K5: the K3 formula inside the windows -> [E, P, 196]."""
+    corr_lookup_windows_plain.calls += 1
+    return lookup_windows(wins, bases, coords, level_sizes(*target_hw, NUM_LEVELS), RADIUS)
+
+
+corr_lookup_windows_plain.calls = 0
+
+
+def corr_build_windows(f1, f2, coords0):
+    """Per-pixel window cache of the correlation pyramid (K4).  f1 [E, H1,
+    W1, C], f2 [E, H2, W2, C] float32, coords0 [E, H1*W1, 2] level-0 pixels
+    -> (windows [E, P, sum(WH), max(WW)] float32, bases [E, 2L, P] int32).
+    The pyramid itself never reaches device memory."""
+    if f1.device.type == "cpu" and f2.device.type == "cpu" and coords0.device.type == "cpu":
+        return corr_build_windows_plain(f1, f2, coords0)
+    if not (f1.is_cuda and f1.device == f2.device == coords0.device):
+        raise ValueError(f"corr_build_windows: f1 on {f1.device}, f2 on {f2.device}, "
+                         f"coords0 on {coords0.device}")
+    coords0 = coords0.detach()
+    _check_f32("f1", f1, 4)
+    _check_f32("f2", f2, 4)
+    _check_f32("coords0", coords0, 3)
+    E, H1, W1, C = f1.shape
+    _, H2, W2, C2 = f2.shape
+    P = H1 * W1
+    if f2.shape[0] != E or C2 != C or tuple(coords0.shape) != (E, P, 2):
+        raise ValueError(f"corr_build_windows: f1 {tuple(f1.shape)}, f2 {tuple(f2.shape)}, "
+                         f"coords0 {tuple(coords0.shape)}")
+    _, sum_wh, ww_max = pack_offsets(level_sizes(H2, W2, NUM_LEVELS))
+    wins = torch.empty(E, P, sum_wh, ww_max, device=f1.device)
+    bases = torch.empty(E, 2 * NUM_LEVELS, P, dtype=torch.int32, device=f1.device)
+    lib = build.library()
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.corr_windows_build_launch(f1.data_ptr(), f2.data_ptr(), coords0.data_ptr(),
+                                            E, P, H2, W2, C, wins.data_ptr(), bases.data_ptr(),
+                                            stream)
+    build.check(err, "corr_build_windows")
+    corr_build_windows.launches += 1
+    return wins, bases
+
+
+corr_build_windows.launches = 0
+
+
+def corr_lookup_windows(wins, bases, coords, target_hw):
+    """Radius-3 lookup inside the cached windows (K5).  wins/bases from
+    corr_build_windows, coords [E, P, 2] level-0 pixels, target_hw the
+    (H2, W2) of the target feature map -> [E, P, 196].  Equals corr_lookup
+    on the full pyramid wherever ops.corr.window_drift_ok holds."""
+    coords = coords.detach()
+    if coords.device.type == "cpu":
+        return corr_lookup_windows_plain(wins, bases, coords, target_hw)
+    if not (coords.is_cuda and wins.device == bases.device == coords.device):
+        raise ValueError("corr_lookup_windows: wins, bases and coords must share one CUDA device")
+    _check_f32("coords", coords, 3)
+    _check_f32("wins", wins, 4)
+    E, P, two = coords.shape
+    H2, W2 = target_hw
+    _, sum_wh, ww_max = pack_offsets(level_sizes(H2, W2, NUM_LEVELS))
+    if (two != 2 or tuple(wins.shape) != (E, P, sum_wh, ww_max)
+            or tuple(bases.shape) != (E, 2 * NUM_LEVELS, P) or bases.dtype != torch.int32
+            or not bases.is_contiguous()):
+        raise ValueError(f"corr_lookup_windows: wins {tuple(wins.shape)}, bases "
+                         f"{tuple(bases.shape)} {bases.dtype}, coords {tuple(coords.shape)} "
+                         f"do not fit H2={H2} W2={W2}")
+    out = torch.empty(E, P, NUM_LEVELS * (2 * RADIUS + 1) ** 2, device=coords.device)
+    lib = build.library()
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.corr_windows_lookup_launch(wins.data_ptr(), bases.data_ptr(), coords.data_ptr(),
+                                             E, P, H2, W2, out.data_ptr(), stream)
+    build.check(err, "corr_lookup_windows")
+    corr_lookup_windows.launches += 1
+    return out
+
+
+corr_lookup_windows.launches = 0

@@ -1,8 +1,8 @@
-"""Oracle frontend gate on the port (tests/test_engine_oracle_gate's
-scene): the port's Frontend / FactorGraph / BA, driven with the oracle
-update operator, must recover the ground-truth trajectory to ATE < 0.01 and
-match the JAX frontend's poses within 1e-4 (both solve the same problem in
-float32).  Disparities are held to 1e-3 relative: mono BA leaves the joint
+"""Oracle gates on the port (tests/test_engine_oracle_gate's scene): the
+port's Frontend / FactorGraph / BA, and its backend's update_lowmem, driven
+with the oracle update operator, must recover the ground-truth trajectory
+to ATE < 0.01 and match the JAX engine's poses within 1e-4 (both solve the
+same problem in float32).  Disparities are held to 1e-3 relative: mono BA leaves the joint
 scale of disparities and translations free up to the small damping, so
 float32 rounding moves them along that direction more than the poses."""
 import numpy as np
@@ -12,6 +12,7 @@ import torch
 from droid_slam_reserch_tpu.eval.metrics import ate_rmse as jax_ate_rmse
 from droid_slam_reserch_tpu_torch.eval import oracle
 from droid_slam_reserch_tpu_torch.eval.metrics import ate_rmse
+from test_engine_oracle_gate import OracleGraph as JOracleGraph
 from test_engine_oracle_gate import cam_centers as jax_cam_centers
 from test_engine_oracle_gate import drive_frontend as jax_drive_frontend
 from test_engine_oracle_gate import gt_scene as jax_gt_scene
@@ -74,3 +75,25 @@ def test_port_culling_gate():
                       oracle.cam_centers(gt[0][torch.tensor(g.slot2gt)]),
                       align=True, correct_scale=True)
     assert err < 0.01, err
+
+
+def test_port_backend_oracle_ate():
+    """The backend gate (tests/test_engine_oracle_gate.py:163-177): a global
+    proximity graph over the oracle frontend's keyframes, two update_lowmem
+    steps, ATE < 0.01 and the JAX backend's poses within 1e-4."""
+    gt = _gt_from_jax()
+    tv, _ = oracle.drive_frontend(gt, device="cpu")
+    graph = oracle.drive_backend(tv, gt, steps=2, itrs=2)
+    T = oracle.T
+    assert len(graph.ii) > T
+    err, _ = ate_rmse(oracle.cam_centers(tv.poses[:T]), oracle.cam_centers(gt[0]),
+                      align=True, correct_scale=True)
+    assert err < 0.01, err
+
+    jgt = jax_gt_scene()
+    jv, _ = jax_drive_frontend(jgt)
+    jg = JOracleGraph(jv, jgt, max_factors=16 * T)
+    jg.add_proximity_factors(rad=2, nms=2, thresh=64.0, beta=0.3)
+    jg.update_lowmem(steps=2, itrs=2)
+    np.testing.assert_array_equal(graph.ii, jg.ii)
+    np.testing.assert_allclose(tv.poses[:T].numpy(), np.asarray(jv.poses[:T]), atol=1e-4)
