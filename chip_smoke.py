@@ -7,11 +7,14 @@ Phases (one line each; any failure exits nonzero):
 1. build   nvcc-compiles the port's CUDA kernels from csrc/ (sm_90a), one
            process per source, all started together;
 2. kernels holds each kernel (K1 BA blocks, K2 correlation build, K3
-           correlation lookup, K4 window-cache build, K5 windowed lookup)
-           against its plain PyTorch version on the card at the main path's
-           shapes, K5(K4) against K3(K2) where the drift rule holds, and times
-           kernel, plain version and, where one PyTorch call computes the same
-           function, that call;
+           correlation lookup, K4 window-cache build, K5 windowed lookup, K6
+           P-major lookup, K7 window extraction, K8 build of levels and
+           windows) against its plain PyTorch version on the card at the main
+           path's shapes, K5(K4) against K3(K2) where the drift rule holds, K6
+           against K3, K7 and K8 against K2 and K4, and times kernel, plain
+           version and, where one PyTorch call computes the same function,
+           that call (torch.bmm for the builds, F.grid_sample bilinear for
+           the lookups, F.grid_sample nearest for K7's window extraction);
 3. drift   the frontend's windowed lookup with coords that leave the cached
            windows: the fallback (K2 once, K3) is taken, counted and exact;
 4. card vs CPU  the oracle frontend and backend gates on the card (ATE <
@@ -22,7 +25,11 @@ Phases (one line each; any failure exits nonzero):
            Droid.terminate_eva over the same frames (backend 7 + 12 steps,
            trajectory filler); before each of the two, every kernel's launch
            count and every plain version's call count is set to 0, and read
-           just after.
+           just after;
+6. profile-frontend  the frontend profiler (tools/profile_frontend.py) at
+           bench.py's shape, E = 48 edges over a 24-frame window at 40x64:
+           every section on the card, with the counts set to 0 before and
+           read after; every kernel must launch and no plain version run.
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as its last line the device JSON.  The script needs only
 torch, numpy and scipy, and the CUDA toolkit for nvcc.
@@ -136,11 +143,66 @@ def bound(ops, nbytes):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def grid_sample_inputs(torch, vols, coords, bases=None):
+    """F.grid_sample's inputs for the radius-3 lookup: per level, the
+    [E, P, h, w] volume (or the level's window, with bases) viewed as
+    [E*P, 1, h, w] and the 7x7 grid around each pixel's coords, normalised
+    for align_corners=True; output cell (a, b) is channel 7 a + b."""
+    E, P = coords.shape[:2]
+    taps = torch.arange(-3, 4, device=coords.device, dtype=torch.float32)
+    out = []
+    for l, v in enumerate(vols):
+        h, w = v.shape[-2:]
+        c = coords / 2 ** l
+        x, y = c[..., 0], c[..., 1]
+        if bases is not None:                    # window pixels: 8 - base
+            y = y + 8 - bases[:, 2 * l].float()
+            x = x + 8 - bases[:, 2 * l + 1].float()
+        gx = (x[..., None, None] + taps[:, None]).expand(E, P, 7, 7)   # [.., a, b]
+        gy = (y[..., None, None] + taps[None, :]).expand(E, P, 7, 7)
+        grid = torch.stack([2 * gx / (w - 1) - 1, 2 * gy / (h - 1) - 1], -1)
+        out.append((v.reshape(E * P, 1, h, w), grid.reshape(E * P, 7, 7, 2).contiguous()))
+    return out
+
+
+def window_grid_inputs(torch, levels, bases):
+    """F.grid_sample's inputs for K7's function: per level, the [E, P, h, w]
+    level viewed as [E*P, 1, h, w] and the level's WH x WW grid at the
+    integer cells (base - 8 + row, base - 8 + column) of each pixel's
+    window, normalised for align_corners=False (which, unlike True, also
+    holds for a level one cell wide).  Sampled with mode="nearest" and zero
+    padding, it cuts the windows with their zero border."""
+    from droid_slam_reserch_tpu_torch.ops.corr import PPAD, win_shape
+
+    E, _, P = bases.shape
+    out = []
+    for l, v in enumerate(levels):
+        h, w = v.shape[-2:]
+        WH, WW = win_shape(h, w)
+        ys = ((bases[:, 2 * l] - PPAD).float()[..., None, None]
+              + torch.arange(WH, device=v.device, dtype=torch.float32)[:, None])
+        xs = ((bases[:, 2 * l + 1] - PPAD).float()[..., None, None]
+              + torch.arange(WW, device=v.device, dtype=torch.float32)[None, :])
+        ys, xs = torch.broadcast_tensors(ys, xs)
+        grid = torch.stack([(2 * xs + 1) / w - 1, (2 * ys + 1) / h - 1], -1)
+        out.append((v.reshape(E * P, 1, h, w), grid.reshape(E * P, WH, WW, 2).contiguous()))
+    return out
+
+
+def grid_sample_lookup(torch, inputs, mode="bilinear", align_corners=True):
+    import torch.nn.functional as F
+
+    return [F.grid_sample(v, g, mode=mode, padding_mode="zeros", align_corners=align_corners)
+            for v, g in inputs]
+
+
 def phase_kernels(torch):
     from droid_slam_reserch_tpu_torch.geom import coords_grid
     from droid_slam_reserch_tpu_torch.lie import se3_exp
     from droid_slam_reserch_tpu_torch.ops import cuda_ba, cuda_corr
-    from droid_slam_reserch_tpu_torch.ops.corr import level_sizes, window_drift_ok
+    from droid_slam_reserch_tpu_torch.ops.corr import (build_pyramid_pmajor, level_sizes,
+                                                       pack_offsets, win_shape,
+                                                       window_drift_ok)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -201,14 +263,26 @@ def phase_kernels(torch):
             need += int((((ys >= 0) & (ys < h)).sum(-1) * ((xs >= 0) & (xs < w)).sum(-1)).sum())
         bound3 = bound(E * P * 4 * (7 * 8 * 3 + 49 * 3),
                        (need + coords.numel() + out.numel()) * 4)
+        # the library yardstick: F.grid_sample, one call per level, the grid
+        # built outside the timed region
+        gs3 = grid_sample_inputs(torch, levels, coords)
+        lib3 = torch.cat([o.reshape(E, P, 49) for o in grid_sample_lookup(torch, gs3)], -1)
+        lib_ms3 = cuda_ms(torch, lambda: grid_sample_lookup(torch, gs3), 4 * reps)
+        err3_lib = float((lib3 - out).abs().max())
+        tol_lib = 1e-4 * max(1.0, float(out.abs().max()))
+        del gs3, lib3
         say("kernels", f"E={E}: K2 {ms2:.4f} ms (plain {plain_ms2:.4f}, torch.bmm volume "
                        f"{lib_ms2:.4f}, bound {bound2[0]:.4f} by {bound2[1]}); K3 {ms3:.4f} ms "
-                       f"(plain {plain_ms3:.4f}, bound {bound3[0]:.4f} by {bound3[1]})")
+                       f"(plain {plain_ms3:.4f}, F.grid_sample x4 {lib_ms3:.4f}, bound "
+                       f"{bound3[0]:.4f} by {bound3[1]}); grid_sample against K3 {err3_lib:.3e} "
+                       f"(tol {tol_lib:.1e}: its [-1, 1] grid rounds the positions)")
+        if not err3_lib <= tol_lib:
+            fail(f"F.grid_sample does not compute K3's function at E={E}")
         if E == E_MAIN:
             rows["corr_build"] = dict(max_abs_err=err2, ms=ms2, plain_ms=plain_ms2,
                                       library_ms=lib_ms2, bound_ms=bound2[0], bound_by=bound2[1])
             rows["corr_lookup"] = dict(max_abs_err=err3, ms=ms3, plain_ms=plain_ms3,
-                                       library_ms=None, bound_ms=bound3[0], bound_by=bound3[1])
+                                       library_ms=lib_ms3, bound_ms=bound3[0], bound_by=bound3[1])
 
         # ---- K4 / K5: the window cache around first-round coords, and its lookup
         c0 = (grid + randn(E, P, 2, scale=2.0)).contiguous()
@@ -255,9 +329,22 @@ def phase_kernels(torch):
         # reads the 8x8 block of each window it samples, the bases and coords
         bound5 = bound(E * P * 4 * (7 * 8 * 3 + 49 * 3),
                        (E * P * 4 * 64 + bases.numel() + c1.numel() + out5.numel()) * 4)
+        sizes = level_sizes(H8, W8)
+        offs = pack_offsets(sizes)[0]
+        win_views = [wins[:, :, o:o + win_shape(*hw)[0], :win_shape(*hw)[1]]
+                     for o, hw in zip(offs, sizes)]
+        gs5 = grid_sample_inputs(torch, win_views, c1, bases)
+        lib5 = torch.cat([o.reshape(E, P, 49) for o in grid_sample_lookup(torch, gs5)], -1)
+        lib_ms5 = cuda_ms(torch, lambda: grid_sample_lookup(torch, gs5), 4 * reps)
+        err5_lib = float((lib5 - out5).abs().max())
+        del gs5, lib5, win_views
         say("kernels", f"E={E}: K4 {ms4:.4f} ms (plain {plain_ms4:.4f}, torch.bmm volume "
                        f"{lib_ms2:.4f}, bound {bound4[0]:.4f} by {bound4[1]}); K5 {ms5:.4f} ms "
-                       f"(plain {plain_ms5:.4f}, bound {bound5[0]:.4f} by {bound5[1]})")
+                       f"(plain {plain_ms5:.4f}, F.grid_sample x4 over the windows "
+                       f"{lib_ms5:.4f}, bound {bound5[0]:.4f} by {bound5[1]}); grid_sample "
+                       f"against K5 {err5_lib:.3e} (tol {tol_lib:.1e})")
+        if not err5_lib <= tol_lib:
+            fail(f"F.grid_sample over the windows does not compute K5's function at E={E}")
         say("kernels", f"E={E}: one update_fused call of 6 rounds, correlation only: "
                        f"K4 + 6 x K5 = {ms4 + 6 * ms5:.4f} ms against K2 + 6 x K3 = "
                        f"{ms2 + 6 * ms3:.4f} ms")
@@ -266,8 +353,112 @@ def phase_kernels(torch):
                                               library_ms=lib_ms2, bound_ms=bound4[0],
                                               bound_by=bound4[1])
             rows["corr_lookup_windows"] = dict(max_abs_err=max(err5, err53), ms=ms5,
-                                               plain_ms=plain_ms5, library_ms=None,
+                                               plain_ms=plain_ms5, library_ms=lib_ms5,
                                                bound_ms=bound5[0], bound_by=bound5[1])
+
+        # ---- K6: the lookup in the zero-bordered P-major pyramid (3.7 GB at E = 48)
+        padded, _ = build_pyramid_pmajor(f1, f2)
+        out6 = cuda_corr.corr_lookup_pmajor(padded, coords)
+        ref6 = cuda_corr.corr_lookup_pmajor_plain(padded, coords)
+        torch.cuda.synchronize()
+        err6 = float((out6 - ref6).abs().max())
+        tol6 = 1e-5 * max(1.0, float(ref6.abs().max()))
+        err63 = float((out6 - out).abs().max())
+        say("kernels", f"K6 corr_lookup_pmajor E={E}: max_abs_err {err6:.3e} (tol {tol6:.1e}); "
+                       f"against K3 on K2's levels: {err63:.3e} (tol {tol6:.1e})")
+        if not (err6 <= tol6 and err63 <= tol6):
+            fail(f"K6 disagrees with its plain version or with K3 at E={E}")
+        del ref6
+        ms6 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_pmajor(padded, coords), 4 * reps)
+        plain_ms6 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_pmajor_plain(padded, coords),
+                            max(reps // 5, 2))
+        # reads the 64 cells of each span (no bounds checks), the coords; writes 196 floats
+        bound6 = bound(E * P * 4 * (7 * 8 * 3 + 49 * 3),
+                       (E * P * 4 * 64 + coords.numel() + out6.numel()) * 4)
+        del padded, out6
+
+        # ---- K7: K4's windows cut out of K2's levels around c0
+        w7, b7 = cuda_corr.corr_extract_windows(levels, c0)
+        pw7, pb7 = cuda_corr.corr_extract_windows_plain(levels, c0)
+        torch.cuda.synchronize()
+        err7 = float((w7 - pw7).abs().max())
+        err74 = float((w7 - wins).abs().max())
+        same7 = bool((b7 == pb7).all()) and bool((b7 == bases).all())
+        say("kernels", f"K7 corr_extract_windows E={E}: bases equal to the plain version's and "
+                       f"K4's {same7}, windows max_abs_err {err7:.3e}, against K4's {err74:.3e} "
+                       f"(tol {tol4:.1e})")
+        if not (same7 and err7 <= tol4 and err74 <= tol4):
+            fail(f"K7 disagrees with its plain version or with K4 at E={E}")
+        del pw7, pb7
+        ms7 = cuda_ms(torch, lambda: cuda_corr.corr_extract_windows(levels, c0), reps)
+        plain_ms7 = cuda_ms(torch, lambda: cuda_corr.corr_extract_windows_plain(levels, c0),
+                            max(reps // 5, 2))
+        # the window cells inside each level are read, every cell and base written
+        need7 = 0
+        for l, (h, w) in enumerate(sizes):
+            WH, WW = win_shape(h, w)
+            r0 = b7[:, 2 * l].long() - 8
+            x0 = b7[:, 2 * l + 1].long() - 8
+            rows_in = (torch.minimum(r0 + WH, torch.tensor(h, device=dev)) - r0.clamp_min(0))
+            cols_in = (torch.minimum(x0 + WW, torch.tensor(w, device=dev)) - x0.clamp_min(0))
+            need7 += int((rows_in.clamp_min(0) * cols_in.clamp_min(0)).sum())
+        bound7 = bound(0, (need7 + c0.numel() + w7.numel() + b7.numel()) * 4)
+        # the library yardstick: F.grid_sample nearest, one call per level, at
+        # the integer grid of each window, built outside the timed region
+        gs7 = window_grid_inputs(torch, levels, b7)
+        lib7 = grid_sample_lookup(torch, gs7, "nearest", align_corners=False)
+        err7_lib = max(float((o.reshape(E, P, *o.shape[-2:])
+                              - w7[:, :, off:off + o.shape[-2], :o.shape[-1]]).abs().max())
+                       for o, off in zip(lib7, offs))
+        lib_ms7 = cuda_ms(torch, lambda: grid_sample_lookup(torch, gs7, "nearest",
+                                                            align_corners=False), reps)
+        del gs7, lib7
+        say("kernels", f"E={E}: F.grid_sample nearest x4 against K7's windows {err7_lib:.3e} "
+                       f"(tol 0: a copy of cells)")
+        if not err7_lib == 0.0:
+            fail(f"F.grid_sample nearest does not compute K7's function at E={E}")
+        del w7, b7
+
+        # ---- K8: K2's levels and K4's windows and bases in one pass
+        l8, w8, b8 = cuda_corr.corr_build_windows_levels(f1, f2, c0)
+        pl8, pw8, pb8 = cuda_corr.corr_build_windows_levels_plain(f1, f2, c0)
+        torch.cuda.synchronize()
+        err8 = max(float((w8 - pw8).abs().max()),
+                   max(float((a - b).abs().max()) for a, b in zip(l8, pl8)))
+        err82 = max(float((a - b).abs().max()) for a, b in zip(l8, levels))
+        err84 = float((w8 - wins).abs().max())
+        same8 = bool((b8 == pb8).all()) and bool((b8 == bases).all())
+        say("kernels", f"K8 corr_build_windows_levels E={E}: bases equal to the plain "
+                       f"version's and K4's {same8}; levels and windows max_abs_err {err8:.3e}; "
+                       f"levels against K2's {err82:.3e}, windows against K4's {err84:.3e} "
+                       f"(tol {tol2:.1e})")
+        if not (same8 and err8 <= tol2 and err82 <= tol2 and err84 <= tol2):
+            fail(f"K8 disagrees with its plain version, K2 or K4 at E={E}")
+        del pl8, pw8, pb8
+        ms8 = cuda_ms(torch, lambda: cuda_corr.corr_build_windows_levels(f1, f2, c0), reps)
+        plain_ms8 = cuda_ms(torch, lambda: cuda_corr.corr_build_windows_levels_plain(f1, f2, c0),
+                            max(reps // 5, 2))
+        bound8 = bound(2.0 * E * P * Q * C + 4.0 * pooled,
+                       (f1.numel() + f2.numel() + c0.numel() + w8.numel() + b8.numel()
+                        + sum(v.numel() for v in l8)) * 4)
+        del l8, w8, b8
+        say("kernels", f"E={E}: K6 {ms6:.4f} ms (plain {plain_ms6:.4f}, F.grid_sample x4 as "
+                       f"K3's {lib_ms3:.4f}, bound {bound6[0]:.4f} by {bound6[1]}); K7 "
+                       f"{ms7:.4f} ms (plain {plain_ms7:.4f}, F.grid_sample nearest x4 "
+                       f"{lib_ms7:.4f}, bound {bound7[0]:.4f} by {bound7[1]}); K8 {ms8:.4f} ms "
+                       f"(plain {plain_ms8:.4f}, torch.bmm volume {lib_ms2:.4f}, bound "
+                       f"{bound8[0]:.4f} by {bound8[1]})")
+        if E == E_MAIN:
+            rows["corr_lookup_pmajor"] = dict(max_abs_err=max(err6, err63), ms=ms6,
+                                              plain_ms=plain_ms6, library_ms=lib_ms3,
+                                              bound_ms=bound6[0], bound_by=bound6[1])
+            rows["corr_extract_windows"] = dict(max_abs_err=max(err7, err74), ms=ms7,
+                                                plain_ms=plain_ms7, library_ms=lib_ms7,
+                                                bound_ms=bound7[0], bound_by=bound7[1])
+            rows["corr_build_windows_levels"] = dict(max_abs_err=max(err8, err82, err84),
+                                                     ms=ms8, plain_ms=plain_ms8,
+                                                     library_ms=lib_ms2, bound_ms=bound8[0],
+                                                     bound_by=bound8[1])
         del levels, out, wins, bases, out5
 
     # ---- K1 at N = 64 edges over a 24-frame window
@@ -355,6 +546,8 @@ def phase_drift(torch, ops):
 
 FRONTEND_KERNELS = ("ba_blocks", "corr_build_windows", "corr_lookup_windows")
 BACKEND_KERNELS = ("ba_blocks", "corr_build", "corr_lookup")
+# the engine's; K6-K8 are on no engine path
+MAIN_KERNELS = tuple(dict.fromkeys(FRONTEND_KERNELS + BACKEND_KERNELS))
 
 
 def phase_card_vs_cpu(torch, ops):
@@ -422,9 +615,10 @@ def phase_card_vs_cpu(torch, ops):
         fail("the card run and the CPU run of Droid.terminate_eva disagree")
 
 
-def check_counts(counts, what):
+def check_counts(counts, what, kernels=MAIN_KERNELS):
+    """Every kernel of `kernels` launched, and no plain version ran."""
     for name, (launches, plain) in counts.items():
-        if launches == 0 or plain != 0:
+        if (name in kernels and launches == 0) or plain != 0:
             fail(f"{name}: {launches} kernel launches, {plain} plain calls on {what}")
 
 
@@ -541,11 +735,37 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False):
     return counts
 
 
+def phase_profile_frontend(torch, ops):
+    """tools/profile_frontend.py at bench.py's shape on the card; returns the
+    kernel counts of the run."""
+    from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
+    from droid_slam_reserch_tpu_torch.tools.profile_frontend import FULL, ROUNDS, profile
+
+    ops.reset_counts()
+    fg.reset_corr_rounds()
+    res = profile(**FULL, device="cuda", iters=10)
+    torch.cuda.synchronize()
+    counts, rounds = ops.counts(), dict(fg.CORR_ROUNDS)
+    torch.cuda.empty_cache()
+    print(json.dumps(res), flush=True)
+    say("profile-frontend", f"correlation rounds of fused_rounds {rounds}; counts (kernel "
+                            f"launches, plain calls): {counts}")
+    errs = {k: res[k] for k in ("k3_max_err", "k6_max_err", "k5_max_err")}
+    if not all(v <= 1e-5 for v in errs.values()):
+        fail(f"a lookup of the profiler disagrees with the plain one beyond 1e-5: {errs}")
+    if rounds["fallback"] or rounds["windowed"] % ROUNDS:
+        fail(f"fused_rounds left the window cache in the profiler: {rounds}")
+    check_counts(counts, "the frontend profiler", kernels=tuple(counts))
+    return counts
+
+
 KERNEL_GROUPS = (      # substrings of device kernel names -> group, first match wins
     ("port K2 corr_build", ("corr_volume_kernel", "pool2x_kernel")),
     ("port K3 corr_lookup", ("corr_lookup_kernel",)),
     ("port K4 corr_build_windows", ("windows_build_kernel",)),
     ("port K5 corr_lookup_windows", ("windows_lookup_kernel",)),
+    ("port K6 corr_lookup_pmajor", ("pmajor_lookup_kernel",)),
+    ("port K7 corr_extract_windows", ("extract_windows_kernel",)),
     ("port K1 ba_blocks", ("ba_blocks_kernel",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "winograd", "fft", "_complex")),
     ("matrix products (cuBLAS)", ("gemm", "gemv", "cutlass")),
@@ -662,6 +882,8 @@ def main():
     if profiling:
         tracked += phase_profile(torch, droid, frames[N_MAIN:], float(N_MAIN))
     counts_term = phase_terminate(torch, ops, droid, tracked, profiling)
+    del droid
+    counts_prof = phase_profile_frontend(torch, ops)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -679,12 +901,22 @@ def main():
                                "droid_slam_reserch_tpu/ops/pallas_corr.py:715"),
         "corr_lookup_windows": ("droid_slam_reserch_tpu_torch/csrc/corr_windows_lookup.cu",
                                 "droid_slam_reserch_tpu/ops/pallas_corr.py:474"),
+        "corr_lookup_pmajor": ("droid_slam_reserch_tpu_torch/csrc/corr_pmajor_lookup.cu",
+                               "droid_slam_reserch_tpu/ops/pallas_corr.py:109"),
+        "corr_extract_windows": ("droid_slam_reserch_tpu_torch/csrc/corr_extract_windows.cu",
+                                 "droid_slam_reserch_tpu/ops/pallas_corr.py:391"),
+        "corr_build_windows_levels": ("droid_slam_reserch_tpu_torch/csrc/corr_windows_build.cu",
+                                      "droid_slam_reserch_tpu/ops/pallas_corr.py:604"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
         r = rows[name]
+        # the engine's main path (track, terminate_eva) and this slice's
+        # path, the frontend profiler: each path's count, and their sum
+        by_path = {"track": counts[name][0], "terminate_eva": counts_term[name][0],
+                   "profile_frontend": counts_prof[name][0]}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": counts[name][0] + counts_term[name][0],
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -1,7 +1,9 @@
-// K4: per-pixel window cache of the correlation pyramid, for Hopper.
+// K4: per-pixel window cache of the correlation pyramid, for Hopper, and
+// K8: the same kernel storing the pyramid's levels as well.
 //
-// Replaces the TPU kernel droid_slam_reserch_tpu/ops/pallas_corr.py
-// (corr_build_windows_light_pallas, body _build_windows_light_kernel).
+// K4 replaces the TPU kernel droid_slam_reserch_tpu/ops/pallas_corr.py
+// (corr_build_windows_light_pallas, body _build_windows_light_kernel), K8
+// replaces corr_build_windows_pallas (body _build_windows_kernel).
 // Same function: for edge e and source pixel p,
 //   level0[y, x] = sum_c f1[e, p, c] * f2[e, y, x, c] / 16          (fp32)
 //   level l+1    = 2x2 average of level l, floor semantics
@@ -12,7 +14,8 @@
 // unless the bordered level is smaller, when the window is all of it.
 // Output: windows [E, P, sum_l WH_l, max_l WW_l] (level l at rows off_l;
 // columns past WW_l hold 0) and bases [E, 2L, P] int32 (by_l, bx_l).
-// The pyramid itself never reaches device memory.
+// K4's pyramid never reaches device memory; K8 also writes each level in
+// K2's layout [E, P, H2 >> l, W2 >> l] (csrc/corr_build.cu), no border.
 //
 // What bounds it on the H100: the product.  At the main path's shapes
 // (E = 48, P = H2*W2 = 2560, C = 128) it is 2*E*P*P*C = 80.5 GFLOP of fp32,
@@ -30,6 +33,10 @@
 // memory with coalesced stores.  Where 8 pixels do not fit in shared memory
 // it takes groups of 4.  Simple first: no tensor cores (the function is
 // fp32), and every block re-reads f2[e] (from L2), 20 GB at the main path.
+// K8 is the instantiation with kStoreLevels: after pooling, the block copies
+// its pixels' levels from shared memory to device memory (a pixel group's
+// level is one contiguous run there), 1.67 GB more stores at the main path;
+// K4's instantiation compiles without that copy.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,6 +57,10 @@ struct Meta {
   int sum_wh, ww_max;
 };
 
+struct LevelsOut {
+  float* lv[kLevels];            // K8's levels [E, P, H_l, W_l]; unused by K4
+};
+
 __device__ __forceinline__ int floor_clamped(float v) {
   return (int)fminf(fmaxf(floorf(v), -1e6f), 1e6f);
 }
@@ -59,11 +70,11 @@ __device__ __forceinline__ int window_base(float c, float scale, int n, int win)
   return min(max(b, 0), n + 2 * kPad - win);
 }
 
-template <int PG>
+template <int PG, bool kStoreLevels>
 __global__ void __launch_bounds__(kThreads)
 windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
                      const float2* __restrict__ coords0, float* __restrict__ wins,
-                     int* __restrict__ bases, int P, int C, Meta m) {
+                     int* __restrict__ bases, int P, int C, Meta m, LevelsOut out_lv) {
   extern __shared__ float smem[];
   const int e = blockIdx.y;
   const int p0 = blockIdx.x * PG;
@@ -150,6 +161,16 @@ windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
     __syncthreads();
   }
 
+  if constexpr (kStoreLevels) {          // K8: the levels, coalesced copies
+    const int np = min(PG, P - p0);
+#pragma unroll
+    for (int l = 0; l < kLevels; l++) {
+      const int q = m.H[l] * m.W[l];
+      float* dst = out_lv.lv[l] + ((size_t)e * P + p0) * q;
+      for (int i = tid; i < np * q; i += kThreads) dst[i] = lv[l][i];
+    }
+  }
+
   // bases, one thread per pixel
   if (tid < PG && p0 + tid < P) {
     const int gp = p0 + tid;
@@ -189,26 +210,21 @@ size_t shared_bytes(const Meta& m, int pg) {
   return sizeof(float) * ((size_t)pg * m.q0[kLevels] + (size_t)BK * pg + (size_t)BK * kBsStride);
 }
 
-template <int PG>
+template <int PG, bool kStoreLevels>
 int launch(const Meta& m, size_t bytes, const float* f1, const float* f2, const float2* c0,
-           float* wins, int* bases, int E, int P, int C, cudaStream_t s) {
-  int err = (int)cudaFuncSetAttribute(windows_build_kernel<PG>,
+           float* wins, int* bases, const LevelsOut& lo, int E, int P, int C, cudaStream_t s) {
+  int err = (int)cudaFuncSetAttribute(windows_build_kernel<PG, kStoreLevels>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err) return err;
   dim3 grid((P + PG - 1) / PG, E);
-  windows_build_kernel<PG><<<grid, kThreads, bytes, s>>>(f1, f2, c0, wins, bases, P, C, m);
+  windows_build_kernel<PG, kStoreLevels><<<grid, kThreads, bytes, s>>>(f1, f2, c0, wins, bases,
+                                                                       P, C, m, lo);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches K4 on `stream`: f1 [E, P, C], f2 [E, H2*W2, C], coords0 [E, P, 2]
-// (float32, contiguous) -> wins [E, P, sum WH, max WW] float32 and bases
-// [E, 8, P] int32.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue when even 4 pixels' pyramid exceeds shared memory.
-extern "C" int corr_windows_build_launch(const void* f1, const void* f2, const void* coords0,
-                                         int E, int P, int H2, int W2, int C, void* wins,
-                                         void* bases, void* stream) {
+template <bool kStoreLevels>
+int build_windows(const void* f1, const void* f2, const void* coords0, int E, int P, int H2,
+                  int W2, int C, void* wins, void* bases, const LevelsOut& lo, void* stream) {
   Meta m;
   m.q0[0] = 0;
   m.sum_wh = 0;
@@ -229,9 +245,35 @@ extern "C" int corr_windows_build_launch(const void* f1, const void* f2, const v
   const float* a = (const float*)f1;
   const float* b = (const float*)f2;
   const float2* c0 = (const float2*)coords0;
+  float* w = (float*)wins;
+  int* bs = (int*)bases;
   if (shared_bytes(m, 8) <= (size_t)kMaxShared)
-    return launch<8>(m, shared_bytes(m, 8), a, b, c0, (float*)wins, (int*)bases, E, P, C, s);
+    return launch<8, kStoreLevels>(m, shared_bytes(m, 8), a, b, c0, w, bs, lo, E, P, C, s);
   if (shared_bytes(m, 4) <= (size_t)kMaxShared)
-    return launch<4>(m, shared_bytes(m, 4), a, b, c0, (float*)wins, (int*)bases, E, P, C, s);
+    return launch<4, kStoreLevels>(m, shared_bytes(m, 4), a, b, c0, w, bs, lo, E, P, C, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Launches K4 on `stream`: f1 [E, P, C], f2 [E, H2*W2, C], coords0 [E, P, 2]
+// (float32, contiguous) -> wins [E, P, sum WH, max WW] float32 and bases
+// [E, 8, P] int32.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue when even 4 pixels' pyramid exceeds shared memory.
+extern "C" int corr_windows_build_launch(const void* f1, const void* f2, const void* coords0,
+                                         int E, int P, int H2, int W2, int C, void* wins,
+                                         void* bases, void* stream) {
+  return build_windows<false>(f1, f2, coords0, E, P, H2, W2, C, wins, bases, LevelsOut{},
+                              stream);
+}
+
+// Launches K8 on `stream`: K4's outputs, plus level0..level3
+// [E, P, H2 >> l, W2 >> l] float32 (K2's layout).  Same return codes.
+extern "C" int corr_windows_build_levels_launch(const void* f1, const void* f2,
+                                                const void* coords0, int E, int P, int H2,
+                                                int W2, int C, void* wins, void* bases,
+                                                void* level0, void* level1, void* level2,
+                                                void* level3, void* stream) {
+  const LevelsOut lo{{(float*)level0, (float*)level1, (float*)level2, (float*)level3}};
+  return build_windows<true>(f1, f2, coords0, E, P, H2, W2, C, wins, bases, lo, stream);
 }

@@ -1,7 +1,8 @@
 """Covisibility factor graph (mirror of engine/factor_graph.py).
 
 Host bookkeeping (add / remove / dedup / proximity selection) runs in
-numpy.  ``update_fused`` (frontend and trajectory filler) runs K rounds of
+numpy.  ``update_fused`` (frontend and trajectory filler) pads the edges,
+cuts the frame window and calls ``fused_rounds``: K rounds of
 {reproject -> correlation lookup -> ConvGRU update + GraphAgg -> dense BA}
 as a Python loop, on the JAX package's default TPU path: each call caches
 every pixel's per-level correlation window around the first round's coords
@@ -54,6 +55,77 @@ class WindowedLookup:
         if self.levels is None:
             self.levels = corr_build(self.f1, self.f2)
         return corr_lookup(self.levels, coords)
+
+
+def fused_rounds(update_apply, params, poses, disps, disps_sens, damping, intr, fmap1_e,
+                 fmap2_e, nets, inps, target_a, ii_a, jj_a, kk, active_mask, has_edge, ii_all,
+                 jj_all, target_inac, weight_inac, free_mask, bucket_edges, bucket_mask,
+                 cull_ij=None, *, rounds, ba_iters, lm, ep, damping_eps, min_depth, beta,
+                 motion_only=False, alpha=0.05):
+    """``rounds`` x (update operator + dense BA) over one frame window: the
+    counterpart of the JAX package's ``_fused_rounds``, with its inputs.
+
+    Window-local: poses [MW, 7], disps/disps_sens/damping [MW, H, W],
+    intr [4]; per active edge (padded): fmap1_e/fmap2_e [E, H, W, C] source
+    and target features, nets/inps [E, H, W, 128], target_a [E, H, W, 2],
+    ii_a/jj_a/kk [E] long, active_mask [E] (0 on padded edges); has_edge
+    [MW] bool; for the BA, ii_all/jj_all over the inactive edges (frozen
+    target_inac/weight_inac) then the active ones, free_mask [MW] bool and
+    the bucket tables of schur_pairs(ii_all, MW); cull_ij an optional pair
+    of local frames.
+
+    Returns (poses, disps, damping, nets, target_a, weight_a, upmask of the
+    last round [MW, H, W, 576], d_cull): d_cull is the pair's bidirectional
+    flow distance on the final state as a 0-d tensor, or None.
+    """
+    MW = poses.shape[0]
+    E = fmap1_e.shape[0]
+    h8, w8 = disps.shape[-2:]
+    intr_win = intr.expand(MW, 4)
+    active = active_mask.to(torch.float32)
+    amask = active[:, None, None, None]
+    has_edge = has_edge[:, None, None]
+
+    def reproject():
+        return projective_transform(poses[None], disps[None], intr_win[None], ii_a, jj_a)[0][0]
+
+    # the window cache around the first round's coords, once per call (K4)
+    coords1 = reproject()
+    lookup = WindowedLookup(fmap1_e, fmap2_e, coords1.reshape(E, h8 * w8, 2).contiguous())
+    coords0 = coords_grid(h8, w8, device=poses.device)
+    weight_a = torch.zeros_like(target_a)
+    upmask = None
+
+    for r in range(rounds):
+        if r > 0:
+            coords1 = reproject()
+        motn = torch.cat([coords1 - coords0, target_a - coords1], -1).clamp(-64.0, 64.0)
+        corr = lookup(coords1.reshape(E, h8 * w8, 2).contiguous())
+        corr = corr.reshape(E, h8, w8, -1)
+
+        # the active mask keeps padded edges out of GraphAgg's per-frame mean
+        nets, delta, weight, eta, upmask = update_apply(
+            params, nets[None], inps[None], corr[None], motn[None], kk, MW, active)
+        nets = nets[0]
+        target_a = coords1 + delta[0]
+        weight_a = weight[0] * amask
+
+        damping = torch.where(has_edge, eta[0], damping)
+        eta_ba = 0.2 * damping + damping_eps
+        poses, disps = ba_iterations(
+            poses, disps, intr, disps_sens, torch.cat([target_inac, target_a], 0),
+            torch.cat([weight_inac, weight_a], 0), eta_ba, ii_all, jj_all, free_mask,
+            bucket_edges, bucket_mask, iterations=ba_iters, lm=lm, ep=ep,
+            motion_only=motion_only, alpha=alpha, min_depth=min_depth)
+        disps = disps.clamp_min(0.001)
+
+    d_cull = None
+    if cull_ij is not None:
+        d2 = frame_distance(poses, disps, intr, cull_ij, cull_ij.flip(0),
+                            beta=beta, min_depth=min_depth)
+        d_cull = 0.5 * (d2[0] + d2[1])
+    return (poses, disps, damping, nets, target_a, weight_a,
+            None if upmask is None else upmask[0], d_cull)
 
 
 class FactorGraph:
@@ -239,64 +311,24 @@ class FactorGraph:
 
         ii_pt, jj_pt = self._t(ii_p), self._t(jj_p)
         ii_at, jj_at = self._t(ii_a), self._t(jj_a)
-        ii_all, jj_all = self._t(ii_all), self._t(jj_all)
-        kk = ii_at.clamp(0, MW - 1)
-        free_t = torch.as_tensor(free, device=dev)
-        be_t = self._t(be)
-        bm_t = torch.as_tensor(bm, device=dev)
-        has_edge_t = torch.as_tensor(has_edge, device=dev)[:, None, None]
+        cij = None if cull_pair is None else self._t([cull_pair[0] - m0, cull_pair[1] - m0])
 
         pad = n_pad - n
-        nets = torch.cat([self.net, torch.zeros(pad, h8, w8, 128, device=dev)], 0)
-        inps = video.inps[ii_pt]
-        target_a = torch.cat([self.target, torch.zeros(pad, h8, w8, 2, device=dev)], 0)
         win = slice(m0, m0 + MW)
-        poses, disps = video.poses[win], video.disps[win]
-        dsens, damping = video.disps_sens[win], video.damping[win]
-        intr = video.intrinsics[0]
-        intr_win = intr.expand(MW, 4)
-
-        def reproject():
-            return projective_transform(poses[None], disps[None], intr_win[None],
-                                        ii_at, jj_at)[0][0]
-
-        # the window cache around the first round's coords, once per call (K4)
-        coords1 = reproject()
-        lookup = WindowedLookup(video.fmaps[ii_pt, 0], video.fmaps[jj_pt, 0],
-                                 coords1.reshape(n_pad, h8 * w8, 2).contiguous())
-        coords0 = coords_grid(h8, w8, device=dev)
-        amask = active[:, None, None, None]
-        weight_a = torch.zeros_like(target_a)
-
-        for r in range(rounds):
-            if r > 0:
-                coords1 = reproject()
-            motn = torch.cat([coords1 - coords0, target_a - coords1], -1).clamp(-64.0, 64.0)
-            corr = lookup(coords1.reshape(n_pad, h8 * w8, 2).contiguous())
-            corr = corr.reshape(n_pad, h8, w8, -1)
-
-            # the active mask keeps padded edges out of GraphAgg's per-frame mean
-            nets, delta, weight, eta, _ = self.update_apply(
-                self.params, nets[None], inps[None], corr[None], motn[None], kk, MW, active)
-            nets = nets[0]
-            target_a = coords1 + delta[0]
-            weight_a = weight[0] * amask
-
-            damping = torch.where(has_edge_t, eta[0], damping)
-            eta_ba = 0.2 * damping + cfg.damping_eps
-            poses, disps = ba_iterations(
-                poses, disps, intr, dsens, torch.cat([tgt_i, target_a], 0),
-                torch.cat([wgt_i, weight_a], 0), eta_ba, ii_all, jj_all, free_t, be_t, bm_t,
-                iterations=itrs, lm=cfg.frontend_lm, ep=cfg.frontend_ep,
-                motion_only=motion_only, alpha=cfg.rgbd_alpha, min_depth=cfg.min_depth)
-            disps = disps.clamp_min(0.001)
-
-        d_cull = None
-        if cull_pair is not None:
-            cij = self._t([cull_pair[0] - m0, cull_pair[1] - m0])
-            d2 = frame_distance(poses, disps, intr, cij, cij.flip(0),
-                                beta=cfg.beta, min_depth=cfg.min_depth)
-            d_cull = float(0.5 * (d2[0] + d2[1]))  # the per-keyframe host sync
+        poses, disps, damping, nets, target_a, weight_a, _, d_cull = fused_rounds(
+            self.update_apply, self.params, video.poses[win], video.disps[win],
+            video.disps_sens[win], video.damping[win], video.intrinsics[0],
+            video.fmaps[ii_pt, 0], video.fmaps[jj_pt, 0],
+            torch.cat([self.net, torch.zeros(pad, h8, w8, 128, device=dev)], 0),
+            video.inps[ii_pt],
+            torch.cat([self.target, torch.zeros(pad, h8, w8, 2, device=dev)], 0),
+            ii_at, jj_at, ii_at.clamp(0, MW - 1), active,
+            torch.as_tensor(has_edge, device=dev), self._t(ii_all), self._t(jj_all),
+            tgt_i, wgt_i, torch.as_tensor(free, device=dev), self._t(be),
+            torch.as_tensor(bm, device=dev), cij, rounds=rounds, ba_iters=itrs,
+            lm=cfg.frontend_lm, ep=cfg.frontend_ep, damping_eps=cfg.damping_eps,
+            min_depth=cfg.min_depth, beta=cfg.beta, motion_only=motion_only,
+            alpha=cfg.rgbd_alpha)
 
         video.poses[win] = poses
         video.disps[win] = disps
@@ -305,7 +337,7 @@ class FactorGraph:
         self.target = target_a[:n]
         self.weight = weight_a[:n]
         self.age += rounds
-        return d_cull
+        return None if d_cull is None else float(d_cull)   # the per-keyframe host sync
 
     def _chunk_tables(self, s):
         """Host tables of update_lowmem: edges sorted by source frame, one

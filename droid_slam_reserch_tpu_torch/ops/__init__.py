@@ -7,15 +7,25 @@ for CPU tensors:
 - K3 ``cuda_corr.corr_lookup``     (plain: ``cuda_corr.corr_lookup_plain``)
 - K4 ``cuda_corr.corr_build_windows``  (plain: ``cuda_corr.corr_build_windows_plain``)
 - K5 ``cuda_corr.corr_lookup_windows`` (plain: ``cuda_corr.corr_lookup_windows_plain``)
+- K6 ``cuda_corr.corr_lookup_pmajor``  (plain: ``cuda_corr.corr_lookup_pmajor_plain``)
+- K7 ``cuda_corr.corr_extract_windows`` (plain: ``cuda_corr.corr_extract_windows_plain``)
+- K8 ``cuda_corr.corr_build_windows_levels``
+  (plain: ``cuda_corr.corr_build_windows_levels_plain``)
 """
 from .cuda_ba import ba_system_blocks, build_system_blocks
 from .cuda_corr import (
     corr_build,
     corr_build_plain,
     corr_build_windows,
+    corr_build_windows_levels,
+    corr_build_windows_levels_plain,
     corr_build_windows_plain,
+    corr_extract_windows,
+    corr_extract_windows_plain,
     corr_lookup,
     corr_lookup_plain,
+    corr_lookup_pmajor,
+    corr_lookup_pmajor_plain,
     corr_lookup_windows,
     corr_lookup_windows_plain,
 )
@@ -26,6 +36,9 @@ KERNELS = {
     "corr_lookup": (corr_lookup, corr_lookup_plain),
     "corr_build_windows": (corr_build_windows, corr_build_windows_plain),
     "corr_lookup_windows": (corr_lookup_windows, corr_lookup_windows_plain),
+    "corr_lookup_pmajor": (corr_lookup_pmajor, corr_lookup_pmajor_plain),
+    "corr_extract_windows": (corr_extract_windows, corr_extract_windows_plain),
+    "corr_build_windows_levels": (corr_build_windows_levels, corr_build_windows_levels_plain),
 }
 
 

@@ -1,6 +1,7 @@
 """Correlation volumes and the radius-3 bilinear pyramid lookup, plain PyTorch:
 the full pyramid (K2, K3), the per-pixel window cache and its drift rule
-(K4, K5), and the backend's altcorr over a pooled feature pyramid.
+(K4, K5, K7, K8), the zero-bordered P-major pyramid (K6), and the backend's
+altcorr over a pooled feature pyramid.
 
 The spec that the CUDA kernels of ops/cuda_corr.py match:
 - features dot products are scaled by 1/16 and accumulated in fp32;
@@ -141,6 +142,22 @@ def extract_windows(pyramid, bases):
     return out
 
 
+def _sample_span(win, sy, sx, c, radius):
+    """The K3 formula read from a zero-bordered tile: win [E, P, R, S], the
+    8-tap span starting at (sy, sx) [E, P], c [E, P, 2] level pixels
+    -> [E, P, (2r+1)**2] (channel a * (2r+1) + b)."""
+    E, P, _, S = win.shape
+    rd = 2 * radius + 1
+    taps = torch.arange(rd + 1, device=c.device)
+    x, y = c[..., 0], c[..., 1]
+    dx, dy = (x - torch.floor(x))[..., None, None], (y - torch.floor(y))[..., None, None]
+    g = win.gather(2, (sy[..., None] + taps)[..., None].expand(E, P, rd + 1, S))
+    g = g.gather(3, (sx[..., None] + taps)[:, :, None, :].expand(E, P, rd + 1, rd + 1))
+    yb = (1.0 - dy) * g[:, :, :rd, :] + dy * g[:, :, 1:, :]           # [E, P, b, rd+1]
+    xb = (1.0 - dx) * yb[..., :rd] + dx * yb[..., 1:]                  # [E, P, b, a]
+    return xb.transpose(-1, -2).reshape(E, P, rd * rd)
+
+
 def lookup_windows(wins, bases, coords, sizes, radius=3):
     """Radius-r bilinear lookup inside the packed windows -> [E, P, L*(2r+1)**2].
 
@@ -149,24 +166,13 @@ def lookup_windows(wins, bases, coords, sizes, radius=3):
     """
     coords = coords.detach().float()
     offs, _, _ = pack_offsets(sizes)
-    E, P = coords.shape[:2]
-    rd = 2 * radius + 1
-    taps = torch.arange(rd + 1, device=coords.device)
     out = []
     for l, (off, (h, w)) in enumerate(zip(offs, sizes)):
         WH, WW = win_shape(h, w)
         c = coords / (2.0 ** l)
-        x, y = c[..., 0], c[..., 1]
-        xf, yf = torch.floor(x), torch.floor(y)
-        dx, dy = (x - xf)[..., None, None], (y - yf)[..., None, None]
-        sy = (_floor_int(y) + PPAD - radius - bases[:, 2 * l].long()).clamp(0, WH - 8)
-        sx = (_floor_int(x) + PPAD - radius - bases[:, 2 * l + 1].long()).clamp(0, WW - 8)
-        win = wins[:, :, off:off + WH, :WW]
-        g = win.gather(2, (sy[..., None] + taps)[..., None].expand(E, P, rd + 1, WW))
-        g = g.gather(3, (sx[..., None] + taps)[:, :, None, :].expand(E, P, rd + 1, rd + 1))
-        yb = (1.0 - dy) * g[:, :, :rd, :] + dy * g[:, :, 1:, :]       # [E, P, b, rd+1]
-        xb = (1.0 - dx) * yb[..., :rd] + dx * yb[..., 1:]              # [E, P, b, a]
-        out.append(xb.transpose(-1, -2).reshape(E, P, rd * rd))
+        sy = (_floor_int(c[..., 1]) + PPAD - radius - bases[:, 2 * l].long()).clamp(0, WH - 8)
+        sx = (_floor_int(c[..., 0]) + PPAD - radius - bases[:, 2 * l + 1].long()).clamp(0, WW - 8)
+        out.append(_sample_span(wins[:, :, off:off + WH, :WW], sy, sx, c, radius))
     return torch.cat(out, -1)
 
 
@@ -196,6 +202,56 @@ def window_drift_ok(bases, coords, sizes, radius=3):
                  | ((sx > WW - 8) & ((xl < Wp - 8) | (bx < Wp - WW))))
         ok = ok & ~(bad_y | bad_x).any()
     return ok
+
+
+# ---------------------------------------------------------------- P-major
+#
+# The JAX package's pixels-last layout (K6 reads it): each level is
+# [E, H2_l, W2_l, P] with the 8-pixel zero border written out, so a lookup
+# needs no bounds checks; the span start is clipped into [0, Hp - 8], where
+# a span off the level lands wholly in the border.
+
+def corr_volume_pmajor(f1, f2):
+    """f1 [E, H1, W1, C], f2 [E, H2, W2, C] -> [E, H2, W2, H1*W1], scaled 1/16."""
+    E, H1, W1, C = f1.shape
+    H2, W2 = f2.shape[1:3]
+    v = torch.bmm(f2.reshape(E, H2 * W2, C).float(),
+                  f1.reshape(E, H1 * W1, C).float().transpose(1, 2))
+    return (v / 16.0).reshape(E, H2, W2, H1 * W1)
+
+
+def pool2x_pmajor(v):
+    """2x average pool over the spatial dims of [E, H, W, P] (floor)."""
+    E, H, W, P = v.shape
+    h, w = H // 2, W // 2
+    x = v[:, : 2 * h, : 2 * w].reshape(E, h, 2, w, 2, P)
+    return (x[:, :, 0, :, 0] + x[:, :, 0, :, 1] + x[:, :, 1, :, 0] + x[:, :, 1, :, 1]) * 0.25
+
+
+def build_pyramid_pmajor(f1, f2, num_levels=4):
+    """Zero-bordered P-major pyramid: ([E, H2_l + 16, W2_l + 16, P] per
+    level, [(H2_l, W2_l)])."""
+    vol = corr_volume_pmajor(f1, f2)
+    pyr = [vol]
+    for _ in range(num_levels - 1):
+        vol = pool2x_pmajor(vol)
+        pyr.append(vol)
+    padded = [torch.nn.functional.pad(v, (0, 0, PPAD, PPAD, PPAD, PPAD)) for v in pyr]
+    return padded, [tuple(v.shape[1:3]) for v in pyr]
+
+
+def lookup_pmajor(padded, coords, radius=3):
+    """Radius-r lookup in the padded P-major levels, coords [E, P, 2]
+    level-0 pixels -> [E, P, L*(2r+1)**2]; equals corr_lookup_pyramid_flat."""
+    coords = coords.detach().float()
+    out = []
+    for l, v in enumerate(padded):
+        Hp, Wp = v.shape[1:3]
+        c = coords / (2.0 ** l)
+        sy = (_floor_int(c[..., 1]) + PPAD - radius).clamp(0, Hp - 8)
+        sx = (_floor_int(c[..., 0]) + PPAD - radius).clamp(0, Wp - 8)
+        out.append(_sample_span(v.permute(0, 3, 1, 2), sy, sx, c, radius))
+    return torch.cat(out, -1)
 
 
 # ---------------------------------------------------------------- altcorr

@@ -3,7 +3,8 @@
 The counterpart of the JAX package's ops/pallas_ba.py and, for the plain
 version, of ba/system.py::build_system_blocks.  For CUDA tensors
 ``ba_system_blocks`` launches csrc/ba_blocks.cu or raises; for CPU tensors
-it runs ``build_system_blocks``.  ``launches`` / ``calls`` count each.
+it runs ``build_system_blocks``.  ``launches`` / ``calls`` count each;
+``system_blocks`` is the uncounted function itself.
 
 Conventions: weights are scaled by 0.001, pixels behind min_depth get zero
 weight, and stereo self-edges (ii == jj) contribute only depth terms.
@@ -15,15 +16,14 @@ from ..geom.projective import projective_transform, relative_poses
 from ..lie import quat_to_matrix
 
 
-def build_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
-                        min_depth=0.25, w_scale=0.001):
-    """Plain K1.  target/weight [N, H, W, 2]; poses [MW, 7]; disps
-    [MW, H, W]; intrinsics [4]; ii/jj [N] local frame indices.
+def system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
+                  min_depth=0.25, w_scale=0.001):
+    """K1's function in plain PyTorch.  target/weight [N, H, W, 2]; poses
+    [MW, 7]; disps [MW, H, W]; intrinsics [4]; ii/jj [N] local frame indices.
 
     Returns Hii/Hij/Hji/Hjj [N, 6, 6], vi/vj [N, 6], Ei/Ej [N, 6, HW] and
     Ck/wk [N, HW], computed through projective_transform's Jacobians.
     """
-    build_system_blocks.calls += 1
     N = target.shape[0]
     MW = poses.shape[0]
     HW = disps.shape[-2] * disps.shape[-1]
@@ -50,6 +50,12 @@ def build_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
         "Ck": (w * Jz0 * Jz0).sum(-1).reshape(N, HW),
         "wk": (w * r * Jz0).sum(-1).reshape(N, HW),
     }
+
+
+def build_system_blocks(*args, **kw):
+    """Plain K1: system_blocks, counted."""
+    build_system_blocks.calls += 1
+    return system_blocks(*args, **kw)
 
 
 build_system_blocks.calls = 0

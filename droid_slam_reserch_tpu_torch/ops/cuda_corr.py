@@ -11,6 +11,16 @@
 - K5 ``corr_lookup_windows`` the radius-3 lookup inside those windows
                              (csrc/corr_windows_lookup.cu; JAX
                              corr_lookup_windows_pallas)
+- K6 ``corr_lookup_pmajor``  the radius-3 lookup in the zero-bordered
+                             P-major pyramid of ops.corr.build_pyramid_pmajor
+                             (csrc/corr_pmajor_lookup.cu; JAX
+                             corr_lookup_pmajor_pallas)
+- K7 ``corr_extract_windows`` K4's windows and bases cut out of K2's levels
+                             (csrc/corr_extract_windows.cu; JAX
+                             corr_extract_windows_pallas)
+- K8 ``corr_build_windows_levels`` K4 that also writes K2's levels
+                             (csrc/corr_windows_build.cu; JAX
+                             corr_build_windows_pallas)
 
 For a CUDA tensor each wrapper launches its hand-written kernel or raises;
 for a CPU tensor it runs the plain version.  ``launches`` / ``calls`` count
@@ -25,6 +35,7 @@ from .corr import (
     corr_volume_flat,
     extract_windows,
     level_sizes,
+    lookup_pmajor,
     lookup_windows,
     pack_offsets,
     window_bases,
@@ -57,6 +68,19 @@ def _check_f32(name, x, ndim):
     if x.dtype != torch.float32 or x.dim() != ndim or not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous float32 {ndim}-D tensor, "
                          f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+
+
+def _check_levels(name, levels, E, P, H2, W2, border=0):
+    """Each level l is a contiguous float32 [E, P, H2 >> l, W2 >> l] (K2's
+    layout), or with border 8 the padded P-major [E, Hp_l, Wp_l, P]."""
+    if len(levels) != NUM_LEVELS:
+        raise ValueError(f"{name}: expected {NUM_LEVELS} levels, got {len(levels)}")
+    for l, v in enumerate(levels):
+        _check_f32(f"level{l}", v, 4)
+        h, w = (H2 >> l) + 2 * border, (W2 >> l) + 2 * border
+        want = (E, h, w, P) if border else (E, P, h, w)
+        if tuple(v.shape) != want:
+            raise ValueError(f"{name}: level{l} {tuple(v.shape)}, expected {want}")
 
 
 def corr_build(f1, f2):
@@ -96,18 +120,12 @@ def corr_lookup(levels, coords):
         return corr_lookup_plain(levels, coords)
     if not coords.is_cuda or any(v.device != coords.device for v in levels):
         raise ValueError("corr_lookup: levels and coords must share one CUDA device")
-    if len(levels) != NUM_LEVELS:
-        raise ValueError(f"corr_lookup: expected {NUM_LEVELS} levels, got {len(levels)}")
     _check_f32("coords", coords, 3)
     E, P, two = coords.shape
-    if two != 2:
+    if two != 2 or levels[0].dim() != 4:
         raise ValueError(f"corr_lookup: coords {tuple(coords.shape)}")
-    _, _, H2, W2 = levels[0].shape
-    for l, v in enumerate(levels):
-        _check_f32(f"level{l}", v, 4)
-        if tuple(v.shape) != (E, P, H2 >> l, W2 >> l):
-            raise ValueError(f"corr_lookup: level{l} {tuple(v.shape)} does not fit "
-                             f"E={E} P={P} H2={H2} W2={W2}")
+    H2, W2 = levels[0].shape[-2:]
+    _check_levels("corr_lookup", levels, E, P, H2, W2)
     out = torch.empty(E, P, NUM_LEVELS * (2 * RADIUS + 1) ** 2, device=coords.device)
     lib = build.library()
     with torch.cuda.device(coords.device):
@@ -122,15 +140,20 @@ def corr_lookup(levels, coords):
 corr_lookup.launches = 0
 
 
+def _cut_windows(levels, coords):
+    """Each pixel's per-level window around coords [E, P, 2], cut out of
+    the zero-bordered levels -> (windows, bases)."""
+    sizes = [tuple(v.shape[-2:]) for v in levels]
+    bases = window_bases(coords.detach().float(), sizes, RADIUS)
+    return extract_windows(levels, bases), bases
+
+
 def corr_build_windows_plain(f1, f2, coords0):
     """Plain K4: the plain pyramid, zero-bordered, cut into each pixel's
     per-level window around coords0 [E, P, 2].  Returns (windows
     [E, P, sum(WH), max(WW)], bases [E, 2L, P] int32)."""
     corr_build_windows_plain.calls += 1
-    pyramid = build_pyramid_flat(corr_volume_flat(f1, f2), NUM_LEVELS)
-    sizes = [tuple(v.shape[-2:]) for v in pyramid]
-    bases = window_bases(coords0.detach().float(), sizes, RADIUS)
-    return extract_windows(pyramid, bases), bases
+    return _cut_windows(build_pyramid_flat(corr_volume_flat(f1, f2), NUM_LEVELS), coords0)
 
 
 corr_build_windows_plain.calls = 0
@@ -215,3 +238,134 @@ def corr_lookup_windows(wins, bases, coords, target_hw):
 
 
 corr_lookup_windows.launches = 0
+
+
+def corr_lookup_pmajor_plain(padded, coords):
+    """Plain K6: padded levels from ops.corr.build_pyramid_pmajor, coords
+    [E, P, 2] -> [E, P, 196]."""
+    corr_lookup_pmajor_plain.calls += 1
+    return lookup_pmajor(padded, coords, RADIUS)
+
+
+corr_lookup_pmajor_plain.calls = 0
+
+
+def corr_lookup_pmajor(padded, coords):
+    """Radius-3 lookup in the zero-bordered P-major pyramid (K6).  padded
+    [E, (H2 >> l) + 16, (W2 >> l) + 16, P] per level (ops.corr.
+    build_pyramid_pmajor), coords [E, P, 2] level-0 pixels -> [E, P, 196].
+    Equals corr_lookup on K2's levels of the same features."""
+    coords = coords.detach()
+    if coords.device.type == "cpu":
+        return corr_lookup_pmajor_plain(padded, coords)
+    if not coords.is_cuda or any(v.device != coords.device for v in padded):
+        raise ValueError("corr_lookup_pmajor: levels and coords must share one CUDA device")
+    _check_f32("coords", coords, 3)
+    E, P, two = coords.shape
+    if two != 2 or padded[0].dim() != 4:
+        raise ValueError(f"corr_lookup_pmajor: coords {tuple(coords.shape)}")
+    H2, W2 = padded[0].shape[1] - 16, padded[0].shape[2] - 16
+    _check_levels("corr_lookup_pmajor", padded, E, P, H2, W2, border=8)
+    out = torch.empty(E, P, NUM_LEVELS * (2 * RADIUS + 1) ** 2, device=coords.device)
+    lib = build.library()
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.corr_pmajor_lookup_launch(*[v.data_ptr() for v in padded], coords.data_ptr(),
+                                            E, P, H2, W2, out.data_ptr(), stream)
+    build.check(err, "corr_lookup_pmajor")
+    corr_lookup_pmajor.launches += 1
+    return out
+
+
+corr_lookup_pmajor.launches = 0
+
+
+def corr_extract_windows_plain(levels, coords):
+    """Plain K7: the windows and bases of K4 around coords [E, P, 2], cut
+    out of K2's levels."""
+    corr_extract_windows_plain.calls += 1
+    return _cut_windows(levels, coords)
+
+
+corr_extract_windows_plain.calls = 0
+
+
+def corr_extract_windows(levels, coords):
+    """The per-pixel window cache cut out of an existing pyramid (K7).
+    levels from corr_build, coords [E, P, 2] level-0 pixels -> (windows
+    [E, P, sum(WH), max(WW)] float32, bases [E, 2L, P] int32), as
+    corr_build_windows gives them for the same features."""
+    coords = coords.detach()
+    if coords.device.type == "cpu":
+        return corr_extract_windows_plain(levels, coords)
+    if not coords.is_cuda or any(v.device != coords.device for v in levels):
+        raise ValueError("corr_extract_windows: levels and coords must share one CUDA device")
+    _check_f32("coords", coords, 3)
+    E, P, two = coords.shape
+    if two != 2 or levels[0].dim() != 4:
+        raise ValueError(f"corr_extract_windows: coords {tuple(coords.shape)}")
+    H2, W2 = levels[0].shape[-2:]
+    _check_levels("corr_extract_windows", levels, E, P, H2, W2)
+    _, sum_wh, ww_max = pack_offsets(level_sizes(H2, W2, NUM_LEVELS))
+    wins = torch.empty(E, P, sum_wh, ww_max, device=coords.device)
+    bases = torch.empty(E, 2 * NUM_LEVELS, P, dtype=torch.int32, device=coords.device)
+    lib = build.library()
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.corr_extract_windows_launch(*[v.data_ptr() for v in levels], coords.data_ptr(),
+                                              E, P, H2, W2, wins.data_ptr(), bases.data_ptr(),
+                                              stream)
+    build.check(err, "corr_extract_windows")
+    corr_extract_windows.launches += 1
+    return wins, bases
+
+
+corr_extract_windows.launches = 0
+
+
+def corr_build_windows_levels_plain(f1, f2, coords0):
+    """Plain K8: the plain pyramid and K4's windows and bases cut from it
+    -> (levels, windows, bases)."""
+    corr_build_windows_levels_plain.calls += 1
+    pyramid = build_pyramid_flat(corr_volume_flat(f1, f2), NUM_LEVELS)
+    return (pyramid, *_cut_windows(pyramid, coords0))
+
+
+corr_build_windows_levels_plain.calls = 0
+
+
+def corr_build_windows_levels(f1, f2, coords0):
+    """Pyramid and per-pixel window cache in one pass (K8).  Arguments as
+    corr_build_windows -> (levels as corr_build gives them, windows, bases
+    as corr_build_windows gives them)."""
+    if f1.device.type == "cpu" and f2.device.type == "cpu" and coords0.device.type == "cpu":
+        return corr_build_windows_levels_plain(f1, f2, coords0)
+    if not (f1.is_cuda and f1.device == f2.device == coords0.device):
+        raise ValueError(f"corr_build_windows_levels: f1 on {f1.device}, f2 on {f2.device}, "
+                         f"coords0 on {coords0.device}")
+    coords0 = coords0.detach()
+    _check_f32("f1", f1, 4)
+    _check_f32("f2", f2, 4)
+    _check_f32("coords0", coords0, 3)
+    E, H1, W1, C = f1.shape
+    _, H2, W2, C2 = f2.shape
+    P = H1 * W1
+    if f2.shape[0] != E or C2 != C or tuple(coords0.shape) != (E, P, 2):
+        raise ValueError(f"corr_build_windows_levels: f1 {tuple(f1.shape)}, f2 "
+                         f"{tuple(f2.shape)}, coords0 {tuple(coords0.shape)}")
+    _, sum_wh, ww_max = pack_offsets(level_sizes(H2, W2, NUM_LEVELS))
+    levels = [torch.empty(E, P, H2 >> l, W2 >> l, device=f1.device) for l in range(NUM_LEVELS)]
+    wins = torch.empty(E, P, sum_wh, ww_max, device=f1.device)
+    bases = torch.empty(E, 2 * NUM_LEVELS, P, dtype=torch.int32, device=f1.device)
+    lib = build.library()
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.corr_windows_build_levels_launch(
+            f1.data_ptr(), f2.data_ptr(), coords0.data_ptr(), E, P, H2, W2, C, wins.data_ptr(),
+            bases.data_ptr(), *[v.data_ptr() for v in levels], stream)
+    build.check(err, "corr_build_windows_levels")
+    corr_build_windows_levels.launches += 1
+    return levels, wins, bases
+
+
+corr_build_windows_levels.launches = 0

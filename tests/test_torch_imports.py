@@ -26,4 +26,5 @@ def test_no_jax_imports(path):
 
 def test_walk_sees_the_whole_port():
     names = {p.name for p in FILES}
-    assert {"chip_smoke.py", "cuda_corr.py", "cuda_ba.py", "factor_graph.py"} <= names
+    assert {"chip_smoke.py", "cuda_corr.py", "cuda_ba.py", "factor_graph.py",
+            "profile_frontend.py"} <= names
