@@ -17,44 +17,79 @@
 // K4's pyramid never reaches device memory; K8 also writes each level in
 // K2's layout [E, P, H2 >> l, W2 >> l] (csrc/corr_build.cu), no border.
 //
-// What bounds it on the H100: the product.  At the main path's shapes
-// (E = 48, P = H2*W2 = 2560, C = 128) it is 2*E*P*P*C = 80.5 GFLOP of fp32,
-// about 1.2 ms at the 67 TFLOP/s fp32 peak, against 1.1 GB of windows
-// written (0.33 ms at 3.35 TB/s).
+// What bounds it on the H100.  K4: the product, 2*E*P*P*C = 80.5 GFLOP at
+// the main path's shapes (E = 48, P = H2*W2 = 2560, C = 128), done to fp32
+// accuracy as three TF32 tensor-core products (3xTF32): 241.6 GFLOP at the
+// 495 TFLOP/s TF32 peak, 0.488 ms, against 1.23 GB moved (f1, f2, coords
+// in; 1.10 GB of windows and the bases out), 0.367 ms at 3.35 TB/s.  K8:
+// bytes, 2.90 GB with its 1.67 GB of levels, 0.865 ms.
 //
-// Design: one block of 256 threads per (edge, group of PG = 8 pixels).  The
-// block keeps its pixels' whole pyramid in shared memory (8 x 3400 floats,
-// 109 KB at 40x64, so dynamic shared memory above 48 KB): a tiled fp32
-// product streams f2[e] past the block's f1 rows in 1024-cell x 8-channel
-// tiles, staged through registers so the next tile's loads overlap the
-// current tile's arithmetic (each thread owns 8 pixels x 4 cells), and
-// writes level 0; the block pools levels 1-3 in place (the four cells added
-// in the plain version's order) and then cuts every window from shared
-// memory with coalesced stores.  Where 8 pixels do not fit in shared memory
-// it takes groups of 4.  Simple first: no tensor cores (the function is
-// fp32), and every block re-reads f2[e] (from L2), 20 GB at the main path.
-// K8 is the instantiation with kStoreLevels: after pooling, the block copies
-// its pixels' levels from shared memory to device memory (a pixel group's
-// level is one contiguous run there), 1.67 GB more stores at the main path;
-// K4's instantiation compiles without that copy.
+// Design: the cell dimension is cut into bands of 8 level-0 rows.  A band
+// holds whole 2x2, 4x4 and 8x8 blocks, so it pools to its 4, 2 and 1 rows
+// of levels 1-3 with no cell of another band (level-l row r comes from
+// level-0 rows r*2^l .. (r+1)*2^l - 1, all in band floor(r*2^l / 8)), and a
+// block needs only its band of the pyramid, not a pixel's whole pyramid.
+// One block is (band, tile of kM source pixels, edge): kM = 64 and 16 warps
+// where a band row fits one chunk of 64 cells (W2 <= 64), else kM = 32 and
+// 8 warps, the band rows in column chunks.  A warp takes 32 pixels, two band
+// rows and 32 columns.
+// (a) The kM x (8 rows x W2) product tile over C runs on the tensor cores,
+//     mma.sync m16n8k8 TF32 with fp32 accumulation, each operand split as
+//     a = big + small, both rounded to TF32 (to nearest, ties away from
+//     zero), and the product taken as small*big + big*small + big*big.
+//     f1's tile and f2's band stream through shared-memory stages of 16
+//     channels by cp.async, 3 (kM = 64) or 2 in flight while the tensor
+//     cores work.
+// (b) The tile, scaled by 1/16, goes to shared memory.  A thread holds both
+//     rows of its columns, so it pools level 1 in registers; levels 2 and 3
+//     are pooled in shared memory.  The four cells are added in the plain
+//     version's order, ((s0 + s1) + s2) + s3.
+// (c) The window rows that fall in the band are written with 16-byte stores,
+//     so every window cell is written once and no memset is needed: rows
+//     above the level (the zero border) by band 0, rows below it by the last
+//     band, zeros for columns outside the level and past WW_l.  The window
+//     bases come from a table made at the block's start; band 0 writes them
+//     out.  K8 (kStoreLevels) also copies the band's rows of each level, one
+//     contiguous run per pixel and level in K2's layout.
+// At 40x64 the 64-pixel tile (182 KB, the stages in the same memory) leaves
+// room for one block of 512 threads on an SM, at 128 registers a thread;
+// each block reads f2's band (256 KB) once, 2.5 GB from L2 at the main path.
+// Maps wider than about 80 cells need more shared memory than a block has.
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kLevels = 4, kPad = 8, kWin = 24, kR = 3;
-constexpr int kThreads = 256;
-constexpr int BN = 1024, BK = 8, TN = 4;   // 256 threads across cells, 4 cells each
-constexpr int kBsStride = BN + 8;
-constexpr int kLoads = BN * BK / kThreads;  // f2 values each thread stages per tile
-constexpr int kMaxShared = 232448;          // bytes a block may use on Hopper
+constexpr int kBand = 8;                 // level-0 rows per band
+constexpr int kColMax = 64;              // cells of a band row per column chunk
+constexpr int kNT = 8;                   // n8 tiles of a warp: 2 rows x 32 columns
+constexpr int kBK = 16;                  // channels per stage, a pixel's or cell's 64 bytes
+constexpr int kMaxShared = 232448;       // bytes a block may use on Hopper
+
+// kM source pixels per block, 32 per group of 8 warps: 64 where a band row
+// fits one chunk (W2 <= 64), whose tile holds the stages too; 32 for wider
+// maps, whose tile and stages must fit side by side.
+template <int kM> struct Tile {
+  static constexpr int kThreads = 8 * kM;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kStages = kM == 64 ? 4 : 3;
+  static constexpr int kStageF = (kM + kBand * kColMax) * kBK;              // floats a stage
+  static constexpr int kBLoads = kBand * kColMax * (kBK / 4) / kThreads;    // f2 copies a thread
+};
 
 struct Meta {
   int H[kLevels], W[kLevels];    // level sizes
   int WH[kLevels], WW[kLevels];  // window extents
   int off[kLevels];              // packed row offset of each level's window
-  int q0[kLevels + 1];           // prefix sums of H*W: a pixel's pyramid layout
+  int lo[kLevels];               // offset of each level's band rows in a pixel's tile
+  int S;                         // floats of one pixel's tile
   int sum_wh, ww_max;
+  int nbands;
+  int nchunks, cw, nt;           // column chunks of a band row, cw = 8 nt cells each
+  int stage_off;                 // floats from the tile to the stages
+  int base_off;                  // floats from the tile to the block's window bases
 };
 
 struct LevelsOut {
@@ -70,165 +105,277 @@ __device__ __forceinline__ int window_base(float c, float scale, int n, int win)
   return min(max(b, 0), n + 2 * kPad - win);
 }
 
-template <int PG, bool kStoreLevels>
-__global__ void __launch_bounds__(kThreads)
+// 16-byte copy to shared memory; with ok false the 16 bytes are zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = big + small, both TF32 rounded to nearest, ties away from zero: the
+// values of cvt.rna.tf32.f32 for finite x, by integer operations, which
+// the SM dispatches faster than the conversion.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a * b on a 16x8x8 tile: a row-major (m16 x k8), b column-major (k8 x
+// n8).  Not volatile, so the compiler may interleave independent tiles.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int kM, bool kStoreLevels>
+__global__ void __launch_bounds__(Tile<kM>::kThreads, 64 / kM)
 windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
                      const float2* __restrict__ coords0, float* __restrict__ wins,
                      int* __restrict__ bases, int P, int C, Meta m, LevelsOut out_lv) {
-  extern __shared__ float smem[];
-  const int e = blockIdx.y;
-  const int p0 = blockIdx.x * PG;
-  const int Q = m.H[0] * m.W[0];
-  float* lv[kLevels];
-#pragma unroll
-  for (int l = 0; l < kLevels; l++) lv[l] = smem + PG * m.q0[l];  // [PG][H_l * W_l]
-  float* As = smem + PG * m.q0[kLevels];          // [BK][PG]
-  float* Bs = As + BK * PG;                       // [BK][kBsStride]
-
-  const int tid = threadIdx.x;
+  using T = Tile<kM>;
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);   // [kM][S]: each pixel's band of levels
+  float* stages = tile + m.stage_off;              // kStages x ([kM][16] f1, [8][64][16] f2)
+  const int band = blockIdx.x, p0 = blockIdx.y * kM, e = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // warp: 32 pixels from ph, band rows 2k and 2k + 1, columns 32h .. 32h + 31 of a chunk
+  const int ph = 32 * (warp >> 3), k = warp & 3, h = (warp >> 2) & 1;
+  const int g = lane >> 2, t = lane & 3;           // mma fragment coordinates
+  const int H0 = m.H[0], W0 = m.W[0];
+  const int y0 = band * kBand;
+  const bool live = y0 + 2 * k < H0;               // the warp's first row exists
   const float* A = f1 + (size_t)e * P * C;
-  const float* B = f2 + (size_t)e * Q * C;
+  const float* B = f2 + (size_t)e * H0 * W0 * C;
+  const int q4 = 4 * (tid & 3);                    // first channel of this thread's copies
+  const int nk = (C + kBK - 1) / kBK;
+  const int a_gp = p0 + (tid >> 2);
+  const int a_goff = (tid < kM * 4 && a_gp < P) ? a_gp * C + q4 : -1;
 
-  // level 0: the PG rows of the volume.  Tiles of BN cells x BK channels
-  // are staged through registers, so the next tile's loads are in flight
-  // while the block computes on the current one.
-  const int nK = (C + BK - 1) / BK;
-  const int nT = ((Q + BN - 1) / BN) * nK;
-  float rb[kLoads], ra = 0.f;
-  auto stage = [&](int t) {
-    const int n0 = (t / nK) * BN, k0 = (t % nK) * BK;
+  // each pixel's window bases, [2L][kM] in shared memory beside the tile;
+  // band 0 writes them out
+  int* wb = reinterpret_cast<int*>(tile + m.base_off);
+  if (tid < kM && p0 + tid < P) {
+    const float2 c = coords0[(size_t)e * P + p0 + tid];
 #pragma unroll
-    for (int u = 0; u < kLoads; u++) {
-      const int i = tid + u * kThreads, r = i / BK, gq = n0 + r, gk = k0 + i % BK;
-      rb[u] = (gq < Q && gk < C) ? __ldg(B + (size_t)gq * C + gk) : 0.f;
+    for (int l = 0; l < kLevels; l++) {
+      const float scale = 1.f / (float)(1 << l);
+      const int by = window_base(c.y, scale, m.H[l], m.WH[l]);
+      const int bx = window_base(c.x, scale, m.W[l], m.WW[l]);
+      wb[2 * l * kM + tid] = by;
+      wb[(2 * l + 1) * kM + tid] = bx;
+      if (band == 0) {
+        int* bo = bases + ((size_t)e * 2 * kLevels + 2 * l) * P + p0 + tid;
+        bo[0] = by;
+        bo[P] = bx;
+      }
     }
-    if (tid < PG * BK) {
-      const int gp = p0 + tid / BK, gk = k0 + tid % BK;
-      ra = (gp < P && gk < C) ? __ldg(A + (size_t)gp * C + gk) : 0.f;
+  }
+
+  // ---- (a) levels 0 and 1 of the band, chunk by chunk of columns
+  for (int ch = 0; ch < m.nchunks; ch++) {
+    const int x0 = ch * m.cw;
+    const int bj = (tid >> 2) % kColMax;           // column of the cells this thread copies
+    auto load = [&](int kc) {
+      float* As = stages + (kc % T::kStages) * T::kStageF;
+      float* Bs = As + kM * kBK;
+      const int k0 = kc * kBK;
+      const bool kin = k0 + q4 < C;
+      if (tid < kM * 4)
+        cp_async16(As + (tid >> 2) * kBK + q4, a_goff >= 0 ? A + a_goff + k0 : A,
+                   a_goff >= 0 && kin);
+#pragma unroll
+      for (int u = 0; u < T::kBLoads; u++) {       // slot c: band row c / 64, column c % 64
+        const int c = (tid >> 2) + u * (T::kThreads / 4), w = c / kColMax;
+        const bool in = bj < m.cw && y0 + w < H0 && x0 + bj < W0;
+        cp_async16(Bs + c * kBK + q4, in ? B + ((y0 + w) * W0 + x0 + bj) * C + q4 + k0 : B,
+                   in && kin);
+      }
+    };
+
+    float acc[2][kNT][4];          // [m16 tile][n8 tile: row 2k + ni / 4, column 8 (ni % 4)]
+#pragma unroll
+    for (int mi = 0; mi < 2; mi++)
+#pragma unroll
+      for (int ni = 0; ni < kNT; ni++)
+#pragma unroll
+        for (int r = 0; r < 4; r++) acc[mi][ni][r] = 0.f;
+
+#pragma unroll
+    for (int st = 0; st < T::kStages - 1; st++) {  // kStages - 1 stages in flight
+      if (st < nk) load(st);
+      cp_async_commit();
     }
-  };
-  float acc[PG][TN];
+    for (int kc = 0; kc < nk; kc++) {
+      cp_async_wait<T::kStages - 2>();             // stage kc has landed ...
+      __syncthreads();                             // ... for every thread, and kc - 1 is done
+      if (kc + T::kStages - 1 < nk) load(kc + T::kStages - 1);
+      cp_async_commit();
+      if (live) {
+        // The 16 channels of a stage are two k8 steps.  Both operands take
+        // step s's k-slots t and t + 4 from channels 4t + 2s and 4t + 2s + 1,
+        // so one 8-byte load gives a thread both of a row's slots.
+        const float* As = stages + (kc % T::kStages) * T::kStageF + (ph + g) * kBK + 4 * t;
+        const float* Bs = stages + (kc % T::kStages) * T::kStageF + kM * kBK
+                          + (2 * k * kColMax + 32 * h + g) * kBK + 4 * t;
 #pragma unroll
-  for (int i = 0; i < PG; i++)
+        for (int st = 0; st < 2; st++) {
+          uint32_t ab[2][4], as[2][4];             // [m16 tile][fragment]: big, small
 #pragma unroll
-    for (int j = 0; j < TN; j++) acc[i][j] = 0.f;
-  stage(0);
-  for (int t = 0; t < nT; t++) {
+          for (int mi = 0; mi < 2; mi++) {
+            const float2 lo = *reinterpret_cast<const float2*>(As + 16 * mi * kBK + 2 * st);
+            const float2 hi =
+                *reinterpret_cast<const float2*>(As + (16 * mi + 8) * kBK + 2 * st);
+            split_tf32(lo.x, ab[mi][0], as[mi][0]);
+            split_tf32(hi.x, ab[mi][1], as[mi][1]);
+            split_tf32(lo.y, ab[mi][2], as[mi][2]);
+            split_tf32(hi.y, ab[mi][3], as[mi][3]);
+          }
 #pragma unroll
-    for (int u = 0; u < kLoads; u++) {
-      const int i = tid + u * kThreads;
-      Bs[(i % BK) * kBsStride + i / BK] = rb[u];
+          for (int ni = 0; ni < kNT; ni++) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                Bs + ((ni >> 2) * kColMax + 8 * (ni & 3)) * kBK + 2 * st);
+            uint32_t bb[2], bs[2];
+            split_tf32(v.x, bb[0], bs[0]);
+            split_tf32(v.y, bb[1], bs[1]);
+            mma_tf32(acc[0][ni], as[0], bb);       // small * big, big * small, big * big
+            mma_tf32(acc[1][ni], as[1], bb);
+            mma_tf32(acc[0][ni], ab[0], bs);
+            mma_tf32(acc[1][ni], ab[1], bs);
+            mma_tf32(acc[0][ni], ab[0], bb);
+            mma_tf32(acc[1][ni], ab[1], bb);
+          }
+        }
+      }
     }
-    if (tid < PG * BK) As[(tid % BK) * PG + tid / BK] = ra;
-    __syncthreads();
-    if (t + 1 < nT) stage(t + 1);
+    cp_async_wait<0>();
+    __syncthreads();               // every warp is done with the stages (the tile may hold them)
+
+    // The tile, scaled: thread (g, t) holds, for pixels g and g + 8 of each
+    // m16 tile, columns 2t and 2t + 1 of both rows, the four cells of its
+    // level-1 outputs, which it pools in the plain version's order.
+    if (live) {
+      const bool row1 = y0 + 2 * k + 1 < H0, lv1 = (y0 >> 1) + k < m.H[1];
 #pragma unroll
-    for (int k = 0; k < BK; k++) {
-      float a[PG], b[TN];
+      for (int mi = 0; mi < 2; mi++)
 #pragma unroll
-      for (int i = 0; i < PG; i++) a[i] = As[k * PG + i];
+        for (int half = 0; half < 2; half++) {     // pixel g, then g + 8
+          float* px = tile + (ph + 16 * mi + 8 * half + g) * m.S;
 #pragma unroll
-      for (int j = 0; j < TN; j++) b[j] = Bs[k * kBsStride + tid + kThreads * j];
-#pragma unroll
-      for (int i = 0; i < PG; i++)
-#pragma unroll
-        for (int j = 0; j < TN; j++) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-    if (t % nK == nK - 1) {                       // this tile's cells are complete
-      const int n0 = (t / nK) * BN;
-#pragma unroll
-      for (int i = 0; i < PG; i++)
-#pragma unroll
-        for (int j = 0; j < TN; j++) {
-          const int q = n0 + tid + kThreads * j;
-          if (q < Q) lv[0][i * Q + q] = acc[i][j] * (1.f / 16.f);
-          acc[i][j] = 0.f;
+          for (int j = 0; j < 4; j++) {
+            const int xc = 32 * h + 8 * j + 2 * t, x = x0 + xc;   // xc + 1 < cw when xc < cw
+            if (xc >= m.cw) continue;
+            const float s0 = acc[mi][j][2 * half] * 0.0625f;
+            const float s1 = acc[mi][j][2 * half + 1] * 0.0625f;
+            const float s2 = acc[mi][4 + j][2 * half] * 0.0625f;
+            const float s3 = acc[mi][4 + j][2 * half + 1] * 0.0625f;
+            float* r0 = px + 2 * k * W0 + x;
+            if (x < W0) r0[0] = s0;
+            if (x + 1 < W0) r0[1] = s1;
+            if (row1 && x < W0) r0[W0] = s2;
+            if (row1 && x + 1 < W0) r0[W0 + 1] = s3;
+            if (lv1 && x + 1 < W0)
+              px[m.lo[1] + k * m.W[1] + (x >> 1)] = (((s0 + s1) + s2) + s3) * 0.25f;
+          }
         }
     }
   }
   __syncthreads();
 
-  // levels 1..3, pooled in shared memory
-  for (int l = 1; l < kLevels; l++) {
-    const int wi = m.W[l - 1], qi = m.H[l - 1] * wi;
-    const int wo = m.W[l], qo = m.H[l] * wo;
-    for (int i = tid; i < PG * qo; i += kThreads) {
-      const int p = i / qo, rem = i - p * qo, y = rem / wo, x = rem - y * wo;
-      const float* s = lv[l - 1] + p * qi + 2 * y * wi + 2 * x;
-      lv[l][i] = (((s[0] + s[1]) + s[wi]) + s[wi + 1]) * 0.25f;
+  // ---- (b), (c) each warp takes kM / kWarps pixels: it pools their band
+  // rows of levels 2 and 3, then writes their window rows in this band
+  // (16-byte stores, several rows a store) and K8's level rows
+  constexpr int kPx = kM / T::kWarps;
+#pragma unroll
+  for (int l = 2; l < kLevels; l++) {
+    const int wi = m.W[l - 1], wo = m.W[l];
+    const int rows = min(kBand >> l, m.H[l] - (y0 >> l));
+#pragma unroll
+    for (int u = 0; u < kPx; u++) {              // pixels past P pool zeros, unused
+      const float* s = tile + (warp + u * T::kWarps) * m.S + m.lo[l - 1];
+      float* d = tile + (warp + u * T::kWarps) * m.S + m.lo[l];
+#pragma unroll
+      for (int r = 0; r < (kBand >> l); r++)
+        if (r < rows)
+          for (int x = lane; x < wo; x += 32) {
+            const float* q = s + 2 * r * wi + 2 * x;
+            d[r * wo + x] = (((q[0] + q[1]) + q[wi]) + q[wi + 1]) * 0.25f;
+          }
     }
-    __syncthreads();
+    __syncwarp();
   }
 
-  if constexpr (kStoreLevels) {          // K8: the levels, coalesced copies
-    const int np = min(PG, P - p0);
+  const bool first = band == 0, last = band == m.nbands - 1;
+  const int wwm = m.ww_max;
+  const int cpr = (wwm + 3) >> 2, rpi = 32 / cpr;  // 4-column chunks a row, rows a store
+  const int lr = lane / cpr, q = 4 * (lane - lr * cpr);
+  for (int u = 0; u < kPx; u++) {
+    const int pl = warp + u * T::kWarps, gp = p0 + pl;
+    if (gp >= P) break;
+    const float* src = tile + pl * m.S;
+    const size_t ep = (size_t)e * P + gp;
 #pragma unroll
     for (int l = 0; l < kLevels; l++) {
-      const int q = m.H[l] * m.W[l];
-      float* dst = out_lv.lv[l] + ((size_t)e * P + p0) * q;
-      for (int i = tid; i < np * q; i += kThreads) dst[i] = lv[l][i];
-    }
-  }
-
-  // bases, one thread per pixel
-  if (tid < PG && p0 + tid < P) {
-    const int gp = p0 + tid;
-    const float2 c = coords0[(size_t)e * P + gp];
-    for (int l = 0; l < kLevels; l++) {
-      const float scale = 1.f / (float)(1 << l);
-      int* b = bases + ((size_t)e * 2 * kLevels + 2 * l) * P + gp;
-      b[0] = window_base(c.y, scale, m.H[l], m.WH[l]);
-      b[P] = window_base(c.x, scale, m.W[l], m.WW[l]);
-    }
-  }
-
-  // windows: each pixel's packed tile is contiguous, so the stores coalesce
-  const int tile = m.sum_wh * m.ww_max;
-  for (int p = 0; p < PG && p0 + p < P; p++) {
-    const int gp = p0 + p;
-    const float2 c = coords0[(size_t)e * P + gp];
-    float* out = wins + ((size_t)e * P + gp) * tile;
-    for (int l = 0; l < kLevels; l++) {
-      const float scale = 1.f / (float)(1 << l);
-      const int by = window_base(c.y, scale, m.H[l], m.WH[l]);
-      const int bx = window_base(c.x, scale, m.W[l], m.WW[l]);
       const int Hl = m.H[l], Wl = m.W[l], WWl = m.WW[l];
-      const float* src = lv[l] + p * Hl * Wl;
-      float* dst = out + m.off[l] * m.ww_max;
-      const int n = m.WH[l] * m.ww_max;
-      for (int i = tid; i < n; i += kThreads) {
-        const int r = i / m.ww_max, cc = i - r * m.ww_max;
-        const int y = by + r - kPad, x = bx + cc - kPad;
-        dst[i] = (cc < WWl && y >= 0 && y < Hl && x >= 0 && x < Wl) ? src[y * Wl + x] : 0.f;
+      const int by = wb[2 * l * kM + pl], bx = wb[(2 * l + 1) * kM + pl];
+      // window row r holds level row by - 8 + r; this band owns level rows
+      // [ylo, ymax), stretched to the zero rows above (band 0) and below (last)
+      const int ylo = y0 >> l;
+      const int ymin = first ? INT_MIN / 2 : ylo;
+      const int ymax = last ? INT_MAX / 2 : (y0 + kBand) >> l;
+      const int r0 = max(0, ymin - by + kPad), r1 = min(m.WH[l], ymax - by + kPad);
+      const float* lv = src + m.lo[l];
+      float* dst = wins + (ep * m.sum_wh + m.off[l]) * wwm + q;
+      if (lr < rpi)
+        for (int r = r0 + lr; r < r1; r += rpi) {
+          const int y = by - kPad + r;
+          const bool in_y = y >= 0 && y < Hl;
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; j++) {
+            const int x = bx - kPad + q + j;
+            v[j] = (in_y && q + j < WWl && x >= 0 && x < Wl) ? lv[(y - ylo) * Wl + x] : 0.f;
+          }
+          float* d = dst + r * wwm;
+          if (wwm % 4 == 0) {
+            *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; j++)
+              if (q + j < wwm) d[j] = v[j];
+          }
+        }
+      if constexpr (kStoreLevels) {    // K8: the band's rows of the level, one run
+        const int nl = min(kBand >> l, Hl - ylo) * Wl;
+        float* d = out_lv.lv[l] + (ep * Hl + ylo) * Wl;
+        for (int i = lane; i < nl; i += 32) d[i] = lv[i];
       }
     }
   }
 }
 
-size_t shared_bytes(const Meta& m, int pg) {
-  return sizeof(float) * ((size_t)pg * m.q0[kLevels] + (size_t)BK * pg + (size_t)BK * kBsStride);
-}
-
-template <int PG, bool kStoreLevels>
-int launch(const Meta& m, size_t bytes, const float* f1, const float* f2, const float2* c0,
-           float* wins, int* bases, const LevelsOut& lo, int E, int P, int C, cudaStream_t s) {
-  int err = (int)cudaFuncSetAttribute(windows_build_kernel<PG, kStoreLevels>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err) return err;
-  dim3 grid((P + PG - 1) / PG, E);
-  windows_build_kernel<PG, kStoreLevels><<<grid, kThreads, bytes, s>>>(f1, f2, c0, wins, bases,
-                                                                       P, C, m, lo);
-  return (int)cudaGetLastError();
-}
-
-template <bool kStoreLevels>
-int build_windows(const void* f1, const void* f2, const void* coords0, int E, int P, int H2,
-                  int W2, int C, void* wins, void* bases, const LevelsOut& lo, void* stream) {
-  Meta m;
-  m.q0[0] = 0;
+// Geometry of a launch at H2 x W2: fills m, sets *bytes to the dynamic
+// shared memory a block needs, and returns the pixels a block takes.
+int make_meta(Meta& m, int H2, int W2, size_t* bytes) {
   m.sum_wh = 0;
   m.ww_max = 0;
+  int lo = 0;
   for (int l = 0; l < kLevels; l++) {
     m.H[l] = H2 >> l;
     m.W[l] = W2 >> l;
@@ -237,29 +384,79 @@ int build_windows(const void* f1, const void* f2, const void* coords0, int E, in
     m.off[l] = m.sum_wh;
     m.sum_wh += m.WH[l];
     m.ww_max = m.WW[l] > m.ww_max ? m.WW[l] : m.ww_max;
-    m.q0[l + 1] = m.q0[l] + m.H[l] * m.W[l];
+    m.lo[l] = lo;
+    lo += (kBand >> l) * m.W[l];
   }
-  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
+  m.S = (lo + 31) / 32 * 32 + 8;   // pixels 8 floats apart in banks: the tile stores
+  m.nbands = (H2 + kBand - 1) / kBand;
+  m.nchunks = (W2 + kColMax - 1) / kColMax;
+  const int per = m.nchunks > 0 ? (W2 + m.nchunks - 1) / m.nchunks : 0;
+  m.nt = (per + 7) / 8;
+  m.cw = 8 * m.nt;
+  if (m.nchunks == 1) {            // 64 pixels; the stages are free before the tile is written
+    const size_t tile = 64 * (size_t)m.S, stages = Tile<64>::kStages * (size_t)Tile<64>::kStageF;
+    m.stage_off = 0;
+    m.base_off = (int)(tile > stages ? tile : stages);
+    *bytes = sizeof(float) * (m.base_off + 2 * kLevels * 64);
+    return 64;
+  }
+  m.stage_off = 32 * m.S;
+  m.base_off = m.stage_off + Tile<32>::kStages * Tile<32>::kStageF;
+  *bytes = sizeof(float) * (m.base_off + 2 * kLevels * 32);
+  return 32;
+}
+
+template <int kM, bool kStoreLevels>
+int launch(const Meta& m, size_t bytes, const void* f1, const void* f2, const void* coords0,
+           int E, int P, int C, void* wins, void* bases, const LevelsOut& lo,
+           cudaStream_t s) {
+  int err = (int)cudaFuncSetAttribute(windows_build_kernel<kM, kStoreLevels>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err) return err;
+  dim3 grid(m.nbands, (P + kM - 1) / kM, E);
+  windows_build_kernel<kM, kStoreLevels><<<grid, Tile<kM>::kThreads, bytes, s>>>(
+      (const float*)f1, (const float*)f2, (const float2*)coords0, (float*)wins, (int*)bases, P,
+      C, m, lo);
+  return (int)cudaGetLastError();
+}
+
+template <bool kStoreLevels>
+int build_windows(const void* f1, const void* f2, const void* coords0, int E, int P, int H2,
+                  int W2, int C, void* wins, void* bases, const LevelsOut& lo, void* stream) {
+  Meta m;
+  size_t bytes = 0;
+  const int M = make_meta(m, H2, W2, &bytes);
+  // edges ride the grid's z and pixel tiles its y; offsets into f1 and f2 are 32-bit
+  if (E > 65535 || (P + 31) / 32 > 65535 || H2 <= 0 || W2 <= 0 || C <= 0 || C % 4 != 0 ||
+      (long long)P * C > INT_MAX || (long long)H2 * W2 * C > INT_MAX ||
+      bytes > (size_t)kMaxShared)
+    return (int)cudaErrorInvalidValue;
   if (E <= 0 || P <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const float* a = (const float*)f1;
-  const float* b = (const float*)f2;
-  const float2* c0 = (const float2*)coords0;
-  float* w = (float*)wins;
-  int* bs = (int*)bases;
-  if (shared_bytes(m, 8) <= (size_t)kMaxShared)
-    return launch<8, kStoreLevels>(m, shared_bytes(m, 8), a, b, c0, w, bs, lo, E, P, C, s);
-  if (shared_bytes(m, 4) <= (size_t)kMaxShared)
-    return launch<4, kStoreLevels>(m, shared_bytes(m, 4), a, b, c0, w, bs, lo, E, P, C, s);
-  return (int)cudaErrorInvalidValue;
+  if (M == 64)
+    return launch<64, kStoreLevels>(m, bytes, f1, f2, coords0, E, P, C, wins, bases, lo, s);
+  return launch<32, kStoreLevels>(m, bytes, f1, f2, coords0, E, P, C, wins, bases, lo, s);
+}
+
+template <int kM, bool kStoreLevels>
+int blocks_per_sm(size_t bytes) {
+  int n = 0;
+  if (cudaFuncSetAttribute(windows_build_kernel<kM, kStoreLevels>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, windows_build_kernel<kM, kStoreLevels>,
+                                                    Tile<kM>::kThreads, bytes))
+    return -1;
+  return n;
 }
 
 }  // namespace
 
 // Launches K4 on `stream`: f1 [E, P, C], f2 [E, H2*W2, C], coords0 [E, P, 2]
-// (float32, contiguous) -> wins [E, P, sum WH, max WW] float32 and bases
-// [E, 8, P] int32.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue when even 4 pixels' pyramid exceeds shared memory.
+// (float32, contiguous, f1 and f2 16-byte aligned, C a multiple of 4) ->
+// wins [E, P, sum WH, max WW] float32 and bases [E, 8, P] int32.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for shapes
+// the kernel does not take (W2 above about 80 needs more shared memory than
+// a block has).
 extern "C" int corr_windows_build_launch(const void* f1, const void* f2, const void* coords0,
                                          int E, int P, int H2, int W2, int C, void* wins,
                                          void* bases, void* stream) {
@@ -276,4 +473,20 @@ extern "C" int corr_windows_build_levels_launch(const void* f1, const void* f2,
                                                 void* level3, void* stream) {
   const LevelsOut lo{{(float*)level0, (float*)level1, (float*)level2, (float*)level3}};
   return build_windows<true>(f1, f2, coords0, E, P, H2, W2, C, wins, bases, lo, stream);
+}
+
+// What a launch at H2 x W2 uses: out[0] source pixels a block takes,
+// out[1] its dynamic shared memory bytes, out[2] and out[3] resident blocks
+// per SM of K4 and K8 (-1 when the query fails or no tile fits).  Returns 0.
+extern "C" int corr_windows_build_info(int H2, int W2, void* out) {
+  Meta m;
+  size_t bytes = 0;
+  const int M = make_meta(m, H2, W2, &bytes);
+  const bool fits = bytes <= (size_t)kMaxShared;
+  int* o = (int*)out;
+  o[0] = M;
+  o[1] = (int)bytes;
+  o[2] = !fits ? -1 : M == 64 ? blocks_per_sm<64, false>(bytes) : blocks_per_sm<32, false>(bytes);
+  o[3] = !fits ? -1 : M == 64 ? blocks_per_sm<64, true>(bytes) : blocks_per_sm<32, true>(bytes);
+  return 0;
 }

@@ -4,9 +4,11 @@
                              (csrc/corr_build.cu; JAX corr_build_pmajor_pallas)
 - K3 ``corr_lookup``         radius-3 lookup in that pyramid
                              (csrc/corr_lookup.cu; JAX corr_lookup_blocked_pallas)
-- K4 ``corr_build_windows``  the same volume and pyramid, kept in shared
-                             memory; writes only each pixel's per-level window
-                             and its base (csrc/corr_windows_build.cu; JAX
+- K4 ``corr_build_windows``  the same volume and pyramid, built band by band
+                             in shared memory (the product as 3xTF32 on the
+                             tensor cores); writes only each pixel's
+                             per-level window and its base
+                             (csrc/corr_windows_build.cu; JAX
                              corr_build_windows_light_pallas)
 - K5 ``corr_lookup_windows`` the radius-3 lookup inside those windows
                              (csrc/corr_windows_lookup.cu; JAX
@@ -81,6 +83,25 @@ def _check_levels(name, levels, E, P, H2, W2, border=0):
         want = (E, h, w, P) if border else (E, P, h, w)
         if tuple(v.shape) != want:
             raise ValueError(f"{name}: level{l} {tuple(v.shape)}, expected {want}")
+
+
+def _check_windows_build(name, f1, f2, coords0):
+    """K4's and K8's inputs: f1 [E, H1, W1, C], f2 [E, H2, W2, C], coords0
+    [E, H1*W1, 2], contiguous float32; the kernel copies 4 channels at a time,
+    so C is a multiple of 4 and f1, f2 start 16-byte aligned.  Returns
+    (E, P, H2, W2, C)."""
+    _check_f32("f1", f1, 4)
+    _check_f32("f2", f2, 4)
+    _check_f32("coords0", coords0, 3)
+    E, H1, W1, C = f1.shape
+    _, H2, W2, C2 = f2.shape
+    P = H1 * W1
+    if f2.shape[0] != E or C2 != C or tuple(coords0.shape) != (E, P, 2):
+        raise ValueError(f"{name}: f1 {tuple(f1.shape)}, f2 {tuple(f2.shape)}, "
+                         f"coords0 {tuple(coords0.shape)}")
+    if C % 4 or f1.data_ptr() % 16 or f2.data_ptr() % 16:
+        raise ValueError(f"{name}: needs C % 4 == 0 and 16-byte aligned features, got C={C}")
+    return E, P, H2, W2, C
 
 
 def corr_build(f1, f2):
@@ -179,15 +200,7 @@ def corr_build_windows(f1, f2, coords0):
         raise ValueError(f"corr_build_windows: f1 on {f1.device}, f2 on {f2.device}, "
                          f"coords0 on {coords0.device}")
     coords0 = coords0.detach()
-    _check_f32("f1", f1, 4)
-    _check_f32("f2", f2, 4)
-    _check_f32("coords0", coords0, 3)
-    E, H1, W1, C = f1.shape
-    _, H2, W2, C2 = f2.shape
-    P = H1 * W1
-    if f2.shape[0] != E or C2 != C or tuple(coords0.shape) != (E, P, 2):
-        raise ValueError(f"corr_build_windows: f1 {tuple(f1.shape)}, f2 {tuple(f2.shape)}, "
-                         f"coords0 {tuple(coords0.shape)}")
+    E, P, H2, W2, C = _check_windows_build("corr_build_windows", f1, f2, coords0)
     _, sum_wh, ww_max = pack_offsets(level_sizes(H2, W2, NUM_LEVELS))
     wins = torch.empty(E, P, sum_wh, ww_max, device=f1.device)
     bases = torch.empty(E, 2 * NUM_LEVELS, P, dtype=torch.int32, device=f1.device)
@@ -344,15 +357,7 @@ def corr_build_windows_levels(f1, f2, coords0):
         raise ValueError(f"corr_build_windows_levels: f1 on {f1.device}, f2 on {f2.device}, "
                          f"coords0 on {coords0.device}")
     coords0 = coords0.detach()
-    _check_f32("f1", f1, 4)
-    _check_f32("f2", f2, 4)
-    _check_f32("coords0", coords0, 3)
-    E, H1, W1, C = f1.shape
-    _, H2, W2, C2 = f2.shape
-    P = H1 * W1
-    if f2.shape[0] != E or C2 != C or tuple(coords0.shape) != (E, P, 2):
-        raise ValueError(f"corr_build_windows_levels: f1 {tuple(f1.shape)}, f2 "
-                         f"{tuple(f2.shape)}, coords0 {tuple(coords0.shape)}")
+    E, P, H2, W2, C = _check_windows_build("corr_build_windows_levels", f1, f2, coords0)
     _, sum_wh, ww_max = pack_offsets(level_sizes(H2, W2, NUM_LEVELS))
     levels = [torch.empty(E, P, H2 >> l, W2 >> l, device=f1.device) for l in range(NUM_LEVELS)]
     wins = torch.empty(E, P, sum_wh, ww_max, device=f1.device)

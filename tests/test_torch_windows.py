@@ -32,8 +32,10 @@ from droid_slam_reserch_tpu_torch.ops.cuda_corr import (
 
 torch.set_num_threads(1)
 TOL = 1e-5
-SHAPES = [(2, 16, 24, 16), (1, 8, 12, 32)]   # the second: every level smaller than a window
-IDS = ["E2-16x24", "E1-8x12-small"]
+# the second: every level smaller than a window; the third: K4's last 8-row
+# band not full, and levels narrower than their windows
+SHAPES = [(2, 16, 24, 16), (1, 8, 12, 32), (1, 13, 20, 16)]
+IDS = ["E2-16x24", "E1-8x12-small", "E1-13x20-ragged"]
 
 
 def _case(E, H, W, C, seed):
