@@ -6,18 +6,20 @@
 Phases (one line each; any failure exits nonzero):
 1. build   nvcc-compiles the port's CUDA kernels from csrc/ (sm_90a), one
            process per source, all started together;
-2. kernels prints what ptxas made of the window-cache build (K4, K8) and
-           the windowed lookup (K5) and K4's occupancy; holds each kernel (K1
-           BA blocks, K2 correlation build, K3 correlation lookup, K4
-           window-cache build, K5 windowed lookup, K6 P-major lookup, K7
-           window extraction, K8 build of levels and windows) against its
-           plain PyTorch version on the card at the main path's shapes (K2,
-           K4, K5 and K8 also at a ragged 30x44 and at 60x80), K5(K4)
-           against K3(K2) where the drift rule holds, K6 against K3, K7 and
-           K8 against K2 and K4, and times kernel, plain version and, where
-           one PyTorch call computes the same function, that call (torch.bmm
-           for the builds, F.grid_sample bilinear for the lookups,
-           F.grid_sample nearest for K7's window extraction);
+2. kernels prints what ptxas made of the window-cache build (K4, K8), the
+           windowed lookup (K5) and the pyramid lookups (K3, K6) and K4's
+           occupancy; holds each kernel (K1 BA blocks, K2 correlation build,
+           K3 correlation lookup, K4 window-cache build, K5 windowed lookup,
+           K6 P-major lookup, K7 window extraction, K8 build of levels and
+           windows) against its plain PyTorch version on the card at the main
+           path's shapes (K2-K6 and K8 also at a ragged 30x44 and at 60x80, K3
+           also at the backend's 64 edges; K3 and K6 with random coords and
+           with a smooth 4-px pan), K5(K4) against K3(K2) where the drift
+           rule holds, K6 against K3, K7 and K8 against K2 and K4, and times
+           kernel, plain version and, where one PyTorch call computes the
+           same function, that call (torch.bmm for the builds, F.grid_sample
+           bilinear for the lookups, F.grid_sample nearest for K7's window
+           extraction);
 3. drift   the frontend's windowed lookup with coords that leave the cached
            windows: the fallback (K2 once, K3) is taken, counted and exact;
 4. card vs CPU  the oracle frontend and backend gates on the card (ATE <
@@ -163,12 +165,58 @@ def ptxas_report(log, kernels):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = next((k for k in kernels if k in m.group(1)), None)
-            args = re.search(r"ILi(\d+)ELb([01])E", m.group(1))
+            args = re.search(r"ILi(\d+)E(?:Lb([01])E)?", m.group(1))
             if name and args:
                 name += f"<{args.group(1)} pixels{', levels' if args.group(2) == '1' else ''}>"
         elif name and ("registers" in line or "spill" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def lookup_coords(torch, grid, E, gen):
+    """The lookups' two kinds of coords around grid [1, P, 2]: "random", 2 px
+    of noise with the first 64 pixels 50 px off the image, and "pan4", a
+    smooth 4-px pan, the main path's motion."""
+    rnd = (grid + torch.randn(E, grid.shape[1], 2, generator=gen, device=grid.device) * 2.0)
+    rnd = rnd.contiguous()
+    rnd[:, :64] += 50.0
+    return {"random": rnd, "pan4": (grid + 4.0).expand(E, -1, 2).contiguous()}
+
+
+def hold_lookups(torch, levels, padded, kinds, at):
+    """K3 on K2's `levels` and, unless `padded` is None, K6 on the P-major
+    levels of the same features, against their plain versions and K6
+    against K3, for each kind of coords; tolerance 1e-5 * max(1, |ref|).
+    Returns K3's output for the random coords and the largest error of K3
+    and of K6."""
+    from droid_slam_reserch_tpu_torch.ops import cuda_corr
+
+    err3 = err6 = 0.0
+    for kind, coords in kinds.items():
+        out = cuda_corr.corr_lookup(levels, coords)
+        ref = cuda_corr.corr_lookup_plain(levels, coords)
+        torch.cuda.synchronize()
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        e3 = float((out - ref).abs().max())
+        msg = f"K3 corr_lookup {at}, {kind} coords: max_abs_err {e3:.3e}"
+        e6 = e63 = 0.0
+        if padded is not None:
+            out6 = cuda_corr.corr_lookup_pmajor(padded, coords)
+            ref6 = cuda_corr.corr_lookup_pmajor_plain(padded, coords)
+            torch.cuda.synchronize()
+            e6 = float((out6 - ref6).abs().max())
+            e63 = float((out6 - out).abs().max())
+            msg += f"; K6 corr_lookup_pmajor {e6:.3e}, against K3 {e63:.3e}"
+            del out6, ref6
+        say("kernels", f"{msg} (tol {tol:.1e})")
+        if not max(e3, e6, e63) <= tol:
+            fail(f"K3 or K6 disagrees with its plain version, or K6 with K3, at {at} "
+                 f"({kind} coords)")
+        err3, err6 = max(err3, e3), max(err6, e6, e63)
+        if kind == "random":
+            first = out
+        del ref
+    return first, err3, err6
 
 
 def grid_sample_inputs(torch, vols, coords, bases=None):
@@ -304,9 +352,10 @@ def phase_kernels(torch):
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    # ---- what the two redesigned kernels compiled to, and K4's occupancy
+    # ---- what the redesigned kernels compiled to, and K4's occupancy
     for line in ptxas_report(build.BUILD_LOG["ptxas"],
-                             ("windows_build_kernel", "windows_lookup_kernel")):
+                             ("windows_build_kernel", "windows_lookup_kernel",
+                              "corr_lookup_kernel", "pmajor_lookup_kernel")):
         say("kernels", f"ptxas: {line}")
     info = (ctypes.c_int * 4)()
     build.library().corr_windows_build_info(H8, W8, info)
@@ -314,10 +363,11 @@ def phase_kernels(torch):
                    f"dynamic shared memory a block, {info[2]} (K4) and {info[3]} (K8) blocks "
                    f"resident per SM")
 
-    # ---- K2, then K4, K5 and K8, at a ragged shape, 240x352 images: level
-    # sizes 30x44, 15x22, 7x11 and 3x5 (K4's last 8-row band holds 6 rows;
-    # levels 2 and 3 are narrower than their windows); and at 480x640
-    # images, whose 80-cell rows K4 takes 32 pixels a block, in column chunks
+    # ---- K2, then K4, K5 and K8, then K3 and K6, at a ragged shape, 240x352
+    # images: level sizes 30x44, 15x22, 7x11 and 3x5 (K4's last 8-row band
+    # holds 6 rows; levels 2 and 3 are narrower than their windows; P = 1320
+    # is a multiple of no lookup tile); and at 480x640 images, whose 80-cell
+    # rows K4 takes 32 pixels a block, in column chunks
     for Er, Hr, Wr in ((4, 30, 44), (2, 60, 80)):
         fr1, fr2 = randn(Er, Hr, Wr, C), randn(Er, Hr, Wr, C)
         lr = cuda_corr.corr_build(fr1, fr2)
@@ -330,7 +380,18 @@ def phase_kernels(torch):
         if not errr <= tolr:
             fail(f"K2 disagrees with its plain version at E={Er} {Hr}x{Wr}")
         hold_windows(torch, fr1, fr2, lr, gen, tolr)
-        del fr1, fr2, lr, plr
+        padr, _ = build_pyramid_pmajor(fr1, fr2)
+        gridr = coords_grid(Hr, Wr, device=dev).reshape(1, Hr * Wr, 2)
+        hold_lookups(torch, lr, padr, lookup_coords(torch, gridr, Er, gen), f"E={Er} {Hr}x{Wr}")
+        del fr1, fr2, lr, plr, padr
+
+    # ---- K3 at the backend's chunk of EB = 64 edges
+    EB = 64
+    fb1, fb2 = randn(EB, H8, W8, C), randn(EB, H8, W8, C)
+    lb = cuda_corr.corr_build(fb1, fb2)
+    gridb = coords_grid(H8, W8, device=dev).reshape(1, H8 * W8, 2)
+    hold_lookups(torch, lb, None, lookup_coords(torch, gridb, EB, gen), f"E={EB}")
+    del fb1, fb2, lb
 
     # ---- K2 / K3 at E = 48 (frontend) and E = 1 (motion filter)
     P = Q = H8 * W8
@@ -349,18 +410,12 @@ def phase_kernels(torch):
             fail(f"K2 disagrees with its plain version at E={E}")
         del plain
 
+        # ---- K3, and K6 in the zero-bordered P-major pyramid (3.7 GB at E = 48)
         grid = coords_grid(H8, W8, device=dev).reshape(1, P, 2)
-        coords = (grid + randn(E, P, 2, scale=2.0)).contiguous()
-        coords[:, :64] += 50.0                     # some lookups far off the image
-        out = cuda_corr.corr_lookup(levels, coords)
-        ref = cuda_corr.corr_lookup_plain(levels, coords)
-        torch.cuda.synchronize()
-        err3 = float((out - ref).abs().max())
-        tol3 = 1e-5 * max(1.0, float(ref.abs().max()))
-        say("kernels", f"K3 corr_lookup E={E}: max_abs_err {err3:.3e} (tol {tol3:.1e})")
-        if not err3 <= tol3:
-            fail(f"K3 disagrees with its plain version at E={E}")
-        del ref
+        kinds = lookup_coords(torch, grid, E, gen)
+        coords = kinds["random"]
+        padded, _ = build_pyramid_pmajor(f1, f2)
+        out, err3, err6 = hold_lookups(torch, levels, padded, kinds, f"E={E}")
 
         reps = 10 if E == E_MAIN else 50
         ms2 = cuda_ms(torch, lambda: cuda_corr.corr_build(f1, f2), reps)
@@ -370,9 +425,27 @@ def phase_kernels(torch):
         bound2 = bound(2.0 * E * P * Q * C,
                        (f1.numel() + f2.numel() + sum(v.numel() for v in levels)) * 4)
 
-        ms3 = cuda_ms(torch, lambda: cuda_corr.corr_lookup(levels, coords), 4 * reps)
+        # K3 and K6 with each kind of coords, and the library yardstick beside
+        # them: F.grid_sample, one call per level, the grid built outside the
+        # timed region
+        ms3, ms6, lib_ms3 = {}, {}, {}
+        for kind, cc in kinds.items():
+            ms3[kind] = cuda_ms(torch, lambda: cuda_corr.corr_lookup(levels, cc), 4 * reps)
+            ms6[kind] = cuda_ms(torch, lambda: cuda_corr.corr_lookup_pmajor(padded, cc), 4 * reps)
+            gs3 = grid_sample_inputs(torch, levels, cc)
+            lib_ms3[kind] = cuda_ms(torch, lambda: grid_sample_lookup(torch, gs3), 4 * reps)
+            del gs3
+            say("kernels", f"E={E}, {kind} coords: K3 {ms3[kind]:.4f} ms, K6 {ms6[kind]:.4f} ms, "
+                           f"F.grid_sample x4 {lib_ms3[kind]:.4f} ms")
         plain_ms3 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_plain(levels, coords),
                             max(reps // 5, 2))
+        plain_ms6 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_pmajor_plain(padded, coords),
+                            max(reps // 5, 2))
+        # K6 reads the 64 cells of each span (no bounds checks) and the coords,
+        # and writes 196 floats
+        bound6 = bound(E * P * 4 * (7 * 8 * 3 + 49 * 3),
+                       (E * P * 4 * 64 + coords.numel() + out.numel()) * 4)
+        del padded
         # bytes this run's data needs: the in-bounds cells of every 8x8 window
         need = 0
         off = torch.arange(-3, 5, device=dev)
@@ -384,26 +457,29 @@ def phase_kernels(torch):
             need += int((((ys >= 0) & (ys < h)).sum(-1) * ((xs >= 0) & (xs < w)).sum(-1)).sum())
         bound3 = bound(E * P * 4 * (7 * 8 * 3 + 49 * 3),
                        (need + coords.numel() + out.numel()) * 4)
-        # the library yardstick: F.grid_sample, one call per level, the grid
-        # built outside the timed region
         gs3 = grid_sample_inputs(torch, levels, coords)
         lib3 = torch.cat([o.reshape(E, P, 49) for o in grid_sample_lookup(torch, gs3)], -1)
-        lib_ms3 = cuda_ms(torch, lambda: grid_sample_lookup(torch, gs3), 4 * reps)
         err3_lib = float((lib3 - out).abs().max())
         tol_lib = 1e-4 * max(1.0, float(out.abs().max()))
         del gs3, lib3
         say("kernels", f"E={E}: K2 {ms2:.4f} ms (plain {plain_ms2:.4f}, torch.bmm volume "
-                       f"{lib_ms2:.4f}, bound {bound2[0]:.4f} by {bound2[1]}); K3 {ms3:.4f} ms "
-                       f"(plain {plain_ms3:.4f}, F.grid_sample x4 {lib_ms3:.4f}, bound "
-                       f"{bound3[0]:.4f} by {bound3[1]}); grid_sample against K3 {err3_lib:.3e} "
-                       f"(tol {tol_lib:.1e}: its [-1, 1] grid rounds the positions)")
+                       f"{lib_ms2:.4f}, bound {bound2[0]:.4f} by {bound2[1]}); random coords: K3 "
+                       f"{ms3['random']:.4f} ms (plain {plain_ms3:.4f}, F.grid_sample x4 "
+                       f"{lib_ms3['random']:.4f}, bound {bound3[0]:.4f} by {bound3[1]}), K6 "
+                       f"{ms6['random']:.4f} ms (plain {plain_ms6:.4f}, bound {bound6[0]:.4f} by "
+                       f"{bound6[1]}); grid_sample against K3 {err3_lib:.3e} (tol {tol_lib:.1e}: "
+                       f"its [-1, 1] grid rounds the positions)")
         if not err3_lib <= tol_lib:
             fail(f"F.grid_sample does not compute K3's function at E={E}")
         if E == E_MAIN:
             rows["corr_build"] = dict(max_abs_err=err2, ms=ms2, plain_ms=plain_ms2,
                                       library_ms=lib_ms2, bound_ms=bound2[0], bound_by=bound2[1])
-            rows["corr_lookup"] = dict(max_abs_err=err3, ms=ms3, plain_ms=plain_ms3,
-                                       library_ms=lib_ms3, bound_ms=bound3[0], bound_by=bound3[1])
+            for name, err, ms, plain_ms, bnd in (("corr_lookup", err3, ms3, plain_ms3, bound3),
+                                                 ("corr_lookup_pmajor", err6, ms6, plain_ms6,
+                                                  bound6)):
+                rows[name] = dict(max_abs_err=err, ms=ms["random"], plain_ms=plain_ms,
+                                  library_ms=lib_ms3["random"], bound_ms=bnd[0], bound_by=bnd[1],
+                                  ms_pan4=ms["pan4"], library_ms_pan4=lib_ms3["pan4"])
 
         # ---- K4 / K5 / K8: the window cache around first-round coords, its
         # lookup, and the build that stores the levels too
@@ -443,7 +519,7 @@ def phase_kernels(torch):
             fail(f"F.grid_sample over the windows does not compute K5's function at E={E}")
         say("kernels", f"E={E}: one update_fused call of 6 rounds, correlation only: "
                        f"K4 + 6 x K5 = {ms4 + 6 * ms5:.4f} ms against K2 + 6 x K3 = "
-                       f"{ms2 + 6 * ms3:.4f} ms")
+                       f"{ms2 + 6 * ms3['random']:.4f} ms")
         if E == E_MAIN:
             rows["corr_build_windows"] = dict(max_abs_err=errs["err4"], ms=ms4,
                                               plain_ms=plain_ms4, library_ms=lib_ms2,
@@ -452,27 +528,6 @@ def phase_kernels(torch):
             rows["corr_lookup_windows"] = dict(max_abs_err=errs["err5"], ms=ms5,
                                                plain_ms=plain_ms5, library_ms=lib_ms5,
                                                bound_ms=bound5[0], bound_by=bound5[1])
-
-        # ---- K6: the lookup in the zero-bordered P-major pyramid (3.7 GB at E = 48)
-        padded, _ = build_pyramid_pmajor(f1, f2)
-        out6 = cuda_corr.corr_lookup_pmajor(padded, coords)
-        ref6 = cuda_corr.corr_lookup_pmajor_plain(padded, coords)
-        torch.cuda.synchronize()
-        err6 = float((out6 - ref6).abs().max())
-        tol6 = 1e-5 * max(1.0, float(ref6.abs().max()))
-        err63 = float((out6 - out).abs().max())
-        say("kernels", f"K6 corr_lookup_pmajor E={E}: max_abs_err {err6:.3e} (tol {tol6:.1e}); "
-                       f"against K3 on K2's levels: {err63:.3e} (tol {tol6:.1e})")
-        if not (err6 <= tol6 and err63 <= tol6):
-            fail(f"K6 disagrees with its plain version or with K3 at E={E}")
-        del ref6
-        ms6 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_pmajor(padded, coords), 4 * reps)
-        plain_ms6 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_pmajor_plain(padded, coords),
-                            max(reps // 5, 2))
-        # reads the 64 cells of each span (no bounds checks), the coords; writes 196 floats
-        bound6 = bound(E * P * 4 * (7 * 8 * 3 + 49 * 3),
-                       (E * P * 4 * 64 + coords.numel() + out6.numel()) * 4)
-        del padded, out6
 
         # ---- K7: K4's windows cut out of K2's levels around c0
         w7, b7 = cuda_corr.corr_extract_windows(levels, c0)
@@ -526,16 +581,11 @@ def phase_kernels(torch):
                         + sum(v.numel() for v in l8)) * 4,
                        tf32x3=2.0 * E * P * Q * C)
         del l8, w8, b8
-        say("kernels", f"E={E}: K6 {ms6:.4f} ms (plain {plain_ms6:.4f}, F.grid_sample x4 as "
-                       f"K3's {lib_ms3:.4f}, bound {bound6[0]:.4f} by {bound6[1]}); K7 "
-                       f"{ms7:.4f} ms (plain {plain_ms7:.4f}, F.grid_sample nearest x4 "
-                       f"{lib_ms7:.4f}, bound {bound7[0]:.4f} by {bound7[1]}); K8 {ms8:.4f} ms "
+        say("kernels", f"E={E}: K7 {ms7:.4f} ms (plain {plain_ms7:.4f}, F.grid_sample nearest "
+                       f"x4 {lib_ms7:.4f}, bound {bound7[0]:.4f} by {bound7[1]}); K8 {ms8:.4f} ms "
                        f"(plain {plain_ms8:.4f}, torch.bmm volume {lib_ms2:.4f}, bound "
                        f"{bound8[0]:.4f} by {bound8[1]}, 3xTF32)")
         if E == E_MAIN:
-            rows["corr_lookup_pmajor"] = dict(max_abs_err=max(err6, err63), ms=ms6,
-                                              plain_ms=plain_ms6, library_ms=lib_ms3,
-                                              bound_ms=bound6[0], bound_by=bound6[1])
             rows["corr_extract_windows"] = dict(max_abs_err=max(err7, err74), ms=ms7,
                                                 plain_ms=plain_ms7, library_ms=lib_ms7,
                                                 bound_ms=bound7[0], bound_by=bound7[1])
@@ -1004,7 +1054,9 @@ def main():
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "ops_route": r.get("ops_route", "fp32")})
+                        "ops_route": r.get("ops_route", "fp32"),
+                        # the lookups' times under a smooth 4-px pan (the others: random coords)
+                        **{k: r[k] for k in ("ms_pan4", "library_ms_pan4") if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

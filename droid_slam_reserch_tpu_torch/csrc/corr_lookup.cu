@@ -11,21 +11,36 @@
 // layout [E, P, H2 >> l, W2 >> l] written by K2.
 //
 // What bounds it on the H100: bytes.  Each (e, p, l) needs at most an 8x8
-// window of its level (8 rows of 32 bytes) and writes 49 floats; at the
-// main path's shapes (E = 48, P = 2560) that is about 126 MB read and 96 MB
-// written, tens of microseconds, with a few flops per byte.
+// span of its level (8 rows of 32 bytes, each row straddling up to two
+// 32-byte sectors) and writes 49 floats; at the main path's shapes (E = 48,
+// P = 2560) that is about 126 MB needed (up to 250 MB of sectors) and 96 MB
+// written, with a few flops per byte.  A thread per (e, p, l), as the first
+// version had it, makes each of its 64 loads touch 32 sectors for a warp and
+// writes its 49 floats 196 floats from its neighbour's.
 //
-// Design: one thread per (edge, pixel, level).  It loads the 8x8 window
-// into registers with bounds checks, blends along y then along x (the plain
-// version's order), and writes its 49 outputs in the JAX channel order.
+// Design, K6's: one block per (edge, tile of 16 consecutive pixels), a
+// thread per (pixel, x tap a).  A thread reads its span's columns a and
+// a + 1 at all four levels (64 bounds-checked loads, all in flight
+// together; cells off the level read 0) and blends its 28 outputs, along y
+// then along x (the plain version's order), into the tile's [16][196]
+// outputs staged in shared memory; the block then writes them as one
+// contiguous run with 16-byte stores.  The loads go through L1, where the 7
+// threads of a (pixel, level) share the sectors of its span's rows.
+// Copying each (pixel, level)'s span into shared memory first, 8 lanes to a
+// row, and blending four outputs a thread from there was slower, at E = 48
+// and at E = 1.  16-pixel tiles give the motion filter's single edge 160
+// blocks, more than the 132 SMs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kR = 3;
-constexpr int kD = 2 * kR + 1;     // 7 taps per axis
+constexpr int kD = 2 * kR + 1;          // 7 taps per axis
 constexpr int kLevels = 4;
+constexpr int kOut = kLevels * kD * kD; // 196 outputs per pixel
+constexpr int kTile = 16;               // pixels per block
+constexpr int kThreads = kTile * kD;    // a thread per (pixel, x tap)
 
 struct Pyramid {
   const float* lv[kLevels];
@@ -33,51 +48,71 @@ struct Pyramid {
   int W[kLevels];
 };
 
-__global__ void corr_lookup_kernel(Pyramid pyr, const float2* __restrict__ coords,
-                                   float* __restrict__ out, size_t EP) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= EP * kLevels) return;
-  const size_t ep = idx / kLevels;
-  const int l = (int)(idx % kLevels);
-  const int Hl = pyr.H[l], Wl = pyr.W[l];
-  const float* v = pyr.lv[l] + ep * Hl * Wl;
+__device__ __forceinline__ int floor_clamped(float v) {
+  return (int)fminf(fmaxf(floorf(v), -1e6f), 1e6f);
+}
 
-  const float2 c = coords[ep];
-  const float scale = 1.f / (float)(1 << l);
-  const float x = c.x * scale, y = c.y * scale;
-  const float xf = floorf(x), yf = floorf(y);
-  const float dx = x - xf, dy = y - yf;
-  const int x0 = (int)fminf(fmaxf(xf, -1e6f), 1e6f) - kR;
-  const int y0 = (int)fminf(fmaxf(yf, -1e6f), 1e6f) - kR;
+// Cells (row, column) g00 = (b, a), g01 = (b, a + 1), g10 = (b + 1, a),
+// g11 = (b + 1, a + 1) of the span, f = (fx, fy): along y, then along x,
+// each product and sum rounded on its own as the plain version rounds them
+// (no contraction into FMAs), so K3, K6 and the plain versions agree exactly.
+__device__ __forceinline__ float blend(float g00, float g01, float g10, float g11, float2 f) {
+  const float wy = 1.f - f.y, wx = 1.f - f.x;
+  const float y0 = __fadd_rn(__fmul_rn(wy, g00), __fmul_rn(f.y, g10));   // Y[b][a]
+  const float y1 = __fadd_rn(__fmul_rn(wy, g01), __fmul_rn(f.y, g11));   // Y[b][a + 1]
+  return __fadd_rn(__fmul_rn(wx, y0), __fmul_rn(f.x, y1));
+}
 
-  float g[kD + 1][kD + 1];
+__global__ void __launch_bounds__(kThreads)
+corr_lookup_kernel(Pyramid pyr, const float2* __restrict__ coords, float* __restrict__ out,
+                   int P) {
+  __shared__ __align__(16) float stage[kTile * kOut];
+  const int tid = threadIdx.x, q = tid / kD, a = tid - q * kD;
+  const int e = blockIdx.y, p0 = blockIdx.x * kTile;
+  const int np = min(kTile, P - p0);
+
+  if (q < np) {
+    const float2 c = coords[(size_t)e * P + p0 + q];
+    float g[kLevels][2][kD + 1];         // columns a and a + 1 of each level's span
+    float2 f[kLevels];
 #pragma unroll
-  for (int i = 0; i <= kD; i++) {
-    const int yy = y0 + i;
-    const bool oky = yy >= 0 && yy < Hl;
+    for (int l = 0; l < kLevels; l++) {
+      const int H = pyr.H[l], W = pyr.W[l];
+      const float scale = 1.f / (float)(1 << l);
+      const float x = c.x * scale, y = c.y * scale;
+      const int y0 = floor_clamped(y) - kR, x0 = floor_clamped(x) - kR + a;
+      f[l] = make_float2(x - floorf(x), y - floorf(y));
+      const float* v = pyr.lv[l] + ((size_t)e * P + p0 + q) * H * W;
+      const bool ok0 = x0 >= 0 && x0 < W, ok1 = x0 + 1 >= 0 && x0 + 1 < W;
 #pragma unroll
-    for (int j = 0; j <= kD; j++) {
-      const int xx = x0 + j;
-      g[i][j] = (oky && xx >= 0 && xx < Wl) ? __ldg(v + (size_t)yy * Wl + xx) : 0.f;
+      for (int i = 0; i <= kD; i++) {
+        const int yy = y0 + i;
+        const bool oky = yy >= 0 && yy < H;
+        g[l][0][i] = oky && ok0 ? __ldg(v + (size_t)yy * W + x0) : 0.f;
+        g[l][1][i] = oky && ok1 ? __ldg(v + (size_t)yy * W + x0 + 1) : 0.f;
+      }
     }
+    float* o = stage + q * kOut + a * kD;
+#pragma unroll
+    for (int l = 0; l < kLevels; l++)
+#pragma unroll
+      for (int b = 0; b < kD; b++)
+        o[l * kD * kD + b] = blend(g[l][0][b], g[l][1][b], g[l][0][b + 1], g[l][1][b + 1], f[l]);
   }
+  __syncthreads();
 
-  float* o = out + ep * (kLevels * kD * kD) + l * kD * kD;
-#pragma unroll
-  for (int b = 0; b < kD; b++) {
-    float yb[kD + 1];
-#pragma unroll
-    for (int j = 0; j <= kD; j++) yb[j] = (1.f - dy) * g[b][j] + dy * g[b + 1][j];
-#pragma unroll
-    for (int a = 0; a < kD; a++) o[a * kD + b] = (1.f - dx) * yb[a] + dx * yb[a + 1];
-  }
+  // ---- the tile's np x 196 outputs are one contiguous run: 16-byte stores
+  float4* dst = reinterpret_cast<float4*>(out + ((size_t)e * P + p0) * kOut);
+  const float4* src = reinterpret_cast<const float4*>(stage);
+  for (int i = tid; i < np * (kOut / 4); i += kThreads) dst[i] = src[i];
 }
 
 }  // namespace
 
 // Launches K3 on `stream`: level0..level3 from K2 (H2 x W2 target grid at
-// level 0), coords [E, P, 2] float32 level-0 pixels -> out [E, P, 196].
-// Returns cudaGetLastError() after the launch.
+// level 0), coords [E, P, 2] float32 level-0 pixels -> out [E, P, 196]
+// (16-byte aligned, as torch.empty gives it).  Returns cudaGetLastError()
+// after the launch.
 extern "C" int corr_lookup_launch(const void* level0, const void* level1,
                                   const void* level2, const void* level3,
                                   const void* coords, int E, int P, int H2, int W2,
@@ -89,12 +124,11 @@ extern "C" int corr_lookup_launch(const void* level0, const void* level1,
     pyr.H[l] = H2 >> l;
     pyr.W[l] = W2 >> l;
   }
-  const size_t EP = (size_t)E * P;
-  if (EP > 0) {
-    const int threads = 128;
-    const size_t blocks = (EP * kLevels + threads - 1) / threads;
-    corr_lookup_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        pyr, (const float2*)coords, (float*)out, EP);
+  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
+  if (E > 0 && P > 0) {
+    dim3 grid((P + kTile - 1) / kTile, E);
+    corr_lookup_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        pyr, (const float2*)coords, (float*)out, P);
   }
   return (int)cudaGetLastError();
 }

@@ -13,23 +13,40 @@
 // with fx, fy the fractional parts: K3's function, read without bounds
 // checks because a span off the level lands wholly in the border.
 //
-// What bounds it on the H100: bytes.  Each (e, p, l) reads 64 cells and
+// What bounds it on the H100: bytes.  Each (e, p, l) needs 64 cells and
 // writes 49 floats; at the main path's shapes (E = 48, P = 2560) that is
-// 126 MB read and 96 MB written, tens of microseconds.
+// 126 MB read and 96 MB written, about 0.07 ms at 3.35 TB/s.  The layout
+// does not make those reads coalesce by itself: a pixel's cells lie P floats
+// apart, and neighbouring source pixels look up neighbouring target columns,
+// so at level 0 lane k of a warp that reads "the same tap" of 32 pixels
+// lands (P + 1) k floats from lane 0, one 32-byte sector each.  But a sector
+// holds one cell of 8 neighbouring pixels, whose spans overlap: under smooth
+// motion pixel p + k needs cell (r, c) where pixel p needs (r, c - k).  Nor
+// do the outputs coalesce by themselves: a pixel's 196 floats are
+// contiguous, and a thread per pixel writes 196 floats from its neighbour.
 //
-// Design: one thread per (edge, pixel, level), the pixel fastest across a
-// warp, so each of the 64 loads reads 32 neighbouring floats of one padded
-// row (the pixels-last layout makes the reads coalesce).  The blend is K3's
-// (along y, then along x); the 49 outputs of a thread are contiguous, so
-// neighbouring threads write 196 floats apart, as in K3.
+// Design: one block per (edge, tile of 32 consecutive pixels), a thread per
+// (pixel, x tap a).  A thread reads its span's columns a and a + 1 at all
+// four levels (64 loads, all in flight together) and blends its 28 outputs,
+// along y then along x as K3, into the tile's [32][196] outputs staged in
+// shared memory; the block then writes them as one contiguous run with
+// 16-byte stores.  The loads go through L1, where the 7 threads of a pixel
+// and the 8 pixels of a sector share what they fetch.  Copying each 8-pixel
+// group's union box of spans into shared memory first (every sector read
+// whole, one pass a level, with gathers for boxes that overflow the buffer)
+// was slower at every buffer size tried, with smooth and with random
+// coords: the shared memory it takes shrinks L1, which already gave that
+// reuse.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kLevels = 4, kPad = 8, kR = 3;
-constexpr int kD = 2 * kR + 1;  // 7 taps per axis
-constexpr int kThreads = 128;
+constexpr int kD = 2 * kR + 1;          // 7 taps per axis
+constexpr int kOut = kLevels * kD * kD; // 196 outputs per pixel
+constexpr int kTile = 32;               // pixels per block
+constexpr int kThreads = kTile * kD;    // a thread per (pixel, x tap)
 
 struct Padded {
   const float* lv[kLevels];
@@ -40,56 +57,68 @@ __device__ __forceinline__ int floor_clamped(float v) {
   return (int)fminf(fmaxf(floorf(v), -1e6f), 1e6f);
 }
 
+// Cells (row, column) g00 = (b, a), g01 = (b, a + 1), g10 = (b + 1, a),
+// g11 = (b + 1, a + 1) of the span, f = (fx, fy): along y, then along x,
+// each product and sum rounded on its own as the plain version rounds them
+// (no contraction into FMAs), so K6, K3 and the plain versions agree exactly.
+__device__ __forceinline__ float blend(float g00, float g01, float g10, float g11, float2 f) {
+  const float wy = 1.f - f.y, wx = 1.f - f.x;
+  const float y0 = __fadd_rn(__fmul_rn(wy, g00), __fmul_rn(f.y, g10));   // Y[b][a]
+  const float y1 = __fadd_rn(__fmul_rn(wy, g01), __fmul_rn(f.y, g11));   // Y[b][a + 1]
+  return __fadd_rn(__fmul_rn(wx, y0), __fmul_rn(f.x, y1));
+}
+
 __global__ void __launch_bounds__(kThreads)
 pmajor_lookup_kernel(Padded pad, const float2* __restrict__ coords, float* __restrict__ out,
                      int P) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  const int l = blockIdx.y;                  // grid: (pixel blocks, levels, edges)
-  const int e = blockIdx.z;
-  if (p >= P) return;
-  const float* v = pad.lv[0];
-  int Hp = pad.Hp[0], Wp = pad.Wp[0];
+  __shared__ __align__(16) float stage[kTile * kOut];
+  const int tid = threadIdx.x, q = tid / kD, a = tid - q * kD;
+  const int e = blockIdx.y, p0 = blockIdx.x * kTile;
+  const int np = min(kTile, P - p0);
+
+  if (q < np) {
+    const float2 c = coords[(size_t)e * P + p0 + q];
+    const size_t col = (size_t)P;
+    float g[kLevels][2][kD + 1];         // columns a and a + 1 of each level's span
+    float2 f[kLevels];
 #pragma unroll
-  for (int k = 1; k < kLevels; k++)          // select without indexing the parameter
-    if (l == k) {
-      v = pad.lv[k];
-      Hp = pad.Hp[k];
-      Wp = pad.Wp[k];
+    for (int l = 0; l < kLevels; l++) {
+      const int Hp = pad.Hp[l], Wp = pad.Wp[l];
+      const float scale = 1.f / (float)(1 << l);
+      const float x = c.x * scale, y = c.y * scale;
+      const int sy = min(max(floor_clamped(y) + kPad - kR, 0), Hp - 8);
+      const int sx = min(max(floor_clamped(x) + kPad - kR, 0), Wp - 8);
+      f[l] = make_float2(x - floorf(x), y - floorf(y));
+      // cell (row, column) of edge e lives at ((e * Hp + row) * Wp + column) * P + p
+      const float* v = pad.lv[l] + (((size_t)e * Hp + sy) * Wp + sx + a) * col + p0 + q;
+      const size_t row = (size_t)Wp * col;
+#pragma unroll
+      for (int i = 0; i <= kD; i++) {
+        g[l][0][i] = __ldg(v + i * row);
+        g[l][1][i] = __ldg(v + i * row + col);
+      }
     }
-
-  const size_t ep = (size_t)e * P + p;
-  const float2 c = coords[ep];
-  const float scale = 1.f / (float)(1 << l);
-  const float x = c.x * scale, y = c.y * scale;
-  const float xf = floorf(x), yf = floorf(y);
-  const float dx = x - xf, dy = y - yf;
-  const int sy = min(max(floor_clamped(y) + kPad - kR, 0), Hp - 8);
-  const int sx = min(max(floor_clamped(x) + kPad - kR, 0), Wp - 8);
-  // cell (row, col) of edge e lives at ((e * Hp + row) * Wp + col) * P + p
-  const float* base = v + (((size_t)e * Hp + sy) * Wp + sx) * P + p;
-
-  float g[kD + 1][kD + 1];
+    float* o = stage + q * kOut + a * kD;
 #pragma unroll
-  for (int i = 0; i <= kD; i++)
+    for (int l = 0; l < kLevels; l++)
 #pragma unroll
-    for (int j = 0; j <= kD; j++) g[i][j] = __ldg(base + ((size_t)i * Wp + j) * P);
-
-  float* o = out + ep * (kLevels * kD * kD) + l * kD * kD;
-#pragma unroll
-  for (int b = 0; b < kD; b++) {
-    float yb[kD + 1];
-#pragma unroll
-    for (int j = 0; j <= kD; j++) yb[j] = (1.f - dy) * g[b][j] + dy * g[b + 1][j];
-#pragma unroll
-    for (int a = 0; a < kD; a++) o[a * kD + b] = (1.f - dx) * yb[a] + dx * yb[a + 1];
+      for (int b = 0; b < kD; b++)
+        o[l * kD * kD + b] = blend(g[l][0][b], g[l][1][b], g[l][0][b + 1], g[l][1][b + 1], f[l]);
   }
+  __syncthreads();
+
+  // ---- the tile's np x 196 outputs are one contiguous run: 16-byte stores
+  float4* dst = reinterpret_cast<float4*>(out + ((size_t)e * P + p0) * kOut);
+  const float4* src = reinterpret_cast<const float4*>(stage);
+  for (int i = tid; i < np * (kOut / 4); i += kThreads) dst[i] = src[i];
 }
 
 }  // namespace
 
 // Launches K6 on `stream`: level0..level3 the padded P-major levels
 // [E, (H2 >> l) + 16, (W2 >> l) + 16, P] float32, coords [E, P, 2] float32
-// level-0 pixels -> out [E, P, 196].  Returns cudaGetLastError().
+// level-0 pixels -> out [E, P, 196] (16-byte aligned, as torch.empty gives
+// it).  Returns cudaGetLastError().
 extern "C" int corr_pmajor_lookup_launch(const void* level0, const void* level1,
                                          const void* level2, const void* level3,
                                          const void* coords, int E, int P, int H2, int W2,
@@ -101,9 +130,9 @@ extern "C" int corr_pmajor_lookup_launch(const void* level0, const void* level1,
     pad.Hp[l] = (H2 >> l) + 2 * kPad;
     pad.Wp[l] = (W2 >> l) + 2 * kPad;
   }
-  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's z
+  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
   if (E > 0 && P > 0) {
-    dim3 grid((P + kThreads - 1) / kThreads, kLevels, E);
+    dim3 grid((P + kTile - 1) / kTile, E);
     pmajor_lookup_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         pad, (const float2*)coords, (float*)out, P);
   }
