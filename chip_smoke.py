@@ -6,20 +6,22 @@
 Phases (one line each; any failure exits nonzero):
 1. build   nvcc-compiles the port's CUDA kernels from csrc/ (sm_90a), one
            process per source, all started together;
-2. kernels prints what ptxas made of the window-cache build (K4, K8), the
-           windowed lookup (K5) and the pyramid lookups (K3, K6) and K4's
-           occupancy; holds each kernel (K1 BA blocks, K2 correlation build,
-           K3 correlation lookup, K4 window-cache build, K5 windowed lookup,
-           K6 P-major lookup, K7 window extraction, K8 build of levels and
-           windows) against its plain PyTorch version on the card at the main
-           path's shapes (K2-K6 and K8 also at a ragged 30x44 and at 60x80, K3
-           also at the backend's 64 edges; K3 and K6 with random coords and
-           with a smooth 4-px pan), K5(K4) against K3(K2) where the drift
-           rule holds, K6 against K3, K7 and K8 against K2 and K4, and times
-           kernel, plain version and, where one PyTorch call computes the
-           same function, that call (torch.bmm for the builds, F.grid_sample
-           bilinear for the lookups, F.grid_sample nearest for K7's window
-           extraction);
+2. kernels prints what ptxas made of the correlation build (K2), the BA
+           blocks (K1), the window-cache build (K4, K8), the windowed lookup
+           (K5) and the pyramid lookups (K3, K6) and K4's occupancy; holds
+           each kernel (K1 BA blocks, K2 correlation build, K3 correlation
+           lookup, K4 window-cache build, K5 windowed lookup, K6 P-major
+           lookup, K7 window extraction, K8 build of levels and windows)
+           against its plain PyTorch version on the card at the main path's
+           shapes (K2-K6 and K8 also at a ragged 30x44 and at 60x80, K2 and K3
+           also at the backend's 64 edges, K2 also on a 48x120 map wider than
+           K4 takes; K3 and K6 with random coords and with a smooth 4-px pan;
+           K1 at 64 edges, at 1, and on a batch with stereo self-edges),
+           K5(K4) against K3(K2) where the drift rule holds, K6 against K3, K7
+           and K8 against K2 and K4, and times kernel, plain version and,
+           where one PyTorch call computes the same function, that call
+           (torch.bmm for the builds, F.grid_sample bilinear for the lookups,
+           F.grid_sample nearest for K7's window extraction);
 3. drift   the frontend's windowed lookup with coords that leave the cached
            windows: the fallback (K2 once, K3) is taken, counted and exact;
 4. card vs CPU  the oracle frontend and backend gates on the card (ATE <
@@ -30,7 +32,8 @@ Phases (one line each; any failure exits nonzero):
            Droid.terminate_eva over the same frames (backend 7 + 12 steps,
            trajectory filler); before each of the two, every kernel's launch
            count and every plain version's call count is set to 0, and read
-           just after;
+           just after; then K1 held at the largest edge count of the
+           backend's graphs in that run;
 6. profile-frontend  the frontend profiler (tools/profile_frontend.py) at
            bench.py's shape, E = 48 edges over a 24-frame window at 40x64:
            every section on the card, with the counts set to 0 before and
@@ -70,7 +73,10 @@ E_MAIN, H8, W8, C = 48, 40, 64, 128
 INTR_EUROC = np.array([296.3, 290.1, 250.2, 168.1], np.float32)
 N_MAIN = 40                    # frames of the main path
 N_BA, MW_BA = 64, 24           # 48 active + 16 inactive edges over a 24-frame window
-K1_OPS_PER_PIXEL = 580         # flops per pixel, counted from csrc/ba_blocks.cu
+K1_OPS_PER_PIXEL = 280         # flops per pixel, counted from csrc/ba_blocks.cu
+# per edge: relative_pose (125 flops) in each of a cluster's 2 blocks, then
+# L = -AdjT(Gij) formed and applied once: Hij = L Hjj, Hii = Hij L^T, vi = L vj
+K1_OPS_PER_EDGE = 2 * 125 + 1220
 
 
 def fail(msg):
@@ -146,7 +152,7 @@ def euroc_frames(n, seed=0, H=320, W=512, step=4):
 def bound(ops, nbytes, tf32x3=0.0):
     """Least time in ms for `ops` fp32 operations outside the tensor cores,
     `tf32x3` fp32-accurate operations that a kernel takes as three TF32
-    tensor-core products each (K4, K8), and `nbytes` moved; and which of the
+    tensor-core products each (K2, K4, K8), and `nbytes` moved; and which of the
     two, operations or bytes, sets it."""
     t_ops = ops / PEAK_FP32 + 3.0 * tf32x3 / PEAK_TF32
     t_bytes = nbytes / PEAK_BYTES
@@ -338,9 +344,84 @@ def hold_windows(torch, f1, f2, levels, gen, tol2):
     return c0, c1, wins, bases, out5, errs
 
 
-def phase_kernels(torch):
+def build_bound(f1, f2):
+    """K2's least time: f1 and f2 read and the four levels written once,
+    against the product to fp32 accuracy as three TF32 tensor-core products."""
+    E, H1, W1, C = f1.shape
+    H2, W2 = f2.shape[1:3]
+    P, Q = H1 * W1, H2 * W2
+    cells = sum((H2 >> l) * (W2 >> l) for l in range(4))
+    return bound(0, (f1.numel() + f2.numel() + E * P * cells) * 4, tf32x3=2.0 * E * P * Q * C)
+
+
+def hold_build(torch, f1, f2):
+    """K2 on (f1, f2) against its plain version, tolerance
+    tol2 = 1e-5 * max(1, |level0|); returns K2's levels and (error, tol2)."""
+    from droid_slam_reserch_tpu_torch.ops import cuda_corr
+
+    E, H2, W2 = f2.shape[:3]
+    levels = cuda_corr.corr_build(f1, f2)
+    plain = cuda_corr.corr_build_plain(f1, f2)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(levels, plain))
+    scale = float(plain[0].abs().max())
+    tol = 1e-5 * max(1.0, scale)
+    say("kernels", f"K2 corr_build E={E} {H2}x{W2}: max_abs_err {err:.3e} (tol {tol:.1e}, "
+                   f"|level0| max {scale:.2f})")
+    if not err <= tol:
+        fail(f"K2 disagrees with its plain version at E={E} {H2}x{W2}")
+    return levels, (err, tol)
+
+
+def k1_problem(torch, gen, N, MW, self_edges=0):
+    """K1's inputs at N edges over an MW-frame window at the main path's
+    40x64: poses panning along x, random disparities, targets near the grid,
+    random weights; the last 4 edges are the engine's zero-weight padding
+    (ii = jj = 0) and, with self_edges, that many stereo self-edges (ii = jj)
+    lead the batch."""
     from droid_slam_reserch_tpu_torch.geom import coords_grid
     from droid_slam_reserch_tpu_torch.lie import se3_exp
+
+    dev = torch.device("cuda")
+    xi = torch.cat([0.05 * torch.arange(MW, device=dev)[:, None].expand(MW, 3),
+                    0.01 * torch.randn(MW, 3, generator=gen, device=dev)], 1)
+    poses = se3_exp(xi).contiguous()
+    disps = (0.5 + torch.rand(MW, H8, W8, generator=gen, device=dev)).contiguous()
+    intr = torch.tensor([296.3 / 8, 290.1 / 8, 250.2 / 8, 168.1 / 8], device=dev)
+    ii = torch.randint(0, MW, (N,), generator=gen, device=dev)
+    jj = (ii + torch.randint(1, 4, (N,), generator=gen, device=dev)) % MW
+    if N > 4:
+        ii[-4:] = 0
+        jj[-4:] = 0                              # padding edges, as the engine pads
+    jj[:self_edges] = ii[:self_edges]
+    target = (coords_grid(H8, W8, device=dev)
+              + 1.5 * torch.randn(N, H8, W8, 2, generator=gen, device=dev)).contiguous()
+    weight = torch.rand(N, H8, W8, 2, generator=gen, device=dev)
+    return (target, weight, poses, disps, intr, ii, jj)
+
+
+def hold_k1(torch, args, what):
+    """K1 against its plain version on `args`, 2e-4 * max(1, |ref|) per
+    output; returns the largest error."""
+    from droid_slam_reserch_tpu_torch.ops import cuda_ba
+
+    out = cuda_ba.ba_system_blocks(*args)
+    ref = cuda_ba.build_system_blocks(*args)
+    torch.cuda.synchronize()
+    err, ok = 0.0, True
+    for k in ref:
+        d = float((out[k] - ref[k]).abs().max())
+        err = max(err, d)
+        ok &= d <= 2e-4 * max(1.0, float(ref[k].abs().max()))
+    say("kernels", f"K1 ba_blocks {what}: max_abs_err {err:.3e} (tol 2e-4*max(1,|ref|) per "
+                   f"output)")
+    if not ok:
+        fail(f"K1 disagrees with its plain version ({what})")
+    return err
+
+
+def phase_kernels(torch):
+    from droid_slam_reserch_tpu_torch.geom import coords_grid
     from droid_slam_reserch_tpu_torch.ops import build, cuda_ba, cuda_corr
     from droid_slam_reserch_tpu_torch.ops.corr import (build_pyramid_pmajor, level_sizes,
                                                        pack_offsets, win_shape)
@@ -349,14 +430,19 @@ def phase_kernels(torch):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen, device=dev) * scale
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
 
     # ---- what the redesigned kernels compiled to, and K4's occupancy
     for line in ptxas_report(build.BUILD_LOG["ptxas"],
-                             ("windows_build_kernel", "windows_lookup_kernel",
-                              "corr_lookup_kernel", "pmajor_lookup_kernel")):
+                             ("corr_build_kernel", "ba_blocks_kernel", "windows_build_kernel",
+                              "windows_lookup_kernel", "corr_lookup_kernel",
+                              "pmajor_lookup_kernel")):
         say("kernels", f"ptxas: {line}")
+    info2 = (ctypes.c_int * 2)()
+    build.library().corr_build_info(info2)
+    say("kernels", f"K2: {info2[0]} bytes of dynamic shared memory a block, {info2[1]} "
+                   f"block(s) resident per SM")
     info = (ctypes.c_int * 4)()
     build.library().corr_windows_build_info(H8, W8, info)
     say("kernels", f"K4/K8 at {H8}x{W8}: {info[0]} source pixels and {info[1]} bytes of "
@@ -370,45 +456,40 @@ def phase_kernels(torch):
     # rows K4 takes 32 pixels a block, in column chunks
     for Er, Hr, Wr in ((4, 30, 44), (2, 60, 80)):
         fr1, fr2 = randn(Er, Hr, Wr, C), randn(Er, Hr, Wr, C)
-        lr = cuda_corr.corr_build(fr1, fr2)
-        plr = cuda_corr.corr_build_plain(fr1, fr2)
-        torch.cuda.synchronize()
-        tolr = 1e-5 * max(1.0, float(plr[0].abs().max()))
-        errr = max(float((a - b).abs().max()) for a, b in zip(lr, plr))
-        say("kernels", f"K2 corr_build E={Er} {Hr}x{Wr}: max_abs_err {errr:.3e} "
-                       f"(tol {tolr:.1e})")
-        if not errr <= tolr:
-            fail(f"K2 disagrees with its plain version at E={Er} {Hr}x{Wr}")
+        lr, (_, tolr) = hold_build(torch, fr1, fr2)
         hold_windows(torch, fr1, fr2, lr, gen, tolr)
         padr, _ = build_pyramid_pmajor(fr1, fr2)
         gridr = coords_grid(Hr, Wr, device=dev).reshape(1, Hr * Wr, 2)
         hold_lookups(torch, lr, padr, lookup_coords(torch, gridr, Er, gen), f"E={Er} {Hr}x{Wr}")
-        del fr1, fr2, lr, plr, padr
+        del fr1, fr2, lr, padr
 
-    # ---- K3 at the backend's chunk of EB = 64 edges
+    # ---- K2 on a map wider than K4 takes: 384x960 images, 48x120 cells
+    fw1, fw2 = randn(2, 48, 120, C), randn(2, 48, 120, C)
+    hold_build(torch, fw1, fw2)
+    del fw1, fw2
+
+    # ---- K2 and K3 at the backend's chunk of EB = 64 edges
     EB = 64
     fb1, fb2 = randn(EB, H8, W8, C), randn(EB, H8, W8, C)
-    lb = cuda_corr.corr_build(fb1, fb2)
+    lb, _ = hold_build(torch, fb1, fb2)
     gridb = coords_grid(H8, W8, device=dev).reshape(1, H8 * W8, 2)
     hold_lookups(torch, lb, None, lookup_coords(torch, gridb, EB, gen), f"E={EB}")
-    del fb1, fb2, lb
+    del lb
+    msb = cuda_ms(torch, lambda: cuda_corr.corr_build(fb1, fb2), 10)
+    ab, bb = fb1.reshape(EB, H8 * W8, C), fb2.reshape(EB, H8 * W8, C).transpose(1, 2)
+    lib_msb = cuda_ms(torch, lambda: torch.bmm(ab, bb), 10)
+    boundb = build_bound(fb1, fb2)
+    say("kernels", f"E={EB}: K2 {msb:.4f} ms, the backend's call per chunk (torch.bmm volume "
+                   f"{lib_msb:.4f}, bound {boundb[0]:.4f} by {boundb[1]}, 3xTF32)")
+    rows["corr_build_eb64"] = dict(ms=msb, library_ms=lib_msb, bound_ms=boundb[0])
+    del fb1, fb2, ab, bb
 
     # ---- K2 / K3 at E = 48 (frontend) and E = 1 (motion filter)
     P = Q = H8 * W8
     for E in (E_MAIN, 1):
         f1 = randn(E, H8, W8, C)
         f2 = randn(E, H8, W8, C)
-        levels = cuda_corr.corr_build(f1, f2)
-        plain = cuda_corr.corr_build_plain(f1, f2)
-        torch.cuda.synchronize()
-        err2 = max(float((a - b).abs().max()) for a, b in zip(levels, plain))
-        scale2 = float(plain[0].abs().max())
-        tol2 = 1e-5 * max(1.0, scale2)
-        say("kernels", f"K2 corr_build E={E}: max_abs_err {err2:.3e} (tol {tol2:.1e}, "
-                       f"|level0| max {scale2:.2f})")
-        if not err2 <= tol2:
-            fail(f"K2 disagrees with its plain version at E={E}")
-        del plain
+        levels, (err2, tol2) = hold_build(torch, f1, f2)
 
         # ---- K3, and K6 in the zero-bordered P-major pyramid (3.7 GB at E = 48)
         grid = coords_grid(H8, W8, device=dev).reshape(1, P, 2)
@@ -422,8 +503,7 @@ def phase_kernels(torch):
         plain_ms2 = cuda_ms(torch, lambda: cuda_corr.corr_build_plain(f1, f2), max(reps // 5, 2))
         a, b = f1.reshape(E, P, C), f2.reshape(E, Q, C).transpose(1, 2)
         lib_ms2 = cuda_ms(torch, lambda: torch.bmm(a, b), reps)
-        bound2 = bound(2.0 * E * P * Q * C,
-                       (f1.numel() + f2.numel() + sum(v.numel() for v in levels)) * 4)
+        bound2 = build_bound(f1, f2)
 
         # K3 and K6 with each kind of coords, and the library yardstick beside
         # them: F.grid_sample, one call per level, the grid built outside the
@@ -463,7 +543,8 @@ def phase_kernels(torch):
         tol_lib = 1e-4 * max(1.0, float(out.abs().max()))
         del gs3, lib3
         say("kernels", f"E={E}: K2 {ms2:.4f} ms (plain {plain_ms2:.4f}, torch.bmm volume "
-                       f"{lib_ms2:.4f}, bound {bound2[0]:.4f} by {bound2[1]}); random coords: K3 "
+                       f"{lib_ms2:.4f}, bound {bound2[0]:.4f} by {bound2[1]}, 3xTF32); random "
+                       f"coords: K3 "
                        f"{ms3['random']:.4f} ms (plain {plain_ms3:.4f}, F.grid_sample x4 "
                        f"{lib_ms3['random']:.4f}, bound {bound3[0]:.4f} by {bound3[1]}), K6 "
                        f"{ms6['random']:.4f} ms (plain {plain_ms6:.4f}, bound {bound6[0]:.4f} by "
@@ -473,13 +554,17 @@ def phase_kernels(torch):
             fail(f"F.grid_sample does not compute K3's function at E={E}")
         if E == E_MAIN:
             rows["corr_build"] = dict(max_abs_err=err2, ms=ms2, plain_ms=plain_ms2,
-                                      library_ms=lib_ms2, bound_ms=bound2[0], bound_by=bound2[1])
+                                      library_ms=lib_ms2, bound_ms=bound2[0], bound_by=bound2[1],
+                                      ops_route="tf32x3")
             for name, err, ms, plain_ms, bnd in (("corr_lookup", err3, ms3, plain_ms3, bound3),
                                                  ("corr_lookup_pmajor", err6, ms6, plain_ms6,
                                                   bound6)):
                 rows[name] = dict(max_abs_err=err, ms=ms["random"], plain_ms=plain_ms,
                                   library_ms=lib_ms3["random"], bound_ms=bnd[0], bound_by=bnd[1],
                                   ms_pan4=ms["pan4"], library_ms_pan4=lib_ms3["pan4"])
+        else:
+            rows["corr_build_e1"] = dict(ms=ms2, plain_ms=plain_ms2, library_ms=lib_ms2,
+                                         bound_ms=bound2[0])
 
         # ---- K4 / K5 / K8: the window cache around first-round coords, its
         # lookup, and the build that stores the levels too
@@ -595,48 +680,44 @@ def phase_kernels(torch):
                                                      bound_by=bound8[1], ops_route="tf32x3")
         del levels, out, wins, bases, out5
 
-    # ---- K1 at N = 64 edges over a 24-frame window
-    xi = torch.cat([0.05 * torch.arange(MW_BA, device=dev)[:, None].expand(MW_BA, 3),
-                    randn(MW_BA, 3, scale=0.01)], 1)
-    poses = se3_exp(xi)
-    disps = (0.5 + torch.rand(MW_BA, H8, W8, generator=gen, device=dev)).contiguous()
-    intr = torch.tensor([296.3 / 8, 290.1 / 8, 250.2 / 8, 168.1 / 8], device=dev)
-    ii = torch.randint(0, MW_BA, (N_BA,), generator=gen, device=dev)
-    jj = (ii + torch.randint(1, 4, (N_BA,), generator=gen, device=dev)) % MW_BA
-    ii[-4:] = 0
-    jj[-4:] = 0                                  # padding edges, as the engine pads
-    grid = coords_grid(H8, W8, device=dev)
-    target = (grid + randn(N_BA, H8, W8, 2, scale=1.5)).contiguous()
-    weight = torch.rand(N_BA, H8, W8, 2, generator=gen, device=dev)
-    args = (target, weight, poses, disps, intr, ii, jj)
-    out = cuda_ba.ba_system_blocks(*args)
-    ref = cuda_ba.build_system_blocks(*args)
-    torch.cuda.synchronize()
-    err1, ok1 = 0.0, True
-    for k in ref:
-        d = float((out[k] - ref[k]).abs().max())
-        err1 = max(err1, d)
-        ok1 &= d <= 2e-4 * max(1.0, float(ref[k].abs().max()))
-    say("kernels", f"K1 ba_blocks N={N_BA}: max_abs_err {err1:.3e} "
-                   f"(tol 2e-4*max(1,|ref|) per output)")
-    if not ok1:
-        fail("K1 disagrees with its plain version")
-    kin = cuda_ba.edge_inputs(poses, intr, ii, jj)
-    ms1 = cuda_ms(torch, lambda: cuda_ba.launch(target, weight, *kin, disps), 50)
+    # ---- K1 at N = 64 edges over a 24-frame window, at 1 edge, and with
+    # stereo self-edges (ii == jj), whose relative pose the kernel overrides
+    args = k1_problem(torch, gen, N_BA, MW_BA)
+    err1 = hold_k1(torch, args, f"N={N_BA} over {MW_BA} frames")
+    err1 = max(err1, hold_k1(torch, k1_problem(torch, gen, 1, MW_BA), "N=1"))
+    err1 = max(err1, hold_k1(torch, k1_problem(torch, gen, N_BA, MW_BA, self_edges=16),
+                             f"N={N_BA} with 16 stereo self-edges"))
+    out1 = cuda_ba.outputs(N_BA, H8, W8, dev)
+    ms1 = cuda_ms(torch, lambda: cuda_ba.launch(out1, *args), 50)
     wrapper_ms1 = cuda_ms(torch, lambda: cuda_ba.ba_system_blocks(*args), 50)
     call_ms1 = cuda_ms(torch, lambda: cuda_ba.ba_system_blocks(*args), 50, device_only=False)
     plain_ms1 = cuda_ms(torch, lambda: cuda_ba.build_system_blocks(*args), 10)
-    HW = H8 * W8
-    # reads target, weight, disps and gij once; writes H, v, E, C and w once
-    bound1 = bound(N_BA * HW * K1_OPS_PER_PIXEL,
-                   (N_BA * HW * 4 + MW_BA * HW + N_BA * 12
-                    + N_BA * (144 + 12) + N_BA * 12 * HW + N_BA * HW * 2) * 4)
+    bound1 = k1_bound(N_BA, MW_BA)
     rows["ba_blocks"] = dict(max_abs_err=err1, ms=ms1, plain_ms=plain_ms1, library_ms=None,
-                             bound_ms=bound1[0], bound_by=bound1[1])
-    say("kernels", f"K1 {ms1:.4f} ms launch alone, {wrapper_ms1:.4f} ms with the wrapper's "
-                   f"Gij on the device, {call_ms1:.4f} ms per call as the host sees it "
-                   f"(plain {plain_ms1:.4f}, bound {bound1[0]:.4f} by {bound1[1]})")
+                             bound_ms=bound1[0], bound_by=bound1[1], call_ms=wrapper_ms1,
+                             host_ms=call_ms1)
+    say("kernels", f"K1 {ms1:.4f} ms the launch alone, {wrapper_ms1:.4f} ms the call's device "
+                   f"time, {call_ms1:.4f} ms per call on the host clock (plain {plain_ms1:.4f}, "
+                   f"bound {bound1[0]:.4f} by {bound1[1]})")
     return rows
+
+
+def k1_bound(N, MW):
+    """K1's least time at N edges over MW frames at 40x64: reads target,
+    weight, disps, poses, ii/jj (int64) and the intrinsics once; writes H,
+    v, E, C and w once."""
+    HW = H8 * W8
+    return bound(N * HW * K1_OPS_PER_PIXEL + N * K1_OPS_PER_EDGE,
+                 (N * HW * 4 + MW * HW + MW * 7 + 4 * N + 4
+                  + N * (144 + 12) + N * 12 * HW + N * HW * 2) * 4)
+
+
+def phase_k1_backend(torch, n_edges, MW):
+    """K1 at the backend's largest graph of the main path (n_edges padded to
+    the engine's edge bucket, over MW frames), against its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    hold_k1(torch, k1_problem(torch, gen, n_edges, MW, self_edges=0),
+            f"N={n_edges} over {MW} frames, the main path's largest backend graph")
 
 
 def phase_drift(torch, ops):
@@ -894,7 +975,7 @@ def phase_profile_frontend(torch, ops):
 
 
 KERNEL_GROUPS = (      # substrings of device kernel names -> group, first match wins
-    ("port K2 corr_build", ("corr_volume_kernel", "pool2x_kernel")),
+    ("port K2 corr_build", ("corr_build_kernel",)),
     ("port K3 corr_lookup", ("corr_lookup_kernel",)),
     ("port K4 corr_build_windows", ("windows_build_kernel",)),
     ("port K5 corr_lookup_windows", ("windows_lookup_kernel",)),
@@ -1016,6 +1097,9 @@ def main():
     if profiling:
         tracked += phase_profile(torch, droid, frames[N_MAIN:], float(N_MAIN))
     counts_term = phase_terminate(torch, ops, droid, tracked, profiling)
+    bucket = droid.cfg.edge_bucket
+    n_back = max(r["edges"] for r in droid.backend.fn.runs)
+    phase_k1_backend(torch, -(-n_back // bucket) * bucket, droid.video.counter)
     del droid
     counts_prof = phase_profile_frontend(torch, ops)
 
@@ -1055,8 +1139,13 @@ def main():
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "ops_route": r.get("ops_route", "fp32"),
-                        # the lookups' times under a smooth 4-px pan (the others: random coords)
-                        **{k: r[k] for k in ("ms_pan4", "library_ms_pan4") if k in r}})
+                        # the lookups' times under a smooth 4-px pan (the others: random
+                        # coords); K1's call as a whole, on the device and on the host clock
+                        **{k: r[k] for k in ("ms_pan4", "library_ms_pan4", "call_ms", "host_ms")
+                           if k in r}})
+        if name == "corr_build":     # K2 also at E=1 (motion filter) and EB=64 (backend)
+            kernels[-1].update({f"{k}_e1": v for k, v in rows["corr_build_e1"].items()})
+            kernels[-1].update({f"{k}_eb64": v for k, v in rows["corr_build_eb64"].items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from ..lie import se3_inv
-from ..models import DroidNet, init_params
+from ..models import DroidNet, init_params, load_weights
 from .backend import Backend
 from .frontend import Frontend
 from .motion_filter import MotionFilter
@@ -38,8 +38,7 @@ class Droid:
         self.cfg = config
         self.device = resolve_device(device)
         if params is None:
-            params = (torch.load(config.weights, map_location="cpu", weights_only=True)
-                      if config.weights else init_params(seed=0))
+            params = load_weights(config.weights) if config.weights else init_params(seed=0)
         self.net = DroidNet()
         self.net.load_state_dict(params)
         self.net.to(self.device).eval().requires_grad_(False)

@@ -41,6 +41,9 @@ class Frontend:
         # initialise the next frame's pose and disparity by copy (reference :71-72)
         v.poses[self.t1] = v.poses[self.t1 - 1]
         v.disps[self.t1] = v.disps[self.t1 - 1].mean()
+        # the keyframes this update moved; the edge list lives on the host
+        if len(g.ii) > 0:
+            v.dirty[int(g.ii.min()):self.t1] = True
 
     def _initialize(self):
         """Bootstrap the map (reference :77-110)."""
@@ -56,6 +59,7 @@ class Frontend:
         v.poses[self.t1] = v.poses[self.t1 - 1]
         v.disps[self.t1] = v.disps[self.t1 - 4: self.t1].mean()
         self.is_initialized = True
+        v.dirty[:self.t1] = True
         g.rm_factors(g.ii < cfg.warmup - 4, store=True)
 
     def __call__(self):

@@ -1,5 +1,5 @@
 """Networks of the port as nn.Modules, with upstream parameter names."""
-from .convert import params_from_jax
+from .convert import load_weights, params_from_jax, state_dict_from_torch
 from .droidnet import IMAGE_MEAN, IMAGE_STD, DroidNet, init_params
 from .extractor import BasicEncoder
 from .gru import ConvGRU

@@ -36,6 +36,7 @@ _SIGNATURES = {
     "corr_extract_windows_launch": [_P] * 5 + [_I] * 4 + [_P] * 3,
     "corr_windows_build_levels_launch": [_P] * 3 + [_I] * 5 + [_P] * 7,
     "corr_windows_build_info": [_I, _I, _P],
+    "corr_build_info": [_P],
 }
 
 

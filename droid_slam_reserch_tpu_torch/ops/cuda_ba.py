@@ -61,62 +61,71 @@ def build_system_blocks(*args, **kw):
 build_system_blocks.calls = 0
 
 
-def edge_inputs(poses, intrinsics, ii, jj):
-    """The kernel's per-edge inputs: gij [N, 12] (row-major R of Gij, then
-    its t), int32 ii/jj and float32 intrinsics, all on the poses' device."""
-    N, dev = ii.shape[0], poses.device
+def edge_inputs(poses, ii, jj):
+    """What the kernel forms itself from the poses and ii/jj, in plain
+    PyTorch: gij [N, 12] (row-major R of Gij = poses[jj] * poses[ii]^-1, then
+    its t), with the stereo self-edge override.  The CPU tests hold the
+    kernel's arithmetic against it."""
+    N = ii.shape[0]
     Gij = relative_poses(poses[None], ii, jj)[0]
-    gij = torch.cat([quat_to_matrix(Gij[:, 3:7]).reshape(N, 9), Gij[:, :3]], 1).float().contiguous()
-    return (gij, ii.to(device=dev, dtype=torch.int32).contiguous(),
-            jj.to(device=dev, dtype=torch.int32).contiguous(),
-            intrinsics.to(device=dev, dtype=torch.float32).contiguous())
+    return torch.cat([quat_to_matrix(Gij[:, 3:7]).reshape(N, 9), Gij[:, :3]], 1)
 
 
-def launch(target, weight, gij, ii32, jj32, intr, disps, min_depth=0.25, w_scale=0.001):
-    """One launch of csrc/ba_blocks.cu on inputs the wrapper has checked.
-    Returns H [N, 12, 12], v [N, 12], E [N, 12, HW], C [N, HW], w [N, HW]."""
+def outputs(N, H, W, device):
+    """K1's outputs, carved from one allocation: H [N, 12, 12], v [N, 12],
+    E [N, 12, HW], C [N, HW], w [N, HW]."""
+    HW = H * W
+    sizes = (144, 12, 12 * HW, HW, HW)
+    buf = torch.empty(N * sum(sizes), device=device)
+    parts = buf.split([N * n for n in sizes])
+    return (parts[0].view(N, 12, 12), parts[1].view(N, 12), parts[2].view(N, 12, HW),
+            parts[3].view(N, HW), parts[4].view(N, HW))
+
+
+def launch(out, target, weight, poses, disps, intrinsics, ii, jj, min_depth=0.25,
+           w_scale=0.001):
+    """One launch of csrc/ba_blocks.cu into ``out`` (from ``outputs``), on
+    inputs the wrapper has checked."""
     N, H, W, _ = target.shape
-    dev, HW = target.device, H * W
-    Hb = torch.empty(N, 12, 12, device=dev)
-    vb = torch.empty(N, 12, device=dev)
-    Eb = torch.empty(N, 12, HW, device=dev)
-    Cb = torch.empty(N, HW, device=dev)
-    wb = torch.empty(N, HW, device=dev)
     lib = build.library()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(target.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ba_blocks_launch(
-            target.data_ptr(), weight.data_ptr(), gij.data_ptr(), disps.data_ptr(),
-            ii32.data_ptr(), jj32.data_ptr(), intr.data_ptr(), float(min_depth),
-            float(w_scale), N, H, W, Hb.data_ptr(), vb.data_ptr(), Eb.data_ptr(),
-            Cb.data_ptr(), wb.data_ptr(), stream)
+            target.data_ptr(), weight.data_ptr(), poses.data_ptr(), disps.data_ptr(),
+            ii.data_ptr(), jj.data_ptr(), intrinsics.data_ptr(), float(min_depth),
+            float(w_scale), N, H, W, *[o.data_ptr() for o in out], stream)
     build.check(err, "ba_system_blocks")
-    return Hb, vb, Eb, Cb, wb
+    return out
 
 
 def ba_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
                      min_depth=0.25, w_scale=0.001):
-    """Per-edge GN blocks (K1); arguments and result as build_system_blocks."""
+    """Per-edge GN blocks (K1); arguments and result as build_system_blocks.
+    On the card: float32 tensors, ii/jj int64, all contiguous on one device."""
     if target.device.type == "cpu":
         return build_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
                                    min_depth=min_depth, w_scale=w_scale)
     dev = target.device
-    for name, x in (("target", target), ("weight", weight), ("disps", disps)):
-        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"ba_system_blocks: {name} must be contiguous float32 on {dev}")
+    for name, x, dtype in (("target", target, torch.float32), ("weight", weight, torch.float32),
+                           ("poses", poses, torch.float32), ("disps", disps, torch.float32),
+                           ("intrinsics", intrinsics, torch.float32), ("ii", ii, torch.int64),
+                           ("jj", jj, torch.int64)):
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"ba_system_blocks: {name} must be contiguous {dtype} on {dev}, "
+                             f"got {x.dtype} on {x.device}")
     N, H, W, two = target.shape
     if (two != 2 or tuple(weight.shape) != (N, H, W, 2) or tuple(disps.shape[1:]) != (H, W)
-            or tuple(poses.shape) != (disps.shape[0], 7) or poses.device != dev):
+            or tuple(poses.shape) != (disps.shape[0], 7) or intrinsics.numel() != 4):
         raise ValueError(f"ba_system_blocks: target {tuple(target.shape)}, weight "
-                         f"{tuple(weight.shape)}, poses {tuple(poses.shape)} on {poses.device}, "
-                         f"disps {tuple(disps.shape)}")
+                         f"{tuple(weight.shape)}, poses {tuple(poses.shape)}, disps "
+                         f"{tuple(disps.shape)}, intrinsics {tuple(intrinsics.shape)}")
     if target.data_ptr() % 8 or weight.data_ptr() % 8:
         raise ValueError("ba_system_blocks: target/weight must be 8-byte aligned")
     if ii.shape != (N,) or jj.shape != (N,):
         raise ValueError(f"ba_system_blocks: ii {tuple(ii.shape)}, jj {tuple(jj.shape)}")
 
-    Hb, vb, Eb, Cb, wb = launch(target, weight, *edge_inputs(poses, intrinsics, ii, jj),
-                                disps, min_depth, w_scale)
+    Hb, vb, Eb, Cb, wb = launch(outputs(N, H, W, dev), target, weight, poses, disps,
+                                intrinsics, ii, jj, min_depth, w_scale)
     ba_system_blocks.launches += 1
     return {
         "Hii": Hb[:, :6, :6], "Hij": Hb[:, :6, 6:], "Hji": Hb[:, 6:, :6], "Hjj": Hb[:, 6:, 6:],

@@ -1,6 +1,8 @@
 """Correlation kernels and their plain PyTorch versions:
 
-- K2 ``corr_build``          all-pairs volume and its 4-level pyramid
+- K2 ``corr_build``          all-pairs volume and its 4-level pyramid, tile
+                             by tile (the product as 3xTF32 wgmma on the
+                             tensor cores), every level written once
                              (csrc/corr_build.cu; JAX corr_build_pmajor_pallas)
 - K3 ``corr_lookup``         radius-3 lookup in that pyramid
                              (csrc/corr_lookup.cu; JAX corr_lookup_blocked_pallas)
@@ -117,6 +119,9 @@ def corr_build(f1, f2):
     _, H2, W2, C2 = f2.shape
     if f2.shape[0] != E or C2 != C:
         raise ValueError(f"corr_build: f1 {tuple(f1.shape)} vs f2 {tuple(f2.shape)}")
+    if C % 4 or f1.data_ptr() % 16 or f2.data_ptr() % 16:
+        raise ValueError(f"corr_build: the kernel's tensor maps need C % 4 == 0 and 16-byte "
+                         f"aligned features, got C={C}")
     P = H1 * W1
     levels = [torch.empty(E, P, H2 >> l, W2 >> l, device=f1.device)
               for l in range(NUM_LEVELS)]

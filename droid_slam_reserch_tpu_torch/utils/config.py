@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 @dataclasses.dataclass
 class DroidConfig:
     # model
-    weights: Optional[str] = None          # path to a state_dict of the port
+    weights: Optional[str] = None          # droid.pth-style checkpoint, or .npz of JAX params
     vis_path: str = ""
     image_size: Tuple[int, int] = (240, 320)
     buffer: int = 512                      # keyframe ring buffer capacity

@@ -7,6 +7,8 @@ params_from_jax.  The JAX engine runs its CPU ``flat`` correlation, which
 computes the same function as the port's windowed path (K4/K5 with the K2+K3
 fallback).  Tolerances:
 - keyframe counts and edge lists: identical after every frame;
+- Video.dirty: identical after every frame (cleared after each, as a viewer
+  does);
 - poses after every frame: 1e-3 (random weights make the update operator's
   output sensitive to float32 summation order, and 10 frames of BA
   compound it; the single-call tests below hold 1e-4);
@@ -62,13 +64,17 @@ def runs():
         img = synth_frame(t, rng)
         jd.track(float(t), img, intrinsics=INTR)
         td.track(float(t), img, intrinsics=INTR)
-        hist.append((_snapshot(jd), _snapshot(td)))
+        # each frame's dirty flags, then cleared as a viewer that drew them would
+        dirty = (jd.video.dirty.copy(), td.video.dirty.copy(), jd.frontend.is_initialized)
+        jd.video.dirty[:] = False
+        td.video.dirty[:] = False
+        hist.append((_snapshot(jd), _snapshot(td), dirty))
     return jd, td, hist
 
 
 def test_keyframes_and_edges_every_frame(runs):
     _, _, hist = runs
-    for (tj, iij, jjj, _), (tt, iit, jjt, _) in hist:
+    for (tj, iij, jjj, _), (tt, iit, jjt, _), _ in hist:
         assert tj == tt
         np.testing.assert_array_equal(iit, iij)
         np.testing.assert_array_equal(jjt, jjj)
@@ -77,8 +83,20 @@ def test_keyframes_and_edges_every_frame(runs):
 
 def test_poses_every_frame(runs):
     _, _, hist = runs
-    for (_, _, _, pj), (_, _, _, pt) in hist:
+    for (_, _, _, pj), (_, _, _, pt), _ in hist:
         np.testing.assert_allclose(pt, pj, atol=1e-3)
+
+
+def test_dirty_flags_every_frame(runs):
+    """Video.dirty, flag for flag, after each frame (cleared in between):
+    the appended slot, all of [:t1] at initialisation, and [ii.min(), t1)
+    after every later keyframe update."""
+    _, _, hist = runs
+    marked_by_frontend = 0
+    for k, (_, _, (dj, dt, initialised)) in enumerate(hist):
+        np.testing.assert_array_equal(dt, dj, err_msg=f"frame {k}")
+        marked_by_frontend += initialised and int(dj.sum()) > 1
+    assert marked_by_frontend >= 2       # initialisation and at least one later update
 
 
 def _copy_state(jd, td):
