@@ -22,33 +22,42 @@ Phases (one line each; any failure exits nonzero):
            where one PyTorch call computes the same function, that call
            (torch.bmm for the builds, F.grid_sample bilinear for the lookups,
            F.grid_sample nearest for K7's window extraction);
+   kernels-bf16  the same for the bf16 instantiations of K2 (bf16 levels and
+           fp32 levels), K3, K4 and K5, with their ptxas reports, at E = 48,
+           E = 1, K2 also at EB = 64 and on the 48x120 map, all also at 30x44,
+           K4/K5 also at 60x80; the yardsticks take bf16 (torch.bmm of the
+           bf16 volume, F.grid_sample on bf16 levels);
 3. drift   the frontend's windowed lookup with coords that leave the cached
-           windows: the fallback (K2 once, K3) is taken, counted and exact;
+           windows, in fp32 and in bf16: the fallback (K2 once, K3) is taken,
+           counted and equal to the plain full lookup;
 4. card vs CPU  the oracle frontend and backend gates on the card (ATE <
            0.01), and the port's Droid.track + terminate_eva at 64x96 on the
-           card against the same run with device="cpu";
-5. main path    Droid.track with EUROC_CONFIG (mono, 320x512, fp32, full
-           network widths, seeded random weights) over synthetic frames, then
+           card against the same run with device="cpu", in fp32 and in bf16;
+5. main path    Droid.track with EUROC_CONFIG (mono, 320x512, full network
+           widths, seeded random weights) over synthetic frames, then
            Droid.terminate_eva over the same frames (backend 7 + 12 steps,
-           trajectory filler); before each of the two, every kernel's launch
-           count and every plain version's call count is set to 0, and read
-           just after; then K1 held at the largest edge count of the
-           backend's graphs in that run;
+           trajectory filler), in fp32 and then with compute_dtype="bfloat16";
+           before each of the four, every kernel's launch count and every
+           plain version's call count is set to 0, and read just after; then
+           K1 held at the largest edge count of the fp32 backend's graphs;
 6. profile-frontend  the frontend profiler (tools/profile_frontend.py) at
-           bench.py's shape, E = 48 edges over a 24-frame window at 40x64:
-           every section on the card, with the counts set to 0 before and
-           read after; every kernel must launch and no plain version run.
+           bench.py's shape, E = 48 edges over a 24-frame window at 40x64,
+           in fp32 and in bf16: every section on the card, with the counts
+           set to 0 before and read after; every kernel of the dtype must
+           launch and no plain version run.
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as its last line the device JSON.  The script needs only
 torch, numpy and scipy, and the CUDA toolkit for nvcc.
 
     python3 chip_smoke.py --profile
 
-adds a phase between tracking and terminate_eva: 12 more keyframes, half of
-them timed per stage on the host clock and half under torch.profiler, with
-the device kernel time grouped and the device's idle share printed, and
-runs terminate_eva under torch.profiler too; the full tables go to
-chiprun_out/profile_main_path.txt and chiprun_out/profile_terminate.txt.
+adds a phase between tracking and terminate_eva, in each dtype: 12 more
+keyframes, half of them timed per stage on the host clock and half under
+torch.profiler, with the device kernel time and launches grouped (cuDNN's
+layout transposes apart) and the device's idle share printed, and runs
+terminate_eva under torch.profiler too; the full tables go to
+chiprun_out/profile_main_path.txt and profile_terminate.txt (bf16:
+profile_main_path_bf16.txt and profile_terminate_bf16.txt).
 """
 import ctypes
 import json
@@ -63,9 +72,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense TF32 in the tensor cores, and HBM3 bandwidth.
+# cores, dense TF32 and bf16 in the tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 # main-path shapes: EuRoC 320x512 -> 40x64 feature maps, 48 active edges
@@ -162,8 +172,9 @@ def bound(ops, nbytes, tf32x3=0.0):
 def ptxas_report(log, kernels):
     """Registers, spills and static shared memory of each `kernels` entry
     (substrings of the mangled name) in an `nvcc -Xptxas -v` log, with the
-    template's pixel tile and, for K8's instantiation of K4's template, the
-    word levels."""
+    template's pixel tile, for K8's instantiation of K4's template the word
+    levels, and for a bf16 instantiation "bf16" (K2's with fp32 levels:
+    "bf16 -> fp32")."""
     import re
 
     out, name = [], None
@@ -174,6 +185,10 @@ def ptxas_report(log, kernels):
             args = re.search(r"ILi(\d+)E(?:Lb([01])E)?", m.group(1))
             if name and args:
                 name += f"<{args.group(1)} pixels{', levels' if args.group(2) == '1' else ''}>"
+            if name and "ILb1EfE" in m.group(1):        # K2 on bf16 features, fp32 levels
+                name += " bf16 -> fp32"
+            elif name and "__nv_bfloat16" in m.group(1):
+                name += " bf16"
         elif name and ("registers" in line or "spill" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -438,7 +453,8 @@ def phase_kernels(torch):
                              ("corr_build_kernel", "ba_blocks_kernel", "windows_build_kernel",
                               "windows_lookup_kernel", "corr_lookup_kernel",
                               "pmajor_lookup_kernel")):
-        say("kernels", f"ptxas: {line}")
+        if "bf16" not in line:
+            say("kernels", f"ptxas: {line}")
     info2 = (ctypes.c_int * 2)()
     build.library().corr_build_info(info2)
     say("kernels", f"K2: {info2[0]} bytes of dynamic shared memory a block, {info2[1]} "
@@ -702,6 +718,271 @@ def phase_kernels(torch):
     return rows
 
 
+# One bf16 rounding step of a value v is at most 2**-7 |v| (8 significant
+# bits): a tolerance of BF16 * M allows one step at the largest magnitude M.
+BF16 = 2.0 ** -7
+
+
+def bound_bf16(ops, nbytes, products=0.0):
+    """Least time in ms for `ops` fp32 operations outside the tensor cores,
+    `products` operations on the bf16 tensor cores, and `nbytes` moved; and
+    which of the two, operations or bytes, sets it."""
+    t_ops = ops / PEAK_FP32 + products / PEAK_BF16
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def hold_build_bf16(torch, f1, f2, out_dtype):
+    """K2 on bf16 (f1, f2) with `out_dtype` levels against its plain version.
+    Tolerance: fp32 levels 1e-5 * max(1, |level0|) (exact bf16 products,
+    fp32 sums in another order); bf16 levels one rounding step of the
+    largest level-0 magnitude, BF16 * |level0| (the two sums may round to
+    neighbouring bf16 values, and a pooled cell inherits that).  Returns the
+    levels and the error."""
+    from droid_slam_reserch_tpu_torch.ops import cuda_corr
+
+    E, H2, W2 = f2.shape[:3]
+    levels = cuda_corr.corr_build(f1, f2, out_dtype)
+    plain = cuda_corr.corr_build_plain(f1, f2, out_dtype)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+              for a, b in zip(levels, plain))
+    scale = float(plain[0].float().abs().max())
+    tol = 1e-5 * max(1.0, scale) if out_dtype == torch.float32 else BF16 * scale
+    what = "bf16 -> fp32" if out_dtype == torch.float32 else "bf16 -> bf16"
+    say("kernels-bf16", f"K2 corr_build {what} E={E} {H2}x{W2}: max_abs_err {err:.3e} "
+                        f"(tol {tol:.1e}, |level0| max {scale:.3f})")
+    if not (err <= tol and all(v.dtype == out_dtype for v in levels)):
+        fail(f"K2 {what} disagrees with its plain version at E={E} {H2}x{W2}")
+    return levels, err
+
+
+def hold_lookup_bf16(torch, levels, coords, at):
+    """K3 on bf16 levels against its plain version: the same fp32 arithmetic
+    rounded once, so the tolerance is one rounding step, BF16 * |ref|."""
+    from droid_slam_reserch_tpu_torch.ops import cuda_corr
+
+    out = cuda_corr.corr_lookup(levels, coords)
+    ref = cuda_corr.corr_lookup_plain(levels, coords)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    tol = BF16 * float(ref.float().abs().max())
+    say("kernels-bf16", f"K3 corr_lookup bf16 {at}: max_abs_err {err:.3e} (tol {tol:.1e})")
+    if not (err <= tol and out.dtype == torch.bfloat16):
+        fail(f"K3 bf16 disagrees with its plain version at {at}")
+    return out, err
+
+
+def hold_windows_bf16(torch, f1, f2, levels, gen):
+    """K4 and K5 on bf16 (f1, f2) against their plain versions (windows:
+    BF16 * |wins|, as K2's levels; K5: one rounding step of its output),
+    and K5(K4) against K3(K2) on K2's bf16 `levels` where the drift rule
+    holds (2 * BF16 * |ref|: windows and levels are rounded from sums taken
+    in other orders).  Returns c0, c1, windows, bases, K5's lookup and errors."""
+    from droid_slam_reserch_tpu_torch.geom import coords_grid
+    from droid_slam_reserch_tpu_torch.ops import cuda_corr
+    from droid_slam_reserch_tpu_torch.ops.corr import level_sizes, window_drift_ok
+
+    dev = f1.device
+    E, H1, W1 = f1.shape[:3]
+    H2, W2 = f2.shape[1:3]
+    P = H1 * W1
+    at = f"E={E} {H2}x{W2}"
+    grid = coords_grid(H1, W1, device=dev).reshape(1, P, 2)
+    c0 = (grid + 2.0 * torch.randn(E, P, 2, generator=gen, device=dev)).contiguous()
+    c0[:, :64] += 50.0
+    wins, bases = cuda_corr.corr_build_windows(f1, f2, c0)
+    pwins, pbases = cuda_corr.corr_build_windows_plain(f1, f2, c0)
+    torch.cuda.synchronize()
+    same = bool((bases == pbases).all())
+    err4 = float((wins.float() - pwins.float()).abs().max())
+    tol4 = BF16 * float(pwins.float().abs().max())
+    say("kernels-bf16", f"K4 corr_build_windows bf16 {at}: bases equal {same}, windows "
+                        f"max_abs_err {err4:.3e} (tol {tol4:.1e})")
+    if not (same and err4 <= tol4 and wins.dtype == torch.bfloat16):
+        fail(f"K4 bf16 disagrees with its plain version at {at}")
+    del pwins, pbases
+    c1 = (c0 + 4.0 * torch.rand(E, P, 2, generator=gen, device=dev) - 2.0).contiguous()
+    if not bool(window_drift_ok(bases, c1, level_sizes(H2, W2))):
+        fail("a drift of at most 2 px left the cached windows")
+    out5 = cuda_corr.corr_lookup_windows(wins, bases, c1, (H2, W2))
+    ref5 = cuda_corr.corr_lookup_windows_plain(wins, bases, c1, (H2, W2))
+    full = cuda_corr.corr_lookup(levels, c1)
+    torch.cuda.synchronize()
+    err5 = float((out5.float() - ref5.float()).abs().max())
+    tol5 = BF16 * float(ref5.float().abs().max())
+    err53 = float((out5.float() - full.float()).abs().max())
+    tol53 = 2 * BF16 * float(full.float().abs().max())
+    say("kernels-bf16", f"K5 corr_lookup_windows bf16 {at}: max_abs_err {err5:.3e} (tol "
+                        f"{tol5:.1e}); K5(K4) against K3(K2) where the drift rule holds: "
+                        f"{err53:.3e} (tol {tol53:.1e})")
+    if not (err5 <= tol5 and err53 <= tol53 and out5.dtype == torch.bfloat16):
+        fail(f"K5 bf16 disagrees with its plain version or with K3 at {at}")
+    return c0, c1, wins, bases, out5, dict(err4=err4, err5=max(err5, err53))
+
+
+def phase_kernels_bf16(torch):
+    """The bf16 instantiations of K2 (bf16 and fp32 levels), K3, K4 and K5
+    against their plain bf16 versions, at the shapes of the bf16 path (E = 48
+    and E = 1 at 40x64, K2 also at the backend's EB = 64 and on the 48x120
+    map, all also at the ragged 30x44, K4/K5 also at 60x80), and timed beside
+    their plain versions and, as the library yardstick, torch.bmm of the bf16
+    volume (K2, K4) and F.grid_sample on the bf16 levels or windows (K3, K5;
+    its grid is bf16 too, as the call requires, so its positions are rounded
+    and its output is not held)."""
+    from droid_slam_reserch_tpu_torch.geom import coords_grid
+    from droid_slam_reserch_tpu_torch.ops import build, cuda_corr
+    from droid_slam_reserch_tpu_torch.ops.corr import level_sizes, pack_offsets, win_shape
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+
+    def randn16(*shape):
+        return (0.3 * torch.randn(*shape, generator=gen, device=dev)).to(bf16)
+
+    for line in ptxas_report(build.BUILD_LOG["ptxas"],
+                             ("corr_build_kernel", "windows_build_kernel",
+                              "windows_lookup_kernel", "corr_lookup_kernel")):
+        if "bf16" in line:
+            say("kernels-bf16", f"ptxas: {line}")
+
+    # ragged 30x44 and 60x80 (K4's column chunks), the 48x120 map, EB = 64
+    for Er, Hr, Wr in ((4, 30, 44), (2, 60, 80)):
+        fr1, fr2 = randn16(Er, Hr, Wr, C), randn16(Er, Hr, Wr, C)
+        hold_build_bf16(torch, fr1, fr2, f32)
+        lr, _ = hold_build_bf16(torch, fr1, fr2, bf16)
+        gridr = coords_grid(Hr, Wr, device=dev).reshape(1, Hr * Wr, 2)
+        for kind, cc in lookup_coords(torch, gridr, Er, gen).items():
+            hold_lookup_bf16(torch, lr, cc, f"E={Er} {Hr}x{Wr}, {kind} coords")
+        hold_windows_bf16(torch, fr1, fr2, lr, gen)
+        del fr1, fr2, lr
+    fw1, fw2 = randn16(2, 48, 120, C), randn16(2, 48, 120, C)
+    hold_build_bf16(torch, fw1, fw2, bf16)
+    hold_build_bf16(torch, fw1, fw2, f32)
+    del fw1, fw2
+    EB = 64
+    fb1, fb2 = randn16(EB, H8, W8, C), randn16(EB, H8, W8, C)
+    hold_build_bf16(torch, fb1, fb2, bf16)
+    _, errb = hold_build_bf16(torch, fb1, fb2, f32)
+    msb = cuda_ms(torch, lambda: cuda_corr.corr_build(fb1, fb2, f32), 10)
+    plain_msb = cuda_ms(torch, lambda: cuda_corr.corr_build_plain(fb1, fb2, f32), 2)
+    ab, bb = fb1.reshape(EB, H8 * W8, C), fb2.reshape(EB, H8 * W8, C).transpose(1, 2)
+    lib_msb = cuda_ms(torch, lambda: torch.bmm(ab, bb), 10)
+    del fb1, fb2, ab, bb
+
+    P = Q = H8 * W8
+    cells = sum((H8 >> l) * (W8 >> l) for l in range(4))
+    for E in (E_MAIN, 1):
+        f1, f2 = randn16(E, H8, W8, C), randn16(E, H8, W8, C)
+        reps = 10 if E == E_MAIN else 50
+        product = 2.0 * E * P * Q * C
+        a, b = f1.reshape(E, P, C), f2.reshape(E, Q, C).transpose(1, 2)
+        lib_ms2 = cuda_ms(torch, lambda: torch.bmm(a, b), reps)
+        for out_dtype, name in ((bf16, "corr_build_bf16"), (f32, "corr_build_bf16_f32")):
+            levels, err2 = hold_build_bf16(torch, f1, f2, out_dtype)
+            ms2 = cuda_ms(torch, lambda: cuda_corr.corr_build(f1, f2, out_dtype), reps)
+            plain_ms2 = cuda_ms(torch, lambda: cuda_corr.corr_build_plain(f1, f2, out_dtype),
+                                max(reps // 5, 2))
+            bound2 = bound_bf16(0, (f1.numel() + f2.numel()) * 2
+                                + E * P * cells * levels[0].element_size(), product)
+            say("kernels-bf16", f"E={E}: K2 {name} {ms2:.4f} ms (plain {plain_ms2:.4f}, "
+                                f"torch.bmm bf16 volume {lib_ms2:.4f}, bound {bound2[0]:.4f} by "
+                                f"{bound2[1]})")
+            row = dict(max_abs_err=err2, ms=ms2, plain_ms=plain_ms2, library_ms=lib_ms2,
+                       bound_ms=bound2[0], bound_by=bound2[1], ops_route="bf16")
+            if E == E_MAIN:
+                rows[name] = row
+            else:
+                rows[name + "_e1"] = row
+        del levels
+
+        # K3 over bf16 levels
+        levels, _ = hold_build_bf16(torch, f1, f2, bf16)
+        grid = coords_grid(H8, W8, device=dev).reshape(1, P, 2)
+        kinds = lookup_coords(torch, grid, E, gen)
+        err3 = max(hold_lookup_bf16(torch, levels, cc, f"E={E}, {kind} coords")[1]
+                   for kind, cc in kinds.items())
+        coords = kinds["random"]
+        ms3 = {k: cuda_ms(torch, lambda: cuda_corr.corr_lookup(levels, cc), 4 * reps)
+               for k, cc in kinds.items()}
+        plain_ms3 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_plain(levels, coords),
+                            max(reps // 5, 2))
+        lib_ms3 = {}
+        for kind, cc in kinds.items():
+            gs = [(v, g.to(bf16)) for v, g in grid_sample_inputs(torch, levels, cc)]
+            lib_ms3[kind] = cuda_ms(torch, lambda: grid_sample_lookup(torch, gs), 4 * reps)
+            del gs
+        need = 0
+        off = torch.arange(-3, 5, device=dev)
+        for l, v in enumerate(levels):
+            h, w = v.shape[-2:]
+            c = coords / 2 ** l
+            ys = torch.floor(c[..., 1:2]).long() + off
+            xs = torch.floor(c[..., 0:1]).long() + off
+            need += int((((ys >= 0) & (ys < h)).sum(-1) * ((xs >= 0) & (xs < w)).sum(-1)).sum())
+        bound3 = bound_bf16(E * P * 4 * (7 * 8 * 3 + 49 * 3),
+                            need * 2 + coords.numel() * 4 + E * P * 196 * 2)
+        say("kernels-bf16", f"E={E}: K3 corr_lookup_bf16 random coords {ms3['random']:.4f} ms, "
+                            f"pan4 {ms3['pan4']:.4f} ms (plain {plain_ms3:.4f}, F.grid_sample "
+                            f"x4 bf16 {lib_ms3['random']:.4f} / {lib_ms3['pan4']:.4f}, bound "
+                            f"{bound3[0]:.4f} by {bound3[1]})")
+        if E == E_MAIN:
+            rows["corr_lookup_bf16"] = dict(max_abs_err=err3, ms=ms3["random"],
+                                            plain_ms=plain_ms3, library_ms=lib_ms3["random"],
+                                            bound_ms=bound3[0], bound_by=bound3[1],
+                                            ms_pan4=ms3["pan4"],
+                                            library_ms_pan4=lib_ms3["pan4"])
+
+        # K4 and K5
+        c0, c1, wins, bases, out5, errs = hold_windows_bf16(torch, f1, f2, levels, gen)
+        ms4 = cuda_ms(torch, lambda: cuda_corr.corr_build_windows(f1, f2, c0), reps)
+        plain_ms4 = cuda_ms(torch, lambda: cuda_corr.corr_build_windows_plain(f1, f2, c0),
+                            max(reps // 5, 2))
+        pooled = sum(v.numel() for v in levels[1:])
+        bound4 = bound_bf16(4.0 * pooled, (f1.numel() + f2.numel() + wins.numel()) * 2
+                            + (c0.numel() + bases.numel()) * 4, product)
+        ms5 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_windows(wins, bases, c1, (H8, W8)),
+                      4 * reps)
+        plain_ms5 = cuda_ms(torch, lambda: cuda_corr.corr_lookup_windows_plain(
+            wins, bases, c1, (H8, W8)), max(reps // 5, 2))
+        bound5 = bound_bf16(E * P * 4 * (7 * 8 * 3 + 49 * 3),
+                            E * P * 4 * 64 * 2 + (bases.numel() + c1.numel()) * 4
+                            + out5.numel() * 2)
+        sizes = level_sizes(H8, W8)
+        offs = pack_offsets(sizes)[0]
+        views = [wins[:, :, o:o + win_shape(*hw)[0], :win_shape(*hw)[1]]
+                 for o, hw in zip(offs, sizes)]
+        gs5 = [(v, g.to(bf16)) for v, g in grid_sample_inputs(torch, views, c1, bases)]
+        lib_ms5 = cuda_ms(torch, lambda: grid_sample_lookup(torch, gs5), 4 * reps)
+        del gs5, views
+        say("kernels-bf16", f"E={E}: K4 corr_build_windows_bf16 {ms4:.4f} ms (plain "
+                            f"{plain_ms4:.4f}, torch.bmm bf16 volume {lib_ms2:.4f}, bound "
+                            f"{bound4[0]:.4f} by {bound4[1]}); K5 corr_lookup_windows_bf16 "
+                            f"{ms5:.4f} ms (plain {plain_ms5:.4f}, F.grid_sample x4 bf16 over "
+                            f"the windows {lib_ms5:.4f}, bound {bound5[0]:.4f} by {bound5[1]}); "
+                            f"one update_fused call of 6 rounds, correlation only: K4 + 6 x K5 "
+                            f"= {ms4 + 6 * ms5:.4f} ms")
+        if E == E_MAIN:
+            rows["corr_build_windows_bf16"] = dict(max_abs_err=errs["err4"], ms=ms4,
+                                                   plain_ms=plain_ms4, library_ms=lib_ms2,
+                                                   bound_ms=bound4[0], bound_by=bound4[1],
+                                                   ops_route="bf16")
+            rows["corr_lookup_windows_bf16"] = dict(max_abs_err=errs["err5"], ms=ms5,
+                                                    plain_ms=plain_ms5, library_ms=lib_ms5,
+                                                    bound_ms=bound5[0], bound_by=bound5[1])
+        del levels, wins, bases, out5, f1, f2, a, b
+    bound_b = bound_bf16(0, EB * P * 2 * C * 2 + EB * P * cells * 4, 2.0 * EB * P * Q * C)
+    say("kernels-bf16", f"E={EB}: K2 corr_build_bf16_f32 {msb:.4f} ms, the backend's call per "
+                        f"chunk (plain {plain_msb:.4f}, torch.bmm bf16 volume {lib_msb:.4f}, "
+                        f"bound {bound_b[0]:.4f} by {bound_b[1]})")
+    rows["corr_build_bf16_f32_eb64"] = dict(max_abs_err=errb, ms=msb, plain_ms=plain_msb,
+                                            library_ms=lib_msb, bound_ms=bound_b[0],
+                                            bound_by=bound_b[1])
+    return rows
+
+
 def k1_bound(N, MW):
     """K1's least time at N edges over MW frames at 40x64: reads target,
     weight, disps, poses, ii/jj (int64) and the intrinsics once; writes H,
@@ -720,20 +1001,25 @@ def phase_k1_backend(torch, n_edges, MW):
             f"N={n_edges} over {MW} frames, the main path's largest backend graph")
 
 
-def phase_drift(torch, ops):
+def phase_drift(torch, ops, dtype="float32"):
     """The frontend's per-call correlation (engine.factor_graph.WindowedLookup)
-    at the main path's shapes: a small drift reads the windows (K5), drifts
-    past the windows take the full lookup (K2 built once, K3 each time), and
-    every answer equals the plain full lookup."""
+    at the main path's shapes, in the compute dtype: a small drift reads the
+    windows (K5), drifts past the windows take the full lookup (K2 built
+    once, K3 each time), and every answer equals the plain full lookup (fp32:
+    within 1e-5; bf16: within two rounding steps, 2 * BF16, of the largest
+    magnitude, since windows and levels are rounded from sums taken in other
+    orders).  Returns the kernel counts of the run."""
     from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
     from droid_slam_reserch_tpu_torch.geom import coords_grid
     from droid_slam_reserch_tpu_torch.ops import cuda_corr
 
     dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    sfx = "" if dt == torch.float32 else "_bf16"
     gen = torch.Generator(device=dev).manual_seed(1)
     E, P = E_MAIN, H8 * W8
-    f1 = torch.randn(E, H8, W8, C, generator=gen, device=dev)
-    f2 = torch.randn(E, H8, W8, C, generator=gen, device=dev)
+    f1 = torch.randn(E, H8, W8, C, generator=gen, device=dev).to(dt)
+    f2 = torch.randn(E, H8, W8, C, generator=gen, device=dev).to(dt)
     c0 = (coords_grid(H8, W8, device=dev).reshape(1, P, 2)
           + torch.randn(E, P, 2, generator=gen, device=dev)).contiguous()
     ops.reset_counts()
@@ -746,44 +1032,67 @@ def phase_drift(torch, ops):
     levels = cuda_corr.corr_build_plain(f1, f2)
     err = 0.0
     for d, out in zip(drifts, outs):
-        ref = cuda_corr.corr_lookup_plain(levels, (c0 + d).contiguous())
-        err = max(err, float((out - ref).abs().max()) / max(1.0, float(ref.abs().max())))
-    say("drift", f"E={E}: drifts {drifts} px -> rounds {rounds}; launches K4 "
-                 f"{counts['corr_build_windows'][0]}, K5 {counts['corr_lookup_windows'][0]}, "
-                 f"K2 {counts['corr_build'][0]}, K3 {counts['corr_lookup'][0]}; max error "
-                 f"against the plain full lookup {err:.3e} relative (tol 1e-5)")
-    want = {"corr_build_windows": 1, "corr_lookup_windows": 1, "corr_build": 1, "corr_lookup": 2}
+        ref = cuda_corr.corr_lookup_plain(levels, (c0 + d).contiguous()).float()
+        err = max(err, float((out.float() - ref).abs().max()) / max(1.0, float(ref.abs().max())))
+    tol = 1e-5 if dt == torch.float32 else 2 * BF16
+    say("drift", f"{dtype} E={E}: drifts {drifts} px -> rounds {rounds}; launches K4 "
+                 f"{counts['corr_build_windows' + sfx][0]}, K5 "
+                 f"{counts['corr_lookup_windows' + sfx][0]}, K2 {counts['corr_build' + sfx][0]}, "
+                 f"K3 {counts['corr_lookup' + sfx][0]}; max error against the plain full lookup "
+                 f"{err:.3e} relative (tol {tol:.1e})")
+    want = {"corr_build_windows" + sfx: 1, "corr_lookup_windows" + sfx: 1, "corr_build" + sfx: 1,
+            "corr_lookup" + sfx: 2}
     if rounds != {"windowed": 1, "fallback": 2} or any(counts[k][0] != n for k, n in want.items()):
-        fail("the drift fallback was not taken as the rule says")
-    if not err <= 1e-5:
-        fail("the windowed lookup or its fallback is not exact")
+        fail(f"the drift fallback was not taken as the rule says ({dtype})")
+    if any(p for _, p in counts.values()) or any(
+            n for k, (n, _) in counts.items() if k not in want):
+        fail(f"the drift phase ran another kernel or a plain version: {counts}")
+    if not all(o.dtype == dt for o in outs) or not err <= tol:
+        fail(f"the windowed lookup or its fallback is not exact ({dtype})")
+    return counts
 
 
 FRONTEND_KERNELS = ("ba_blocks", "corr_build_windows", "corr_lookup_windows")
 BACKEND_KERNELS = ("ba_blocks", "corr_build", "corr_lookup")
 # the engine's; K6-K8 are on no engine path
 MAIN_KERNELS = tuple(dict.fromkeys(FRONTEND_KERNELS + BACKEND_KERNELS))
+# the engine's in bf16: K4/K5 in bf16 (frontend, filler), K2 on bf16 features
+# with fp32 levels and the fp32 K3 (motion filter, backend), K1
+FRONTEND_KERNELS_BF16 = ("ba_blocks", "corr_build_windows_bf16", "corr_lookup_windows_bf16")
+BACKEND_KERNELS_BF16 = ("ba_blocks", "corr_build_bf16_f32", "corr_lookup")
+MAIN_KERNELS_BF16 = tuple(dict.fromkeys(FRONTEND_KERNELS_BF16 + BACKEND_KERNELS_BF16))
 
 
-def phase_card_vs_cpu(torch, ops):
+def phase_card_vs_cpu(torch, ops, dtype="float32"):
+    """The oracle frontend and backend gates on the card, and the port's
+    Droid.track + terminate_eva at 64x96 on the card against the same run on
+    the CPU, in the compute dtype.  Tolerance on poses and the trajectory:
+    fp32 1e-3; bf16 2e-2: bf16 keeps 8 significant bits, and the card's
+    cuDNN and the CPU's convolutions round at other places (as the JAX
+    package and the port do on the CPU, where 8 frames differ by 2.6e-3 in
+    poses, tests/test_torch_bf16_engine.py), which terminate_eva's backend
+    and filler compound."""
     from droid_slam_reserch_tpu_torch.engine import Droid
     from droid_slam_reserch_tpu_torch.eval import oracle
     from droid_slam_reserch_tpu_torch.eval.metrics import ate_rmse
     from droid_slam_reserch_tpu_torch.models import init_params
     from droid_slam_reserch_tpu_torch.utils import DroidConfig
 
+    bf16 = dtype == "bfloat16"
+    front_k, back_k = ((FRONTEND_KERNELS_BF16, ("ba_blocks", "corr_build_bf16_f32", "corr_lookup"))
+                       if bf16 else (FRONTEND_KERNELS, BACKEND_KERNELS))
     ops.reset_counts()
     gt = oracle.gt_scene()
-    v, front = oracle.drive_frontend(gt, device="cuda")
+    v, front = oracle.drive_frontend(gt, device="cuda", compute_dtype=dtype)
     torch.cuda.synchronize()
     counts = ops.counts()
     err, _ = ate_rmse(oracle.cam_centers(v.poses[:oracle.T]), oracle.cam_centers(gt[0]),
                       align=True, correct_scale=True)
-    say("card-vs-cpu", f"oracle frontend gate on the card: ATE {err:.3e} (limit 1e-2), "
+    say("card-vs-cpu", f"{dtype} oracle frontend gate on the card: ATE {err:.3e} (limit 1e-2), "
                        f"keyframes {v.counter}, launches {counts}")
     if not (err < 0.01 and v.counter == oracle.T):
         fail("oracle frontend gate on the card")
-    if (any(counts[k][0] == 0 for k in FRONTEND_KERNELS)
+    if (any(counts[k][0] == 0 for k in front_k)
             or any(p != 0 for _, p in counts.values())):
         fail(f"oracle gate did not run through every kernel of the frontend: {counts}")
 
@@ -793,19 +1102,21 @@ def phase_card_vs_cpu(torch, ops):
     counts = ops.counts()
     err, _ = ate_rmse(oracle.cam_centers(v.poses[:oracle.T]), oracle.cam_centers(gt[0]),
                       align=True, correct_scale=True)
-    say("card-vs-cpu", f"oracle backend gate on the card (2 update_lowmem steps over "
+    say("card-vs-cpu", f"{dtype} oracle backend gate on the card (2 update_lowmem steps over "
                        f"{len(graph.ii)} edges): ATE {err:.3e} (limit 1e-2), launches {counts}")
     if not err < 0.01:
         fail("oracle backend gate on the card")
-    if (any(counts[k][0] == 0 for k in BACKEND_KERNELS)
+    if (any(counts[k][0] == 0 for k in back_k)
             or any(p != 0 for _, p in counts.values())):
         fail(f"oracle backend gate did not run through K1, K2 and K3: {counts}")
 
     params = init_params(seed=0)
     intr = np.array([60.0, 60.0, 48.0, 32.0], np.float32)
+    tol = 2e-2 if bf16 else 1e-3
     runs = {}
     for device in ("cuda", "cpu"):
-        d = Droid(small_config(DroidConfig), params=params, device=device)
+        d = Droid(small_config(DroidConfig).replace(compute_dtype=dtype), params=params,
+                  device=device)
         rng = np.random.RandomState(0)
         frames = [synth_small(t, rng) for t in range(10)]
         hist = []
@@ -820,14 +1131,15 @@ def phase_card_vs_cpu(torch, ops):
                      for a, b in zip(h_gpu, h_cpu))
     dp = float(np.abs(p_gpu - p_cpu).max()) if p_gpu.shape == p_cpu.shape else float("inf")
     dt = float(np.abs(tr_gpu - tr_cpu).max()) if tr_gpu.shape == tr_cpu.shape else float("inf")
-    say("card-vs-cpu", f"Droid.track 64x96, 10 frames: keyframes {h_gpu[-1][0]} vs "
+    say("card-vs-cpu", f"{dtype} Droid.track 64x96, 10 frames: keyframes {h_gpu[-1][0]} vs "
                        f"{h_cpu[-1][0]}, edges equal every frame: {same_graph}, "
-                       f"max |pose diff| {dp:.3e} (tol 1e-3); terminate_eva (backend 2 + 3 "
-                       f"steps, filler): trajectory {tr_gpu.shape}, max |diff| {dt:.3e} (tol 1e-3)")
-    if not (same_graph and dp <= 1e-3):
-        fail("the card run and the CPU run of Droid.track disagree")
-    if not (tr_gpu.shape == (10, 7) and np.isfinite(tr_gpu).all() and dt <= 1e-3):
-        fail("the card run and the CPU run of Droid.terminate_eva disagree")
+                       f"max |pose diff| {dp:.3e} (tol {tol:.0e}); terminate_eva (backend 2 + 3 "
+                       f"steps, filler): trajectory {tr_gpu.shape}, max |diff| {dt:.3e} "
+                       f"(tol {tol:.0e})")
+    if not (same_graph and dp <= tol):
+        fail(f"the card run and the CPU run of Droid.track disagree ({dtype})")
+    if not (tr_gpu.shape == (10, 7) and np.isfinite(tr_gpu).all() and dt <= tol):
+        fail(f"the card run and the CPU run of Droid.terminate_eva disagree ({dtype})")
 
 
 def check_counts(counts, what, kernels=MAIN_KERNELS):
@@ -837,14 +1149,15 @@ def check_counts(counts, what, kernels=MAIN_KERNELS):
             fail(f"{name}: {launches} kernel launches, {plain} plain calls on {what}")
 
 
-def phase_main_path(torch, ops, frames):
-    """Droid.track over EuRoC-size frames; returns the kernel counts, the
-    Droid and the tracked (tstamp, image) pairs."""
+def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS):
+    """Droid.track over EuRoC-size frames in the compute dtype; returns the
+    kernel counts, the Droid, the tracked (tstamp, image) pairs and the
+    frames/s after initialisation."""
     from droid_slam_reserch_tpu_torch.engine import Droid
     from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
     from droid_slam_reserch_tpu_torch.utils import EUROC_CONFIG
 
-    cfg = EUROC_CONFIG.replace(filter_thresh=-1.0, keyframe_thresh=0.0)
+    cfg = EUROC_CONFIG.replace(filter_thresh=-1.0, keyframe_thresh=0.0, compute_dtype=dtype)
     n_frames = len(frames)
     droid = Droid(cfg, device="cuda")
     torch.cuda.synchronize()
@@ -875,7 +1188,7 @@ def phase_main_path(torch, ops, frames):
     rounds = dict(fg.CORR_ROUNDS)
     steady_rounds = sum(rounds.values()) - sum(t_init[3].values())
     steady_kf = n_kf - t_init[2]
-    say("main-path", f"track: EUROC_CONFIG mono 320x512 fp32: {n_frames} frames, {n_kf} "
+    say("main-path", f"track: EUROC_CONFIG mono 320x512 {dtype}: {n_frames} frames, {n_kf} "
                      f"keyframes, {len(droid.frontend.graph.ii)} active edges; {fps_all:.2f} "
                      f"frames/s and {n_kf / (t1 - t0):.2f} keyframes/s overall, {fps_steady:.2f} "
                      f"frames/s after initialisation; peak memory "
@@ -887,8 +1200,10 @@ def phase_main_path(torch, ops, frames):
         fail("non-finite poses or disparities on the main path")
     if n_kf < cfg.warmup:
         fail(f"only {n_kf} keyframes (< warmup {cfg.warmup})")
-    check_counts(counts, "the main path's track")
-    return counts, droid, [(float(t), img) for t, img in enumerate(frames)]
+    if droid.video.fmaps.dtype != getattr(torch, dtype):
+        fail(f"the features are {droid.video.fmaps.dtype}, not {dtype}")
+    check_counts(counts, f"the main path's track ({dtype})", kernels)
+    return counts, droid, [(float(t), img) for t, img in enumerate(frames)], fps_steady
 
 
 class Timed:
@@ -910,11 +1225,12 @@ class Timed:
         return out
 
 
-def phase_terminate(torch, ops, droid, tracked, profiling=False):
+def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KERNELS):
     """Droid.terminate_eva over every tracked frame: the backend's two runs
     and the trajectory filler, timed apart on the host clock.  With
     profiling, the call runs under torch.profiler (whose overhead then
-    enters the host-clock times)."""
+    enters the host-clock times).  Returns the kernel counts and the call's
+    seconds."""
     from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
 
     n_kf = droid.video.counter
@@ -924,15 +1240,17 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False):
     stream = iter([(t, img, INTR_EUROC) for t, img in tracked])
     ops.reset_counts()
     fg.reset_corr_rounds()
+    tag = "" if droid.cfg.compute_dtype == "float32" else "_bf16"
     if profiling:
-        traj = profiled(torch, lambda: call(stream), "terminate_eva", 1, "call",
-                        "profile_terminate.txt")
+        traj = profiled(torch, lambda: call(stream), f"terminate_eva {droid.cfg.compute_dtype}",
+                        1, "call", f"profile_terminate{tag}.txt")
     else:
         traj = call(stream)
     counts = ops.counts()
     rounds = dict(fg.CORR_ROUNDS)
     runs = backend.fn.runs
-    say("main-path", f"terminate_eva: {call.seconds[0]:.2f} s: backend {backend.seconds[0]:.2f} s "
+    say("main-path", f"terminate_eva {droid.cfg.compute_dtype}: {call.seconds[0]:.2f} s: "
+                     f"backend {backend.seconds[0]:.2f} s "
                      f"({droid.cfg.backend_steps_first} steps, {runs[0]}) + "
                      f"{backend.seconds[1]:.2f} s ({droid.cfg.backend_steps_second} steps, "
                      f"{runs[1]}), filler {filler.seconds[0]:.2f} s over {len(tracked)} frames "
@@ -946,35 +1264,47 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False):
     if not (traj.shape == (len(tracked), 7) and np.isfinite(traj).all()
             and np.abs(q - 1.0).max() < 1e-3):
         fail("terminate_eva did not return a finite trajectory of unit quaternions")
-    check_counts(counts, "the main path's terminate_eva")
-    return counts
+    check_counts(counts, f"the main path's terminate_eva ({droid.cfg.compute_dtype})", kernels)
+    return counts, call.seconds[0]
 
 
-def phase_profile_frontend(torch, ops):
-    """tools/profile_frontend.py at bench.py's shape on the card; returns the
-    kernel counts of the run."""
+def phase_profile_frontend(torch, ops, dtype="float32"):
+    """tools/profile_frontend.py at bench.py's shape on the card, in the
+    compute dtype; returns the kernel counts of the run.  Its lookups are
+    held against the plain lookup: fp32 within 1e-5; bf16 K3 within one
+    rounding step and K5 (over K4's windows, against K2's levels) within
+    two, of the largest magnitude."""
     from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
     from droid_slam_reserch_tpu_torch.tools.profile_frontend import FULL, ROUNDS, profile
 
     ops.reset_counts()
     fg.reset_corr_rounds()
-    res = profile(**FULL, device="cuda", iters=10)
+    res = profile(**FULL, device="cuda", iters=10, dtype=dtype)
     torch.cuda.synchronize()
     counts, rounds = ops.counts(), dict(fg.CORR_ROUNDS)
     torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
-    say("profile-frontend", f"correlation rounds of fused_rounds {rounds}; counts (kernel "
-                            f"launches, plain calls): {counts}")
-    errs = {k: res[k] for k in ("k3_max_err", "k6_max_err", "k5_max_err")}
-    if not all(v <= 1e-5 for v in errs.values()):
-        fail(f"a lookup of the profiler disagrees with the plain one beyond 1e-5: {errs}")
+    say("profile-frontend", f"{dtype}: correlation rounds of fused_rounds {rounds}; counts "
+                            f"(kernel launches, plain calls): {counts}")
+    if dtype == "float32":
+        tols = dict(k3_max_err=1e-5, k6_max_err=1e-5, k5_max_err=1e-5)
+        kernels = tuple(k for k in counts if "bf16" not in k)
+    else:
+        m = res["lookup_ref_max"]
+        tols = dict(k3_max_err=BF16 * m, k5_max_err=2 * BF16 * m)
+        kernels = ("ba_blocks", "corr_build_bf16", "corr_lookup_bf16", "corr_build_windows_bf16",
+                   "corr_lookup_windows_bf16")
+    if not all(res[k] <= t for k, t in tols.items()):
+        fail(f"a lookup of the profiler disagrees with the plain one: "
+             f"{ {k: res[k] for k in tols} } against {tols}")
     if rounds["fallback"] or rounds["windowed"] % ROUNDS:
         fail(f"fused_rounds left the window cache in the profiler: {rounds}")
-    check_counts(counts, "the frontend profiler", kernels=tuple(counts))
+    check_counts(counts, f"the frontend profiler ({dtype})", kernels=kernels)
     return counts
 
 
 KERNEL_GROUPS = (      # substrings of device kernel names -> group, first match wins
+    ("layout transposes NCHW<->NHWC", ("nchwtonhwc", "nhwctonchw")),
     ("port K2 corr_build", ("corr_build_kernel",)),
     ("port K3 corr_lookup", ("corr_lookup_kernel",)),
     ("port K4 corr_build_windows", ("windows_build_kernel",)),
@@ -1008,16 +1338,19 @@ def profiled(torch, fn, what, per, unit, filename):
     busy_us = sum(us for us, _, _ in dev)
     if busy_us == 0:
         fail("torch.profiler recorded no device time")
-    groups = {}
-    for us, _, name in dev:
+    groups, launches = {}, {}
+    for us, n, name in dev:
         low = name.lower()
         g = next((g for g, keys in KERNEL_GROUPS if any(s in low for s in keys)), "other kernels")
         groups[g] = groups.get(g, 0.0) + us
+        launches[g] = launches.get(g, 0) + n
     say("profile", f"{what} under torch.profiler: wall {wall_us / 1e3 / per:.1f} ms per {unit}, "
                    f"device busy {busy_us / 1e3 / per:.1f} ms ({100 * busy_us / wall_us:.1f} %), "
                    f"idle {100 * (1 - busy_us / wall_us):.1f} %")
     say("profile", f"device time per {unit} by group: " + "; ".join(
         f"{g} {us / 1e3 / per:.2f} ms" for g, us in sorted(groups.items(), key=lambda x: -x[1])))
+    say("profile", f"launches in the run by group: " + "; ".join(
+        f"{g} {n}" for g, n in sorted(launches.items(), key=lambda x: -x[1])))
     path = os.path.join(OUT_DIR, filename)
     with open(path, "w") as f:
         f.write(f"{what}: wall {wall_us:.0f} us, device busy {busy_us:.0f} us\n\n")
@@ -1029,7 +1362,7 @@ def profiled(torch, fn, what, per, unit, filename):
     return out
 
 
-def phase_profile(torch, droid, frames, t_base, intr=INTR_EUROC):
+def phase_profile(torch, droid, frames, t_base, intr=INTR_EUROC, tag=""):
     """Where a steady-state keyframe's time goes, after the main path's track.
 
     The frames get timestamps from t_base on.  The first half of `frames`
@@ -1060,8 +1393,8 @@ def phase_profile(torch, droid, frames, t_base, intr=INTR_EUROC):
         for k, img in enumerate(rest):
             droid.track(t_base + half + k, img, intrinsics=intr)
 
-    profiled(torch, track_rest, f"{len(rest)} keyframes", len(rest), "keyframe",
-             "profile_main_path.txt")
+    profiled(torch, track_rest, f"{len(rest)} keyframes {droid.cfg.compute_dtype}", len(rest),
+             "keyframe", f"profile_main_path{tag}.txt")
     return [(t_base + k, img) for k, img in enumerate(frames)]
 
 
@@ -1084,57 +1417,71 @@ def main():
     build.build(ptxas_verbose=True)
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         f.write(build.BUILD_LOG["ptxas"])
-    say("build", f"nvcc sm_90a, {len(os.listdir(build.CSRC))} sources in parallel: "
+    n_src = sum(f.endswith(".cu") for f in os.listdir(build.CSRC))
+    say("build", f"nvcc sm_90a, {n_src} sources in parallel: "
                  f"{time.time() - t0:.1f} s ({build.LIB_PATH})")
     build.library()
 
     profiling = "--profile" in sys.argv[1:]
     rows = phase_kernels(torch)
-    phase_drift(torch, ops)
+    rows.update(phase_kernels_bf16(torch))
+    by_path = {"drift": phase_drift(torch, ops), "drift_bf16": phase_drift(torch, ops, "bfloat16")}
     phase_card_vs_cpu(torch, ops)
+    phase_card_vs_cpu(torch, ops, "bfloat16")
     frames = euroc_frames(N_MAIN + (12 if profiling else 0))
-    counts, droid, tracked = phase_main_path(torch, ops, frames[:N_MAIN])
-    if profiling:
-        tracked += phase_profile(torch, droid, frames[N_MAIN:], float(N_MAIN))
-    counts_term = phase_terminate(torch, ops, droid, tracked, profiling)
-    bucket = droid.cfg.edge_bucket
-    n_back = max(r["edges"] for r in droid.backend.fn.runs)
-    phase_k1_backend(torch, -(-n_back // bucket) * bucket, droid.video.counter)
-    del droid
-    counts_prof = phase_profile_frontend(torch, ops)
+    speed = {}
+    for dtype, kernels, sfx in (("float32", MAIN_KERNELS, ""),
+                                ("bfloat16", MAIN_KERNELS_BF16, "_bf16")):
+        counts, droid, tracked, fps = phase_main_path(torch, ops, frames[:N_MAIN], dtype, kernels)
+        if profiling:
+            tracked += phase_profile(torch, droid, frames[N_MAIN:], float(N_MAIN), tag=sfx)
+        counts_term, secs = phase_terminate(torch, ops, droid, tracked, profiling, kernels)
+        by_path["track" + sfx], by_path["terminate_eva" + sfx] = counts, counts_term
+        speed[dtype] = (fps, secs)
+        if dtype == "float32":
+            bucket = droid.cfg.edge_bucket
+            n_back = max(r["edges"] for r in droid.backend.fn.runs)
+            phase_k1_backend(torch, -(-n_back // bucket) * bucket, droid.video.counter)
+        del droid
+        torch.cuda.empty_cache()
+    say("main-path", f"bf16 against fp32 in this run: {speed['bfloat16'][0]:.2f} against "
+                     f"{speed['float32'][0]:.2f} frames/s after initialisation, terminate_eva "
+                     f"{speed['bfloat16'][1]:.2f} against {speed['float32'][1]:.2f} s")
+    by_path["profile_frontend"] = phase_profile_frontend(torch, ops)
+    by_path["profile_frontend_bf16"] = phase_profile_frontend(torch, ops, "bfloat16")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output",
           flush=True)
 
+    src, pallas = "droid_slam_reserch_tpu_torch/csrc/", "droid_slam_reserch_tpu/ops/pallas_corr.py:"
     meta = {
-        "ba_blocks": ("droid_slam_reserch_tpu_torch/csrc/ba_blocks.cu",
-                      "droid_slam_reserch_tpu/ops/pallas_ba.py:139"),
-        "corr_build": ("droid_slam_reserch_tpu_torch/csrc/corr_build.cu",
-                       "droid_slam_reserch_tpu/ops/pallas_corr.py:182"),
-        "corr_lookup": ("droid_slam_reserch_tpu_torch/csrc/corr_lookup.cu",
-                        "droid_slam_reserch_tpu/ops/pallas_corr.py:265"),
-        "corr_build_windows": ("droid_slam_reserch_tpu_torch/csrc/corr_windows_build.cu",
-                               "droid_slam_reserch_tpu/ops/pallas_corr.py:715"),
-        "corr_lookup_windows": ("droid_slam_reserch_tpu_torch/csrc/corr_windows_lookup.cu",
-                                "droid_slam_reserch_tpu/ops/pallas_corr.py:474"),
-        "corr_lookup_pmajor": ("droid_slam_reserch_tpu_torch/csrc/corr_pmajor_lookup.cu",
-                               "droid_slam_reserch_tpu/ops/pallas_corr.py:109"),
-        "corr_extract_windows": ("droid_slam_reserch_tpu_torch/csrc/corr_extract_windows.cu",
-                                 "droid_slam_reserch_tpu/ops/pallas_corr.py:391"),
-        "corr_build_windows_levels": ("droid_slam_reserch_tpu_torch/csrc/corr_windows_build.cu",
-                                      "droid_slam_reserch_tpu/ops/pallas_corr.py:604"),
+        "ba_blocks": (src + "ba_blocks.cu", "droid_slam_reserch_tpu/ops/pallas_ba.py:139"),
+        "corr_build": (src + "corr_build.cu", pallas + "182"),
+        "corr_lookup": (src + "corr_lookup.cu", pallas + "265"),
+        "corr_build_windows": (src + "corr_windows_build.cu", pallas + "715"),
+        "corr_lookup_windows": (src + "corr_windows_lookup.cu", pallas + "474"),
+        "corr_lookup_pmajor": (src + "corr_pmajor_lookup.cu", pallas + "109"),
+        "corr_extract_windows": (src + "corr_extract_windows.cu", pallas + "391"),
+        "corr_build_windows_levels": (src + "corr_windows_build.cu", pallas + "604"),
+        # the bf16 instantiations of K2 (bf16 and fp32 levels), K3, K4 and K5
+        "corr_build_bf16": (src + "corr_build.cu", pallas + "182"),
+        "corr_build_bf16_f32": (src + "corr_build.cu", pallas + "182"),
+        "corr_lookup_bf16": (src + "corr_lookup.cu", pallas + "265"),
+        "corr_build_windows_bf16": (src + "corr_windows_build.cu", pallas + "715"),
+        "corr_lookup_windows_bf16": (src + "corr_windows_lookup.cu", pallas + "474"),
     }
     kernels = []
-    for name, (src, replaces) in meta.items():
+    for name, (source, replaces) in meta.items():
         r = rows[name]
-        # the engine's main path (track, terminate_eva) and this slice's
-        # path, the frontend profiler: each path's count, and their sum
-        by_path = {"track": counts[name][0], "terminate_eva": counts_term[name][0],
-                   "profile_frontend": counts_prof[name][0]}
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        # each path's count (the engine's main path, track and terminate_eva,
+        # in fp32 and bf16; the frontend profiler; the drift phases), and their sum
+        paths = {path: c[name][0] for path, c in by_path.items()}
+        if sum(paths.values()) == 0:
+            fail(f"{name} was launched on no path")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": sum(paths.values()), "launches_by_path": paths,
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1143,9 +1490,10 @@ def main():
                         # coords); K1's call as a whole, on the device and on the host clock
                         **{k: r[k] for k in ("ms_pan4", "library_ms_pan4", "call_ms", "host_ms")
                            if k in r}})
-        if name == "corr_build":     # K2 also at E=1 (motion filter) and EB=64 (backend)
-            kernels[-1].update({f"{k}_e1": v for k, v in rows["corr_build_e1"].items()})
-            kernels[-1].update({f"{k}_eb64": v for k, v in rows["corr_build_eb64"].items()})
+        # K2 also at E=1 (motion filter) and EB=64 (backend)
+        for shape in ("e1", "eb64"):
+            if f"{name}_{shape}" in rows:
+                kernels[-1].update({f"{k}_{shape}": v for k, v in rows[f"{name}_{shape}"].items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

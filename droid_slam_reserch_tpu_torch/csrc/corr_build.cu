@@ -47,16 +47,33 @@
 // Shared memory: two stages of 96 KB (f1 and f2, each whole and split);
 // the epilogue's 36 KB of level 1 reuse them.  One block of 256 threads an
 // SM.
+//
+// bf16 features (the JAX package's bfloat16 path) are a second
+// instantiation of the same kernel.  bf16 needs no split: the product is
+// wgmma m64n256k16 bf16 with fp32 accumulators, one product where fp32
+// takes three, and a stage holds 64 channels (128 bytes a row, the same
+// swizzle), so C = 128 is two stages, both loaded at the start.  Its
+// epilogue writes fp32 levels (the motion filter's and the backend's
+// volume, computed from bf16 features) or bf16 levels (the frontend's
+// drift fallback).  In bf16 each level-0 cell is rounded once after the
+// scale, and each pooled cell is the fp32 mean of the rounded cells below
+// it, rounded once, as the plain version does; the stores carry 8, 8, 4
+// and 2 bytes.  At the main path's shapes the product is 0.081 ms at the
+// 989 TFLOP/s bf16 peak against 0.90 GB of bf16 levels, 0.27 ms at
+// 3.35 TB/s: bytes bound it, and fp32 levels double them.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtype_io.cuh"
 
 namespace {
 
 constexpr int kM = 128;                  // source pixels a block
 constexpr int kRows = 8, kCols = 32;     // the tile's level-0 rows and columns
 constexpr int kN = kRows * kCols;        // 256 target cells a block
-constexpr int kBK = 32;                  // channels a stage: 128 bytes, the swizzle span
+constexpr int kBK = 32;                  // fp32 channels a stage: 128 bytes, the swizzle span
+constexpr int kBK16 = 64;                // bf16 channels a stage: the same 128 bytes
 constexpr int kStages = 2;
 constexpr int kThreads = 256;            // two warpgroups
 constexpr int kABytes = kM * kBK * 4;    // 16 KB
@@ -117,44 +134,59 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          | ((uint64_t)1 << 62);
 }
 
+// One wgmma m64n256 with fp32 accumulators d, descriptors da and db, and the
+// instruction's trailing immediates TAIL (scales, and the transposes of bf16).
+#define WGMMA_M64N256(INSTR, TAIL)                                                            \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" INSTR " {"                                \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                                                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                                               \
+      "%24, %25, %26, %27, %28, %29, %30, %31,"                                               \
+      "%32, %33, %34, %35, %36, %37, %38, %39,"                                               \
+      "%40, %41, %42, %43, %44, %45, %46, %47,"                                               \
+      "%48, %49, %50, %51, %52, %53, %54, %55,"                                               \
+      "%56, %57, %58, %59, %60, %61, %62, %63,"                                               \
+      "%64, %65, %66, %67, %68, %69, %70, %71,"                                               \
+      "%72, %73, %74, %75, %76, %77, %78, %79,"                                               \
+      "%80, %81, %82, %83, %84, %85, %86, %87,"                                               \
+      "%88, %89, %90, %91, %92, %93, %94, %95,"                                               \
+      "%96, %97, %98, %99, %100, %101, %102, %103,"                                           \
+      "%104, %105, %106, %107, %108, %109, %110, %111,"                                       \
+      "%112, %113, %114, %115, %116, %117, %118, %119,"                                       \
+      "%120, %121, %122, %123, %124, %125, %126, %127"                                        \
+      "}, %128, %129, p" TAIL ";\n}\n"                                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),           \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),           \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),           \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),           \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),           \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),           \
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),           \
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),           \
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),           \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),           \
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),           \
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),           \
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),       \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),     \
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),     \
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),     \
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])      \
+      : "l"(da), "l"(db), "r"(1))
+
+// d += a * b over 16 bf16 channels, both operands K-major (no transpose).
+__device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t da,
+                                                      uint64_t db) {
+  WGMMA_M64N256("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16", ", 1, 1, 0, 0");
+}
+
 __device__ __forceinline__ void wgmma_m64n256k8(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87,"
-      "%88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103,"
-      "%104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119,"
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+  WGMMA_M64N256("wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32", ", 1, 1");
 }
 
 // Keeps the compiler from moving accumulator accesses across the
@@ -177,15 +209,17 @@ __device__ __forceinline__ void split_tf32(float4* whole, float4* small) {
   *small = make_float4(x.x - b.x, x.y - b.y, x.z - b.z, x.w - b.w);
 }
 
-struct Levels {
-  float* lv[4];
+template <typename Out> struct Levels {
+  Out* lv[4];
   int H[4], W[4];
 };
 
+// kBf16: bf16 features (no split, m64n256k16); Out: the levels' type.
+template <bool kBf16, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 corr_build_kernel(const __grid_constant__ CUtensorMap map_f1,
                   const __grid_constant__ CUtensorMap map_f2, int P, int C, int ncols,
-                  Levels out) {
+                  Levels<Out> out) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
   uint64_t* full = (uint64_t*)(smem + kStages * kStageBytes);
@@ -193,9 +227,11 @@ corr_build_kernel(const __grid_constant__ CUtensorMap map_f1,
   const int wg = warp >> 2;                       // consumer warpgroup: pixels 64 wg ..
   const int e = blockIdx.z, m0 = blockIdx.y * kM;
   const int y0 = (blockIdx.x / ncols) * kRows, x0 = (blockIdx.x % ncols) * kCols;
-  const int nk = (C + kBK - 1) / kBK;
+  constexpr int kChan = kBf16 ? kBK16 : kBK;      // channels a stage
+  const int nk = (C + kChan - 1) / kChan;
 
   // stage s: f1 whole [0, 16K), f1 small [16K, 32K), f2 whole [32K, 64K), f2 small [64K, 96K)
+  // (bf16: the whole parts only)
   auto a_whole = [&](int s) { return smem + s * kStageBytes; };
   auto a_small = [&](int s) { return smem + s * kStageBytes + kABytes; };
   auto b_whole = [&](int s) { return smem + s * kStageBytes + 2 * kABytes; };
@@ -204,8 +240,8 @@ corr_build_kernel(const __grid_constant__ CUtensorMap map_f1,
     const int s = kc % kStages;
     const uint32_t bar = smem_addr(&full[s]);
     mbar_expect_tx(bar, kABytes + kBBytes);
-    tma_load_3d(smem_addr(a_whole(s)), &map_f1, bar, kc * kBK, m0, e);
-    tma_load_4d(smem_addr(b_whole(s)), &map_f2, bar, kc * kBK, x0, y0, e);
+    tma_load_3d(smem_addr(a_whole(s)), &map_f1, bar, kc * kChan, m0, e);
+    tma_load_4d(smem_addr(b_whole(s)), &map_f2, bar, kc * kChan, x0, y0, e);
   };
   auto split = [&](int s) {                       // every thread, then a proxy fence
     float4* aw = (float4*)a_whole(s);
@@ -236,39 +272,62 @@ corr_build_kernel(const __grid_constant__ CUtensorMap map_f1,
   for (int i = 0; i < 128; i++) acc[i] = 0.f;
   pin(acc);
 
-  mbar_wait(smem_addr(&full[0]), 0);
-  split(0);
-  __syncthreads();
-  for (int kc = 0; kc < nk; kc++) {
-    const int s = kc % kStages;
-    const uint64_t da_w = sw128_desc(smem_addr(a_whole(s) + wg * 64 * 128));
-    const uint64_t da_s = sw128_desc(smem_addr(a_small(s) + wg * 64 * 128));
-    const uint64_t db_w = sw128_desc(smem_addr(b_whole(s)));
-    const uint64_t db_s = sw128_desc(smem_addr(b_small(s)));
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  if constexpr (kBf16) {
+    for (int kc = 0; kc < nk; kc++) {
+      const int s = kc % kStages;
+      mbar_wait(smem_addr(&full[s]), (kc / kStages) & 1);
+      const uint64_t da = sw128_desc(smem_addr(a_whole(s) + wg * 64 * 128));
+      const uint64_t db = sw128_desc(smem_addr(b_whole(s)));
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int kk = 0; kk < kBK / 8; kk++) {        // 8 channels (32 bytes) a step
-      wgmma_m64n256k8(acc, da_s + 2 * kk, db_w + 2 * kk);
-      wgmma_m64n256k8(acc, da_w + 2 * kk, db_s + 2 * kk);
-      wgmma_m64n256k8(acc, da_w + 2 * kk, db_w + 2 * kk);
+      for (int kk = 0; kk < kBK16 / 16; kk++)       // 16 channels (32 bytes) a step
+        wgmma_m64n256k16_bf16(acc, da + 2 * kk, db + 2 * kk);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      pin(acc);
+      __syncthreads();                              // stage s is free
+      if (tid == 0 && kc + kStages < nk) load(kc + kStages);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    if (kc + 1 < nk) {                            // split the next stage meanwhile
-      mbar_wait(smem_addr(&full[(kc + 1) % kStages]), ((kc + 1) / kStages) & 1);
-      split((kc + 1) % kStages);
+  } else {
+    mbar_wait(smem_addr(&full[0]), 0);
+    split(0);
+    __syncthreads();
+    for (int kc = 0; kc < nk; kc++) {
+      const int s = kc % kStages;
+      const uint64_t da_w = sw128_desc(smem_addr(a_whole(s) + wg * 64 * 128));
+      const uint64_t da_s = sw128_desc(smem_addr(a_small(s) + wg * 64 * 128));
+      const uint64_t db_w = sw128_desc(smem_addr(b_whole(s)));
+      const uint64_t db_s = sw128_desc(smem_addr(b_small(s)));
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kBK / 8; kk++) {        // 8 channels (32 bytes) a step
+        wgmma_m64n256k8(acc, da_s + 2 * kk, db_w + 2 * kk);
+        wgmma_m64n256k8(acc, da_w + 2 * kk, db_s + 2 * kk);
+        wgmma_m64n256k8(acc, da_w + 2 * kk, db_w + 2 * kk);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (kc + 1 < nk) {                            // split the next stage meanwhile
+        mbar_wait(smem_addr(&full[(kc + 1) % kStages]), ((kc + 1) / kStages) & 1);
+        split((kc + 1) % kStages);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      pin(acc);
+      __syncthreads();                              // stage s is free, the next one split
+      if (tid == 0 && kc + kStages < nk) load(kc + kStages);
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    pin(acc);
-    __syncthreads();                              // stage s is free, the next one split
-    if (tid == 0 && kc + kStages < nk) load(kc + kStages);
   }
 
   // ---- (c) epilogue.  Thread (g, q) of warp w holds, for pixels
   // 16 (w % 4) + g and + 8 of its warpgroup (half hf), cells
   // n = 8 j + 2 q + {0, 1}, j = 0 .. 31: tile row j / 4, column 8 (j % 4) + 2 q.
+  // Every value is rounded as a store of Out keeps it (Io<Out>::round, the
+  // identity in fp32) before it is stored or pooled.
+  using io = Io<Out>;
   const int g = lane >> 2, q = lane & 3, odd = q & 1;
   const int pw = m0 + 64 * wg + 16 * (warp & 3);  // the warp's first pixel
   const size_t ep0 = (size_t)e * P;
+#pragma unroll
+  for (int i = 0; i < 128; i++) acc[i] = io::round(acc[i] * 0.0625f);   // level 0
 
   // level 0 from the accumulators: thread pairs (q, q ^ 1) trade halves, so
   // an even q holds 4 columns of pixel g, an odd q the same of pixel g + 8
@@ -279,25 +338,23 @@ corr_build_kernel(const __grid_constant__ CUtensorMap map_f1,
 #pragma unroll
     for (int r = 0; r < kRows; r++) {
       const int y = y0 + r;
-      float* row = out.lv[0] + ((ep0 + p) * H0 + y) * W0;
+      Out* row = out.lv[0] + ((ep0 + p) * H0 + y) * W0;
 #pragma unroll
       for (int cj = 0; cj < 4; cj++) {
         const int i = 4 * (4 * r + cj);
         const float t0 = __shfl_xor_sync(0xffffffffu, odd ? acc[i] : acc[i + 2], 1);
         const float t1 = __shfl_xor_sync(0xffffffffu, odd ? acc[i + 1] : acc[i + 3], 1);
-        const float4 v = odd ? make_float4(t0 * 0.0625f, t1 * 0.0625f, acc[i + 2] * 0.0625f,
-                                           acc[i + 3] * 0.0625f)
-                             : make_float4(acc[i] * 0.0625f, acc[i + 1] * 0.0625f,
-                                           t0 * 0.0625f, t1 * 0.0625f);
+        const float4 v = odd ? make_float4(t0, t1, acc[i + 2], acc[i + 3])
+                             : make_float4(acc[i], acc[i + 1], t0, t1);
         const int x = xc + 8 * cj;
         if (p >= P || y >= H0 || x >= W0) continue;
         if (vec) {
-          __stcs((float4*)(row + x), v);
+          io::store4(row + x, v);
         } else {
           const float vs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
           for (int k = 0; k < 4; k++)
-            if (x + k < W0) __stcs(row + x + k, vs[k]);
+            if (x + k < W0) io::store1(row + x + k, vs[k]);
         }
       }
     }
@@ -313,9 +370,8 @@ corr_build_kernel(const __grid_constant__ CUtensorMap map_f1,
 #pragma unroll
       for (int cj = 0; cj < 4; cj++) {
         const int i0 = 4 * (8 * r1 + cj) + 2 * hf, i1 = i0 + 16;   // rows 2 r1, 2 r1 + 1
-        const float s0 = acc[i0] * 0.0625f, s1 = acc[i0 + 1] * 0.0625f;
-        const float s2 = acc[i1] * 0.0625f, s3 = acc[i1 + 1] * 0.0625f;
-        stg[(g + 8 * hf) * kS + r1 * 16 + 4 * cj + q] = (((s0 + s1) + s2) + s3) * 0.25f;
+        const float s0 = acc[i0], s1 = acc[i0 + 1], s2 = acc[i1], s3 = acc[i1 + 1];
+        stg[(g + 8 * hf) * kS + r1 * 16 + 4 * cj + q] = io::round((((s0 + s1) + s2) + s3) * 0.25f);
       }
   __syncwarp();
 
@@ -334,39 +390,39 @@ corr_build_kernel(const __grid_constant__ CUtensorMap map_f1,
 #pragma unroll
     for (int r2 = 0; r2 < 2; r2++) {
       const float4 a = l1[2 * r2], b = l1[2 * r2 + 1];
-      l2[r2][0] = (((a.x + a.y) + b.x) + b.y) * 0.25f;
-      l2[r2][1] = (((a.z + a.w) + b.z) + b.w) * 0.25f;
+      l2[r2][0] = io::round((((a.x + a.y) + b.x) + b.y) * 0.25f);
+      l2[r2][1] = io::round((((a.z + a.w) + b.z) + b.w) * 0.25f);
     }
-    const float l3 = (((l2[0][0] + l2[0][1]) + l2[1][0]) + l2[1][1]) * 0.25f;
+    const float l3 = io::round((((l2[0][0] + l2[0][1]) + l2[1][0]) + l2[1][1]) * 0.25f);
 
     const int x1 = (x0 >> 1) + 4 * qq, x2 = (x0 >> 2) + 2 * qq, x3 = (x0 >> 3) + qq;
 #pragma unroll
     for (int r1 = 0; r1 < 4; r1++) {
       const int y = (y0 >> 1) + r1;
       if (y >= H1 || x1 >= W1) continue;
-      float* d = out.lv[1] + ((ep0 + p) * H1 + y) * W1 + x1;
+      Out* d = out.lv[1] + ((ep0 + p) * H1 + y) * W1 + x1;
       if ((W1 & 3) == 0) {
-        __stcs((float4*)d, l1[r1]);
+        io::store4(d, l1[r1]);
       } else {
         const float vs[4] = {l1[r1].x, l1[r1].y, l1[r1].z, l1[r1].w};
 #pragma unroll
         for (int k = 0; k < 4; k++)
-          if (x1 + k < W1) __stcs(d + k, vs[k]);
+          if (x1 + k < W1) io::store1(d + k, vs[k]);
       }
     }
 #pragma unroll
     for (int r2 = 0; r2 < 2; r2++) {
       const int y = (y0 >> 2) + r2;
       if (y >= H2 || x2 >= W2) continue;
-      float* d = out.lv[2] + ((ep0 + p) * H2 + y) * W2 + x2;
+      Out* d = out.lv[2] + ((ep0 + p) * H2 + y) * W2 + x2;
       if ((W2 & 1) == 0) {
-        __stcs((float2*)d, make_float2(l2[r2][0], l2[r2][1]));
+        io::store2(d, l2[r2][0], l2[r2][1]);
       } else {
-        __stcs(d, l2[r2][0]);
-        if (x2 + 1 < W2) __stcs(d + 1, l2[r2][1]);
+        io::store1(d, l2[r2][0]);
+        if (x2 + 1 < W2) io::store1(d + 1, l2[r2][1]);
       }
     }
-    if ((y0 >> 3) < H3 && x3 < W3) __stcs(out.lv[3] + ((ep0 + p) * H3 + (y0 >> 3)) * W3 + x3, l3);
+    if ((y0 >> 3) < H3 && x3 < W3) io::store1(out.lv[3] + ((ep0 + p) * H3 + (y0 >> 3)) * W3 + x3, l3);
   }
 }
 
@@ -393,22 +449,55 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A float32 tensor map of `rank` dims (innermost first), 128-byte swizzle,
-// zeros past the edges.
+// A tensor map of `rank` dims (innermost first) of fp32 or bf16 elements,
+// 128-byte swizzle, zeros past the edges.
 bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-              const cuuint32_t* box) {
+              const cuuint32_t* box, bool bf16) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   cuuint64_t strides[4];
-  cuuint64_t s = 4;
+  cuuint64_t s = bf16 ? 2 : 4;
   for (int i = 0; i + 1 < rank; i++) {
     s *= dims[i];
     strides[i] = s;
   }
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+            const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kBf16, typename Out>
+int launch(const void* f1, const void* f2, int E, int P, int H2, int W2, int C,
+           void* const* lv, void* stream) {
+  if (E <= 0 || P <= 0 || H2 <= 0 || W2 <= 0) return (int)cudaGetLastError();
+  // a row of channels is a whole number of 16-byte units, as TMA requires
+  if (C <= 0 || C % (kBf16 ? 8 : 4) || (uintptr_t)f1 % 16 || (uintptr_t)f2 % 16 ||
+      E > 65535 || (P + kM - 1) / kM > 65535)
+    return (int)cudaErrorInvalidValue;
+  constexpr cuuint32_t chan = kBf16 ? kBK16 : kBK;
+  CUtensorMap map_f1, map_f2;
+  const cuuint64_t d1[3] = {(cuuint64_t)C, (cuuint64_t)P, (cuuint64_t)E};
+  const cuuint32_t b1[3] = {chan, kM, 1};
+  const cuuint64_t d2[4] = {(cuuint64_t)C, (cuuint64_t)W2, (cuuint64_t)H2, (cuuint64_t)E};
+  const cuuint32_t b2[4] = {chan, kCols, kRows, 1};
+  if (!make_map(&map_f1, f1, 3, d1, b1, kBf16) || !make_map(&map_f2, f2, 4, d2, b2, kBf16))
+    return (int)cudaErrorInvalidValue;
+  Levels<Out> out;
+  for (int l = 0; l < 4; l++) {
+    out.lv[l] = (Out*)lv[l];
+    out.H[l] = H2 >> l;
+    out.W[l] = W2 >> l;
+  }
+  int err = (int)cudaFuncSetAttribute(corr_build_kernel<kBf16, Out>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err) return err;
+  const int ncols = (W2 + kCols - 1) / kCols, nbands = (H2 + kRows - 1) / kRows;
+  dim3 grid(nbands * ncols, (P + kM - 1) / kM, E);
+  corr_build_kernel<kBf16, Out><<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      map_f1, map_f2, P, C, ncols, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -420,32 +509,18 @@ bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* di
 extern "C" int corr_build_launch(const void* f1, const void* f2, int E, int P, int H2,
                                  int W2, int C, void* level0, void* level1,
                                  void* level2, void* level3, void* stream) {
-  if (E <= 0 || P <= 0 || H2 <= 0 || W2 <= 0) return (int)cudaGetLastError();
-  if (C <= 0 || C % 4 || (uintptr_t)f1 % 16 || (uintptr_t)f2 % 16 || E > 65535 ||
-      (P + kM - 1) / kM > 65535)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap map_f1, map_f2;
-  const cuuint64_t d1[3] = {(cuuint64_t)C, (cuuint64_t)P, (cuuint64_t)E};
-  const cuuint32_t b1[3] = {kBK, kM, 1};
-  const cuuint64_t d2[4] = {(cuuint64_t)C, (cuuint64_t)W2, (cuuint64_t)H2, (cuuint64_t)E};
-  const cuuint32_t b2[4] = {kBK, kCols, kRows, 1};
-  if (!make_map(&map_f1, f1, 3, d1, b1) || !make_map(&map_f2, f2, 4, d2, b2))
-    return (int)cudaErrorInvalidValue;
-  Levels out;
-  void* lv[4] = {level0, level1, level2, level3};
-  for (int l = 0; l < 4; l++) {
-    out.lv[l] = (float*)lv[l];
-    out.H[l] = H2 >> l;
-    out.W[l] = W2 >> l;
-  }
-  int err = (int)cudaFuncSetAttribute(corr_build_kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err) return err;
-  const int ncols = (W2 + kCols - 1) / kCols, nbands = (H2 + kRows - 1) / kRows;
-  dim3 grid(nbands * ncols, (P + kM - 1) / kM, E);
-  corr_build_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(map_f1, map_f2, P, C,
-                                                                          ncols, out);
-  return (int)cudaGetLastError();
+  void* const lv[4] = {level0, level1, level2, level3};
+  return launch<false, float>(f1, f2, E, P, H2, W2, C, lv, stream);
+}
+
+// K2 on bf16 features (C a multiple of 8): the same levels in fp32 when
+// out_f32 is nonzero, else in bf16.
+extern "C" int corr_build_bf16_launch(const void* f1, const void* f2, int E, int P, int H2,
+                                      int W2, int C, void* level0, void* level1,
+                                      void* level2, void* level3, int out_f32, void* stream) {
+  void* const lv[4] = {level0, level1, level2, level3};
+  return out_f32 ? launch<true, float>(f1, f2, E, P, H2, W2, C, lv, stream)
+                 : launch<true, bf16>(f1, f2, E, P, H2, W2, C, lv, stream);
 }
 
 // What a launch uses: out[0] the dynamic shared memory bytes of a block,
@@ -454,9 +529,10 @@ extern "C" int corr_build_info(void* out) {
   int* o = (int*)out;
   o[0] = kSmemBytes;
   int n = -1;
-  if (cudaFuncSetAttribute(corr_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kSmemBytes) ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, corr_build_kernel, kThreads, kSmemBytes))
+  if (cudaFuncSetAttribute(corr_build_kernel<false, float>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, corr_build_kernel<false, float>,
+                                                    kThreads, kSmemBytes))
     n = -1;
   o[1] = n;
   return 0;

@@ -30,8 +30,17 @@
 // row, and blending four outputs a thread from there was slower, at E = 48
 // and at E = 1.  16-pixel tiles give the motion filter's single edge 160
 // blocks, more than the 132 SMs.
+//
+// bf16 (the JAX package's bfloat16 path, where K2 stores bf16 levels): the
+// same kernel reads bf16 spans and writes bf16 outputs.  It blends in fp32
+// with the fractional parts rounded to bf16, as the TPU kernel casts them
+// to the volume's dtype, and rounds each output once, so it equals the
+// plain version (ops/corr.py) exactly.  It moves about half the bytes of
+// the fp32 kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtype_io.cuh"
 
 namespace {
 
@@ -42,8 +51,8 @@ constexpr int kOut = kLevels * kD * kD; // 196 outputs per pixel
 constexpr int kTile = 16;               // pixels per block
 constexpr int kThreads = kTile * kD;    // a thread per (pixel, x tap)
 
-struct Pyramid {
-  const float* lv[kLevels];
+template <typename T> struct Pyramid {
+  const T* lv[kLevels];
   int H[kLevels];
   int W[kLevels];
 };
@@ -63,8 +72,9 @@ __device__ __forceinline__ float blend(float g00, float g01, float g10, float g1
   return __fadd_rn(__fmul_rn(wx, y0), __fmul_rn(f.x, y1));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-corr_lookup_kernel(Pyramid pyr, const float2* __restrict__ coords, float* __restrict__ out,
+corr_lookup_kernel(Pyramid<T> pyr, const float2* __restrict__ coords, T* __restrict__ out,
                    int P) {
   __shared__ __align__(16) float stage[kTile * kOut];
   const int tid = threadIdx.x, q = tid / kD, a = tid - q * kD;
@@ -81,15 +91,15 @@ corr_lookup_kernel(Pyramid pyr, const float2* __restrict__ coords, float* __rest
       const float scale = 1.f / (float)(1 << l);
       const float x = c.x * scale, y = c.y * scale;
       const int y0 = floor_clamped(y) - kR, x0 = floor_clamped(x) - kR + a;
-      f[l] = make_float2(x - floorf(x), y - floorf(y));
-      const float* v = pyr.lv[l] + ((size_t)e * P + p0 + q) * H * W;
+      f[l] = make_float2(Io<T>::round(x - floorf(x)), Io<T>::round(y - floorf(y)));
+      const T* v = pyr.lv[l] + ((size_t)e * P + p0 + q) * H * W;
       const bool ok0 = x0 >= 0 && x0 < W, ok1 = x0 + 1 >= 0 && x0 + 1 < W;
 #pragma unroll
       for (int i = 0; i <= kD; i++) {
         const int yy = y0 + i;
         const bool oky = yy >= 0 && yy < H;
-        g[l][0][i] = oky && ok0 ? __ldg(v + (size_t)yy * W + x0) : 0.f;
-        g[l][1][i] = oky && ok1 ? __ldg(v + (size_t)yy * W + x0 + 1) : 0.f;
+        g[l][0][i] = oky && ok0 ? Io<T>::load(v + (size_t)yy * W + x0) : 0.f;
+        g[l][1][i] = oky && ok1 ? Io<T>::load(v + (size_t)yy * W + x0 + 1) : 0.f;
       }
     }
     float* o = stage + q * kOut + a * kD;
@@ -102,9 +112,36 @@ corr_lookup_kernel(Pyramid pyr, const float2* __restrict__ coords, float* __rest
   __syncthreads();
 
   // ---- the tile's np x 196 outputs are one contiguous run: 16-byte stores
-  float4* dst = reinterpret_cast<float4*>(out + ((size_t)e * P + p0) * kOut);
+  // (8-byte stores of 4 values in bf16)
   const float4* src = reinterpret_cast<const float4*>(stage);
-  for (int i = tid; i < np * (kOut / 4); i += kThreads) dst[i] = src[i];
+  T* dst = out + ((size_t)e * P + p0) * kOut;
+  for (int i = tid; i < np * (kOut / 4); i += kThreads) {
+    if constexpr (sizeof(T) == 4) {
+      reinterpret_cast<float4*>(dst)[i] = src[i];
+    } else {
+      const float4 v = src[i];
+      reinterpret_cast<uint2*>(dst)[i] =
+          make_uint2(Io<T>::pack(v.x, v.y), Io<T>::pack(v.z, v.w));
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* const* lv, const void* coords, int E, int P, int H2, int W2, void* out,
+           void* stream) {
+  Pyramid<T> pyr;
+  for (int l = 0; l < kLevels; l++) {
+    pyr.lv[l] = (const T*)lv[l];
+    pyr.H[l] = H2 >> l;
+    pyr.W[l] = W2 >> l;
+  }
+  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
+  if (E > 0 && P > 0) {
+    dim3 grid((P + kTile - 1) / kTile, E);
+    corr_lookup_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        pyr, (const float2*)coords, (T*)out, P);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -117,18 +154,15 @@ extern "C" int corr_lookup_launch(const void* level0, const void* level1,
                                   const void* level2, const void* level3,
                                   const void* coords, int E, int P, int H2, int W2,
                                   void* out, void* stream) {
-  Pyramid pyr;
   const void* lv[kLevels] = {level0, level1, level2, level3};
-  for (int l = 0; l < kLevels; l++) {
-    pyr.lv[l] = (const float*)lv[l];
-    pyr.H[l] = H2 >> l;
-    pyr.W[l] = W2 >> l;
-  }
-  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
-  if (E > 0 && P > 0) {
-    dim3 grid((P + kTile - 1) / kTile, E);
-    corr_lookup_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        pyr, (const float2*)coords, (float*)out, P);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(lv, coords, E, P, H2, W2, out, stream);
+}
+
+// The same on bf16 levels (K2's bf16 instantiation) -> out [E, P, 196] bf16.
+extern "C" int corr_lookup_bf16_launch(const void* level0, const void* level1,
+                                       const void* level2, const void* level3,
+                                       const void* coords, int E, int P, int H2, int W2,
+                                       void* out, void* stream) {
+  const void* lv[kLevels] = {level0, level1, level2, level3};
+  return launch<bf16>(lv, coords, E, P, H2, W2, out, stream);
 }

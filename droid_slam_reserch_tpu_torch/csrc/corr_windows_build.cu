@@ -55,9 +55,23 @@
 // room for one block of 512 threads on an SM, at 128 registers a thread;
 // each block reads f2's band (256 KB) once, 2.5 GB from L2 at the main path.
 // Maps wider than about 80 cells need more shared memory than a block has.
+//
+// bf16 features (the JAX package's bfloat16 path; K4 only) are a third
+// template argument of the same kernel: the product is one mma.sync
+// m16n8k16 bf16 with fp32 accumulation where fp32 takes three TF32
+// products, a stage holds 32 channels (the same 64 bytes a pixel, so the
+// shared memory and the width limit are the fp32 kernel's), and the windows
+// are bf16, written 8 cells to a 16-byte store.  Each level-0 cell is
+// rounded to bf16 once after the scale, each pooled cell is the fp32 mean of
+// the rounded cells below it, rounded once, as the plain version does.  At
+// the main path's shapes the product is 0.081 ms at the 989 TFLOP/s bf16
+// peak against 0.61 GB moved (0.55 GB of bf16 windows), 0.18 ms at
+// 3.35 TB/s: bytes bound it.
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtype_io.cuh"
 
 namespace {
 
@@ -65,7 +79,7 @@ constexpr int kLevels = 4, kPad = 8, kWin = 24, kR = 3;
 constexpr int kBand = 8;                 // level-0 rows per band
 constexpr int kColMax = 64;              // cells of a band row per column chunk
 constexpr int kNT = 8;                   // n8 tiles of a warp: 2 rows x 32 columns
-constexpr int kBK = 16;                  // channels per stage, a pixel's or cell's 64 bytes
+constexpr int kBK = 16;                  // fp32 channels per stage (bf16: 32), 64 bytes
 constexpr int kMaxShared = 232448;       // bytes a block may use on Hopper
 
 // kM source pixels per block, 32 per group of 8 warps: 64 where a band row
@@ -106,7 +120,7 @@ __device__ __forceinline__ int window_base(float c, float scale, int n, int win)
 }
 
 // 16-byte copy to shared memory; with ok false the 16 bytes are zeros.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(ok ? 16 : 0)
@@ -144,12 +158,34 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int kM, bool kStoreLevels>
+// d += a * b on a 16x8x16 tile of bf16 pairs, the fragments of mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Eight consecutive window cells, 16 bytes (bf16), or four (fp32).
+__device__ __forceinline__ void store_cells(float* d, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_cells(bf16* d, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(d) = make_uint4(Io<bf16>::pack(v[0], v[1]), Io<bf16>::pack(v[2], v[3]),
+                                            Io<bf16>::pack(v[4], v[5]), Io<bf16>::pack(v[6], v[7]));
+}
+
+// Elem: the features' and the windows' element type, fp32 or bf16.
+template <int kM, bool kStoreLevels, typename Elem>
 __global__ void __launch_bounds__(Tile<kM>::kThreads, 64 / kM)
-windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                     const float2* __restrict__ coords0, float* __restrict__ wins,
+windows_build_kernel(const Elem* __restrict__ f1, const Elem* __restrict__ f2,
+                     const float2* __restrict__ coords0, Elem* __restrict__ wins,
                      int* __restrict__ bases, int P, int C, Meta m, LevelsOut out_lv) {
   using T = Tile<kM>;
+  using io = Io<Elem>;
+  constexpr int kChan = 64 / sizeof(Elem);        // channels a stage: 64 bytes a pixel
+  constexpr int kV = 16 / sizeof(Elem);           // channels a 16-byte copy
   extern __shared__ float4 smem4[];
   float* tile = reinterpret_cast<float*>(smem4);   // [kM][S]: each pixel's band of levels
   float* stages = tile + m.stage_off;              // kStages x ([kM][16] f1, [8][64][16] f2)
@@ -161,10 +197,10 @@ windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   const int H0 = m.H[0], W0 = m.W[0];
   const int y0 = band * kBand;
   const bool live = y0 + 2 * k < H0;               // the warp's first row exists
-  const float* A = f1 + (size_t)e * P * C;
-  const float* B = f2 + (size_t)e * H0 * W0 * C;
-  const int q4 = 4 * (tid & 3);                    // first channel of this thread's copies
-  const int nk = (C + kBK - 1) / kBK;
+  const Elem* A = f1 + (size_t)e * P * C;
+  const Elem* B = f2 + (size_t)e * H0 * W0 * C;
+  const int q4 = kV * (tid & 3);                   // first channel of this thread's copies
+  const int nk = (C + kChan - 1) / kChan;
   const int a_gp = p0 + (tid >> 2);
   const int a_goff = (tid < kM * 4 && a_gp < P) ? a_gp * C + q4 : -1;
 
@@ -193,18 +229,18 @@ windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
     const int x0 = ch * m.cw;
     const int bj = (tid >> 2) % kColMax;           // column of the cells this thread copies
     auto load = [&](int kc) {
-      float* As = stages + (kc % T::kStages) * T::kStageF;
-      float* Bs = As + kM * kBK;
-      const int k0 = kc * kBK;
+      Elem* As = reinterpret_cast<Elem*>(stages + (kc % T::kStages) * T::kStageF);
+      Elem* Bs = As + kM * kChan;
+      const int k0 = kc * kChan;
       const bool kin = k0 + q4 < C;
       if (tid < kM * 4)
-        cp_async16(As + (tid >> 2) * kBK + q4, a_goff >= 0 ? A + a_goff + k0 : A,
+        cp_async16(As + (tid >> 2) * kChan + q4, a_goff >= 0 ? A + a_goff + k0 : A,
                    a_goff >= 0 && kin);
 #pragma unroll
       for (int u = 0; u < T::kBLoads; u++) {       // slot c: band row c / 64, column c % 64
         const int c = (tid >> 2) + u * (T::kThreads / 4), w = c / kColMax;
         const bool in = bj < m.cw && y0 + w < H0 && x0 + bj < W0;
-        cp_async16(Bs + c * kBK + q4, in ? B + ((y0 + w) * W0 + x0 + bj) * C + q4 + k0 : B,
+        cp_async16(Bs + c * kChan + q4, in ? B + ((y0 + w) * W0 + x0 + bj) * C + q4 + k0 : B,
                    in && kin);
       }
     };
@@ -227,7 +263,39 @@ windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
       __syncthreads();                             // ... for every thread, and kc - 1 is done
       if (kc + T::kStages - 1 < nk) load(kc + T::kStages - 1);
       cp_async_commit();
-      if (live) {
+      if constexpr (sizeof(Elem) == 2) {
+        if (live) {
+          // The 32 channels of a stage are two k16 steps.  Both operands take
+          // step s's k-slots 2t, 2t + 1 (fragment registers 0 of A and B) from
+          // channels 4t, 4t + 1 and k-slots 2t + 8, 2t + 9 (registers 2 of A, 1
+          // of B) from channels 4t + 2, 4t + 3: one 8-byte load a row.
+          const bf16* As = reinterpret_cast<const bf16*>(stages + (kc % T::kStages) * T::kStageF)
+                           + (ph + g) * kChan + 4 * t;
+          const bf16* Bs = reinterpret_cast<const bf16*>(stages + (kc % T::kStages) * T::kStageF)
+                           + kM * kChan + (2 * k * kColMax + 32 * h + g) * kChan + 4 * t;
+#pragma unroll
+          for (int st = 0; st < 2; st++) {
+            uint32_t af[2][4];
+#pragma unroll
+            for (int mi = 0; mi < 2; mi++) {
+              const uint2 lo = *reinterpret_cast<const uint2*>(As + 16 * mi * kChan + 16 * st);
+              const uint2 hi = *reinterpret_cast<const uint2*>(As + (16 * mi + 8) * kChan + 16 * st);
+              af[mi][0] = lo.x;
+              af[mi][1] = hi.x;
+              af[mi][2] = lo.y;
+              af[mi][3] = hi.y;
+            }
+#pragma unroll
+            for (int ni = 0; ni < kNT; ni++) {
+              const uint2 v = *reinterpret_cast<const uint2*>(
+                  Bs + ((ni >> 2) * kColMax + 8 * (ni & 3)) * kChan + 16 * st);
+              const uint32_t bf[2] = {v.x, v.y};
+              mma_bf16(acc[0][ni], af[0], bf);
+              mma_bf16(acc[1][ni], af[1], bf);
+            }
+          }
+        }
+      } else if (live) {
         // The 16 channels of a stage are two k8 steps.  Both operands take
         // step s's k-slots t and t + 4 from channels 4t + 2s and 4t + 2s + 1,
         // so one 8-byte load gives a thread both of a row's slots.
@@ -281,17 +349,17 @@ windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
           for (int j = 0; j < 4; j++) {
             const int xc = 32 * h + 8 * j + 2 * t, x = x0 + xc;   // xc + 1 < cw when xc < cw
             if (xc >= m.cw) continue;
-            const float s0 = acc[mi][j][2 * half] * 0.0625f;
-            const float s1 = acc[mi][j][2 * half + 1] * 0.0625f;
-            const float s2 = acc[mi][4 + j][2 * half] * 0.0625f;
-            const float s3 = acc[mi][4 + j][2 * half + 1] * 0.0625f;
+            const float s0 = io::round(acc[mi][j][2 * half] * 0.0625f);
+            const float s1 = io::round(acc[mi][j][2 * half + 1] * 0.0625f);
+            const float s2 = io::round(acc[mi][4 + j][2 * half] * 0.0625f);
+            const float s3 = io::round(acc[mi][4 + j][2 * half + 1] * 0.0625f);
             float* r0 = px + 2 * k * W0 + x;
             if (x < W0) r0[0] = s0;
             if (x + 1 < W0) r0[1] = s1;
             if (row1 && x < W0) r0[W0] = s2;
             if (row1 && x + 1 < W0) r0[W0 + 1] = s3;
             if (lv1 && x + 1 < W0)
-              px[m.lo[1] + k * m.W[1] + (x >> 1)] = (((s0 + s1) + s2) + s3) * 0.25f;
+              px[m.lo[1] + k * m.W[1] + (x >> 1)] = io::round((((s0 + s1) + s2) + s3) * 0.25f);
           }
         }
     }
@@ -315,7 +383,7 @@ windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
         if (r < rows)
           for (int x = lane; x < wo; x += 32) {
             const float* q = s + 2 * r * wi + 2 * x;
-            d[r * wo + x] = (((q[0] + q[1]) + q[wi]) + q[wi + 1]) * 0.25f;
+            d[r * wo + x] = io::round((((q[0] + q[1]) + q[wi]) + q[wi + 1]) * 0.25f);
           }
     }
     __syncwarp();
@@ -323,8 +391,9 @@ windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
 
   const bool first = band == 0, last = band == m.nbands - 1;
   const int wwm = m.ww_max;
-  const int cpr = (wwm + 3) >> 2, rpi = 32 / cpr;  // 4-column chunks a row, rows a store
-  const int lr = lane / cpr, q = 4 * (lane - lr * cpr);
+  constexpr int kVec = io::kVec;                   // cells of a 16-byte store
+  const int cpr = (wwm + kVec - 1) / kVec, rpi = 32 / cpr;  // chunks a row, rows a store
+  const int lr = lane / cpr, q = kVec * (lane - lr * cpr);
   for (int u = 0; u < kPx; u++) {
     const int pl = warp + u * T::kWarps, gp = p0 + pl;
     if (gp >= P) break;
@@ -341,24 +410,24 @@ windows_build_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
       const int ymax = last ? INT_MAX / 2 : (y0 + kBand) >> l;
       const int r0 = max(0, ymin - by + kPad), r1 = min(m.WH[l], ymax - by + kPad);
       const float* lv = src + m.lo[l];
-      float* dst = wins + (ep * m.sum_wh + m.off[l]) * wwm + q;
+      Elem* dst = wins + (ep * m.sum_wh + m.off[l]) * wwm + q;
       if (lr < rpi)
         for (int r = r0 + lr; r < r1; r += rpi) {
           const int y = by - kPad + r;
           const bool in_y = y >= 0 && y < Hl;
-          float v[4];
+          float v[kVec];
 #pragma unroll
-          for (int j = 0; j < 4; j++) {
+          for (int j = 0; j < kVec; j++) {
             const int x = bx - kPad + q + j;
             v[j] = (in_y && q + j < WWl && x >= 0 && x < Wl) ? lv[(y - ylo) * Wl + x] : 0.f;
           }
-          float* d = dst + r * wwm;
-          if (wwm % 4 == 0) {
-            *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+          Elem* d = dst + r * wwm;
+          if (wwm % kVec == 0) {
+            store_cells(d, v);
           } else {
 #pragma unroll
-            for (int j = 0; j < 4; j++)
-              if (q + j < wwm) d[j] = v[j];
+            for (int j = 0; j < kVec; j++)
+              if (q + j < wwm) d[j] = io::cvt(v[j]);
           }
         }
       if constexpr (kStoreLevels) {    // K8: the band's rows of the level, one run
@@ -406,45 +475,47 @@ int make_meta(Meta& m, int H2, int W2, size_t* bytes) {
   return 32;
 }
 
-template <int kM, bool kStoreLevels>
+template <int kM, bool kStoreLevels, typename Elem>
 int launch(const Meta& m, size_t bytes, const void* f1, const void* f2, const void* coords0,
            int E, int P, int C, void* wins, void* bases, const LevelsOut& lo,
            cudaStream_t s) {
-  int err = (int)cudaFuncSetAttribute(windows_build_kernel<kM, kStoreLevels>,
+  int err = (int)cudaFuncSetAttribute(windows_build_kernel<kM, kStoreLevels, Elem>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err) return err;
   dim3 grid(m.nbands, (P + kM - 1) / kM, E);
-  windows_build_kernel<kM, kStoreLevels><<<grid, Tile<kM>::kThreads, bytes, s>>>(
-      (const float*)f1, (const float*)f2, (const float2*)coords0, (float*)wins, (int*)bases, P,
+  windows_build_kernel<kM, kStoreLevels, Elem><<<grid, Tile<kM>::kThreads, bytes, s>>>(
+      (const Elem*)f1, (const Elem*)f2, (const float2*)coords0, (Elem*)wins, (int*)bases, P,
       C, m, lo);
   return (int)cudaGetLastError();
 }
 
-template <bool kStoreLevels>
+template <bool kStoreLevels, typename Elem = float>
 int build_windows(const void* f1, const void* f2, const void* coords0, int E, int P, int H2,
                   int W2, int C, void* wins, void* bases, const LevelsOut& lo, void* stream) {
   Meta m;
   size_t bytes = 0;
   const int M = make_meta(m, H2, W2, &bytes);
   // edges ride the grid's z and pixel tiles its y; offsets into f1 and f2 are 32-bit
-  if (E > 65535 || (P + 31) / 32 > 65535 || H2 <= 0 || W2 <= 0 || C <= 0 || C % 4 != 0 ||
+  // and a pixel's channels are whole 16-byte copies
+  if (E > 65535 || (P + 31) / 32 > 65535 || H2 <= 0 || W2 <= 0 || C <= 0 ||
+      C % (16 / sizeof(Elem)) != 0 ||
       (long long)P * C > INT_MAX || (long long)H2 * W2 * C > INT_MAX ||
       bytes > (size_t)kMaxShared)
     return (int)cudaErrorInvalidValue;
   if (E <= 0 || P <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (M == 64)
-    return launch<64, kStoreLevels>(m, bytes, f1, f2, coords0, E, P, C, wins, bases, lo, s);
-  return launch<32, kStoreLevels>(m, bytes, f1, f2, coords0, E, P, C, wins, bases, lo, s);
+    return launch<64, kStoreLevels, Elem>(m, bytes, f1, f2, coords0, E, P, C, wins, bases, lo, s);
+  return launch<32, kStoreLevels, Elem>(m, bytes, f1, f2, coords0, E, P, C, wins, bases, lo, s);
 }
 
 template <int kM, bool kStoreLevels>
 int blocks_per_sm(size_t bytes) {
   int n = 0;
-  if (cudaFuncSetAttribute(windows_build_kernel<kM, kStoreLevels>,
+  if (cudaFuncSetAttribute(windows_build_kernel<kM, kStoreLevels, float>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes) ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, windows_build_kernel<kM, kStoreLevels>,
-                                                    Tile<kM>::kThreads, bytes))
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, windows_build_kernel<kM, kStoreLevels, float>, Tile<kM>::kThreads, bytes))
     return -1;
   return n;
 }
@@ -462,6 +533,15 @@ extern "C" int corr_windows_build_launch(const void* f1, const void* f2, const v
                                          void* bases, void* stream) {
   return build_windows<false>(f1, f2, coords0, E, P, H2, W2, C, wins, bases, LevelsOut{},
                               stream);
+}
+
+// K4 on bf16 features (C a multiple of 8) -> bf16 windows, the same bases.
+extern "C" int corr_windows_build_bf16_launch(const void* f1, const void* f2,
+                                              const void* coords0, int E, int P, int H2,
+                                              int W2, int C, void* wins, void* bases,
+                                              void* stream) {
+  return build_windows<false, bf16>(f1, f2, coords0, E, P, H2, W2, C, wins, bases,
+                                    LevelsOut{}, stream);
 }
 
 // Launches K8 on `stream`: K4's outputs, plus level0..level3

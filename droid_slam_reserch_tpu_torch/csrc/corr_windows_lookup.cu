@@ -25,8 +25,17 @@
 // sx + a and sx + a + 1, and blends them first along y, then along x, as the
 // plain version does.  The 196 threads of a pixel share its four 8x8 spans,
 // so those loads hit in L1; its coords and bases are warp broadcasts.
+//
+// bf16 (the JAX package's bfloat16 path, where K4 stores bf16 windows): the
+// same kernel reads bf16 cells and writes bf16 outputs.  It blends in fp32
+// with the fractional parts rounded to bf16, as the TPU kernel casts them,
+// each product and sum rounded on its own (no FMAs) as the plain version
+// rounds them, and rounds the output once, so it equals the plain version
+// exactly.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtype_io.cuh"
 
 namespace {
 
@@ -44,9 +53,10 @@ __device__ __forceinline__ int floor_clamped(float v) {
   return (int)fminf(fmaxf(floorf(v), -1e6f), 1e6f);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-windows_lookup_kernel(const float* __restrict__ wins, const int* __restrict__ bases,
-                      const float2* __restrict__ coords, float* __restrict__ out, int P,
+windows_lookup_kernel(const T* __restrict__ wins, const int* __restrict__ bases,
+                      const float2* __restrict__ coords, T* __restrict__ out, int P,
                       WinMeta m) {
   const int e = blockIdx.y;                  // grid: (output blocks, edges)
   const int idx = blockIdx.x * kThreads + threadIdx.x;
@@ -71,23 +81,26 @@ windows_lookup_kernel(const float* __restrict__ wins, const int* __restrict__ ba
   const int* bp = bases + ((size_t)e * 2 * kLevels + 2 * l) * P + p;
   const int sy = min(max(floor_clamped(y) + kPad - kR - bp[0], 0), WH - 8);
   const int sx = min(max(floor_clamped(x) + kPad - kR - bp[P], 0), WW - 8);
-  const float* w = wins + (ep * m.sum_wh + off + sy + b) * m.ww_max + sx + a;
+  const T* w = wins + (ep * m.sum_wh + off + sy + b) * m.ww_max + sx + a;
 
-  const float g00 = __ldg(w), g01 = __ldg(w + 1);
-  const float g10 = __ldg(w + m.ww_max), g11 = __ldg(w + m.ww_max + 1);
-  const float y0 = (1.f - dy) * g00 + dy * g10;   // Y[b][a]
-  const float y1 = (1.f - dy) * g01 + dy * g11;   // Y[b][a + 1]
-  out[(size_t)e * P * kOut + idx] = (1.f - dx) * y0 + dx * y1;
+  const float g00 = Io<T>::load(w), g01 = Io<T>::load(w + 1);
+  const float g10 = Io<T>::load(w + m.ww_max), g11 = Io<T>::load(w + m.ww_max + 1);
+  if constexpr (sizeof(T) == 4) {
+    const float y0 = (1.f - dy) * g00 + dy * g10;   // Y[b][a]
+    const float y1 = (1.f - dy) * g01 + dy * g11;   // Y[b][a + 1]
+    out[(size_t)e * P * kOut + idx] = (1.f - dx) * y0 + dx * y1;
+  } else {
+    const float fy = Io<T>::round(dy), fx = Io<T>::round(dx);
+    const float wy = 1.f - fy, wx = 1.f - fx;
+    const float y0 = __fadd_rn(__fmul_rn(wy, g00), __fmul_rn(fy, g10));
+    const float y1 = __fadd_rn(__fmul_rn(wy, g01), __fmul_rn(fy, g11));
+    out[(size_t)e * P * kOut + idx] = Io<T>::cvt(__fadd_rn(__fmul_rn(wx, y0), __fmul_rn(fx, y1)));
+  }
 }
 
-}  // namespace
-
-// Launches K5 on `stream`: wins [E, P, sum WH, max WW] float32 and bases
-// [E, 8, P] int32 from K4, coords [E, P, 2] float32 level-0 pixels, for an
-// H2 x W2 target grid -> out [E, P, 196].  Returns cudaGetLastError().
-extern "C" int corr_windows_lookup_launch(const void* wins, const void* bases,
-                                          const void* coords, int E, int P, int H2, int W2,
-                                          void* out, void* stream) {
+template <typename T>
+int launch(const void* wins, const void* bases, const void* coords, int E, int P, int H2,
+           int W2, void* out, void* stream) {
   WinMeta m;
   m.sum_wh = 0;
   m.ww_max = 0;
@@ -103,8 +116,26 @@ extern "C" int corr_windows_lookup_launch(const void* wins, const void* bases,
     return (int)cudaErrorInvalidValue;
   if (E > 0 && P > 0) {
     dim3 grid((P * kOut + kThreads - 1) / kThreads, E);
-    windows_lookup_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)wins, (const int*)bases, (const float2*)coords, (float*)out, P, m);
+    windows_lookup_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const T*)wins, (const int*)bases, (const float2*)coords, (T*)out, P, m);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches K5 on `stream`: wins [E, P, sum WH, max WW] float32 and bases
+// [E, 8, P] int32 from K4, coords [E, P, 2] float32 level-0 pixels, for an
+// H2 x W2 target grid -> out [E, P, 196].  Returns cudaGetLastError().
+extern "C" int corr_windows_lookup_launch(const void* wins, const void* bases,
+                                          const void* coords, int E, int P, int H2, int W2,
+                                          void* out, void* stream) {
+  return launch<float>(wins, bases, coords, E, P, H2, W2, out, stream);
+}
+
+// The same over K4's bf16 windows -> out [E, P, 196] bf16.
+extern "C" int corr_windows_lookup_bf16_launch(const void* wins, const void* bases,
+                                               const void* coords, int E, int P, int H2,
+                                               int W2, void* out, void* stream) {
+  return launch<bf16>(wins, bases, coords, E, P, H2, W2, out, stream);
 }

@@ -1,9 +1,9 @@
 """Droid facade (mirror of engine/droid.py): motion filter -> frontend ->
 backend -> trajectory filler.
 
-This slice runs mono tracking and the global refinement that ends it; the
-other sensor modes, upsampling, bf16 and the viewer raise
-``NotImplementedError``.
+This slice runs mono tracking and the global refinement that ends it, in
+fp32 or bf16 (``compute_dtype``); the other sensor modes, upsampling and the
+viewer raise ``NotImplementedError``.
 """
 import os
 
@@ -15,7 +15,7 @@ from ..models import DroidNet, init_params, load_weights
 from .backend import Backend
 from .frontend import Frontend
 from .motion_filter import MotionFilter
-from .net_ops import update_apply
+from .net_ops import compute_dtype, update_apply
 from .trajectory_filler import TrajectoryFiller
 from .video import Video
 
@@ -31,17 +31,19 @@ def resolve_device(device):
 class Droid:
     def __init__(self, config, params=None, device="cuda"):
         for flag, what in ((config.upsample, "upsample"), (config.stereo, "stereo"),
-                           (config.rgbd, "rgbd"), (config.vis_path, "the live viewer"),
-                           (config.compute_dtype != "float32", "bfloat16 compute_dtype")):
+                           (config.rgbd, "rgbd"), (config.vis_path, "the live viewer")):
             if flag:
                 raise NotImplementedError(f"{what} is not part of this slice of the port")
         self.cfg = config
+        self.dtype = compute_dtype(config.compute_dtype)
         self.device = resolve_device(device)
         if params is None:
             params = load_weights(config.weights) if config.weights else init_params(seed=0)
+        # fp32 weights, cast once to the compute dtype (round to nearest even,
+        # as Flax casts them at each layer)
         self.net = DroidNet()
         self.net.load_state_dict(params)
-        self.net.to(self.device).eval().requires_grad_(False)
+        self.net.to(self.device, self.dtype).eval().requires_grad_(False)
 
         self.video = Video(config, self.device)
         self.filterx = MotionFilter(self.net, self.video, thresh=config.filter_thresh)

@@ -12,6 +12,11 @@ K3).  ``update_lowmem`` (backend) refreshes every edge chunk by chunk with
 K2 + K3 and runs one global BA per step.  Each BA iteration builds its
 blocks once (K1).  Edge counts and BA windows are padded to buckets as in
 the JAX package; padded edges add nothing.
+
+Features and the update operator's state are in the compute dtype
+(``video.fmaps.dtype``), and so are update_fused's window cache, fallback
+levels and lookups; the backend's levels are fp32.  Delta, weight and eta
+are cast to fp32 before the BA, which runs in fp32.
 """
 import numpy as np
 import torch
@@ -107,10 +112,10 @@ def fused_rounds(update_apply, params, poses, disps, disps_sens, damping, intr, 
         nets, delta, weight, eta, upmask = update_apply(
             params, nets[None], inps[None], corr[None], motn[None], kk, MW, active)
         nets = nets[0]
-        target_a = coords1 + delta[0]
-        weight_a = weight[0] * amask
+        target_a = coords1 + delta[0].float()
+        weight_a = weight[0].float() * amask
 
-        damping = torch.where(has_edge, eta[0], damping)
+        damping = torch.where(has_edge, eta[0].float(), damping)
         eta_ba = 0.2 * damping + damping_eps
         poses, disps = ba_iterations(
             poses, disps, intr, disps_sens, torch.cat([target_inac, target_a], 0),
@@ -142,7 +147,7 @@ class FactorGraph:
         self.age = np.zeros(0, np.int64)
 
         h8, w8 = video.h8, video.w8
-        self.net = torch.zeros(0, h8, w8, 128, device=dev)
+        self.net = torch.zeros(0, h8, w8, 128, dtype=video.nets.dtype, device=dev)
         self.target = torch.zeros(0, h8, w8, 2, device=dev)
         self.weight = torch.zeros(0, h8, w8, 2, device=dev)
 
@@ -319,7 +324,7 @@ class FactorGraph:
             self.update_apply, self.params, video.poses[win], video.disps[win],
             video.disps_sens[win], video.damping[win], video.intrinsics[0],
             video.fmaps[ii_pt, 0], video.fmaps[jj_pt, 0],
-            torch.cat([self.net, torch.zeros(pad, h8, w8, 128, device=dev)], 0),
+            torch.cat([self.net, self.net.new_zeros(pad, h8, w8, 128)], 0),
             video.inps[ii_pt],
             torch.cat([self.target, torch.zeros(pad, h8, w8, 2, device=dev)], 0),
             ii_at, jj_at, ii_at.clamp(0, MW - 1), active,
@@ -380,8 +385,10 @@ class FactorGraph:
         Each step refreshes every edge's update-operator state chunk by
         chunk (8 source frames, up to EB edges) against the same poses, then
         runs one dense BA over the whole video.  A chunk's correlation is
-        K2 over its edges followed by K3: the JAX package's altcorr_pyramid
-        (ops.corr) computes the same function from a pooled feature pyramid.
+        K2 over its edges, with fp32 levels, followed by K3: the JAX
+        package's altcorr_pyramid computes the same function from a pooled
+        feature pyramid (pooled in the compute dtype there: the two differ
+        within its rounding).
         """
         video, cfg, dev = self.video, self.cfg, self.device
         t = video.counter
@@ -409,16 +416,16 @@ class FactorGraph:
                 ii, jj, emask = ii_ck[c], jj_ck[c], emask_ck[c]
                 coords1 = projective_transform(poses[None], disps[None], intr[None], ii, jj)[0][0]
                 motn = torch.cat([coords1 - coords0, target_ck[c] - coords1], -1).clamp(-64.0, 64.0)
-                levels = corr_build(video.fmaps[ii, 0], video.fmaps[jj, 0])
+                levels = corr_build(video.fmaps[ii, 0], video.fmaps[jj, 0], torch.float32)
                 corr = corr_lookup(levels, coords1.reshape(EB, h8 * w8, 2).contiguous())
                 del levels
                 nets, delta, weight, eta, _ = self.update_apply(
                     self.params, nets_ck[c][None], video.inps[ii][None],
                     corr.reshape(1, EB, h8, w8, -1), motn[None], kk_ck[c], s, emask)
-                damping_ext[frame_ck[c]] = eta[0]   # slots without edges land in row t
+                damping_ext[frame_ck[c]] = eta[0].float()   # slots without edges land in row t
                 nets_out.append(nets[0])
-                target_out.append(coords1 + delta[0])
-                weight_out.append(weight[0] * emask[:, None, None, None])
+                target_out.append(coords1 + delta[0].float())
+                weight_out.append(weight[0].float() * emask[:, None, None, None])
             self.net = torch.cat(nets_out, 0)[take_back]
             self.target = torch.cat(target_out, 0)[take_back]
             self.weight = torch.cat(weight_out, 0)[take_back]

@@ -3,7 +3,9 @@
 Per frame: fnet features, a one-step update-operator motion check against
 the last keyframe (a 1-edge correlation at the grid coords, one GRU step,
 no BA) and, when the frame is admitted, cnet context features.  The 1-edge
-correlation goes through K2 and K3 like the frontend's.
+correlation goes through K2 and K3 like the frontend's: an fp32 volume from
+features in the compute dtype (the JAX package's corr_volume), cast to the
+compute dtype at the update operator's input.
 """
 import numpy as np
 import torch
@@ -24,6 +26,17 @@ class MotionFilter:
         self.hidden = None
         self.inp = None
 
+    def delta_norm(self, gmap):
+        """The mean flow correction of one update-operator step for features
+        gmap [1, h8, w8, 128] against the last keyframe's (a 0-d tensor)."""
+        h8, w8 = gmap.shape[1:3]
+        coords0 = coords_grid(h8, w8, device=gmap.device).reshape(1, h8 * w8, 2)
+        levels = corr_build(self.fmap.contiguous(), gmap.contiguous(), torch.float32)
+        corr = corr_lookup(levels, coords0).reshape(1, 1, h8, w8, -1)
+        _, delta, _ = self.net.update(self.hidden[None, None], self.inp[None, None],
+                                      corr.to(self.hidden.dtype))
+        return delta[0, 0].float().norm(dim=-1).mean()
+
     def track(self, tstamp, image, depth=None, intrinsics=None):
         """Process one frame: image [H, W, 3] uint8 BGR (host)."""
         video = self.video
@@ -39,14 +52,7 @@ class MotionFilter:
                          gmap, net[0], inp[0])
             return
 
-        h8, w8 = gmap.shape[1:3]
-        coords0 = coords_grid(h8, w8, device=dev).reshape(1, h8 * w8, 2)
-        levels = corr_build(self.fmap.contiguous(), gmap.contiguous())
-        corr = corr_lookup(levels, coords0).reshape(1, 1, h8, w8, -1)
-        _, delta, _ = self.net.update(self.hidden[None, None], self.inp[None, None], corr)
-        delta_norm = delta[0, 0].norm(dim=-1).mean()
-
-        if float(delta_norm) > self.thresh:  # the per-frame host sync
+        if float(self.delta_norm(gmap)) > self.thresh:  # the per-frame host sync
             self.count = 0
             net, inp = cnet_apply(self.net, imgs)
             self.hidden, self.inp, self.fmap = net[0], inp[0], gmap

@@ -7,6 +7,7 @@ from .. import native
 from ..ba.solver import ba_iterations
 from ..geom import frame_distance, projective_transform
 from ..lie import se3_identity
+from .net_ops import compute_dtype
 
 
 def _round_up(x, m):
@@ -34,9 +35,12 @@ class Video:
         self.intrinsics = torch.zeros(buf, 4, device=dev)
         self.damping = torch.full((buf, h8, w8), 1e-6, device=dev)
 
-        self.fmaps = torch.zeros(buf, 1, h8, w8, 128, device=dev)
-        self.nets = torch.zeros(buf, h8, w8, 128, device=dev)
-        self.inps = torch.zeros(buf, h8, w8, 128, device=dev)
+        # the networks' features and states in the compute dtype; poses,
+        # disparities and intrinsics stay fp32
+        fdt = compute_dtype(config.compute_dtype)
+        self.fmaps = torch.zeros(buf, 1, h8, w8, 128, dtype=fdt, device=dev)
+        self.nets = torch.zeros(buf, h8, w8, 128, dtype=fdt, device=dev)
+        self.inps = torch.zeros(buf, h8, w8, 128, dtype=fdt, device=dev)
 
     def append(self, tstamp, image, pose, disp, depth, intrinsics, fmap, net=None, inp=None):
         """Add a keyframe at slot ``counter``.
@@ -158,6 +162,6 @@ class Video:
         return {
             "tstamps": self.tstamp[:t].copy(),
             "images": self.images[:t].copy(),
-            **{k: getattr(self, k)[:t].cpu().numpy()
+            **{k: getattr(self, k)[:t].float().cpu().numpy()      # fp32, as the JAX package
                for k in ("poses", "disps", "disps_sens", "intrinsics", "fmaps", "nets", "inps")},
         }

@@ -21,9 +21,13 @@ class GradientClip(nn.Module):
 
 def instance_norm(x, eps=1e-5):
     """InstanceNorm2d without affine parameters, NCHW: per-sample,
-    per-channel normalisation over the spatial dims (biased variance)."""
-    mean = x.mean(dim=(2, 3), keepdim=True)
-    var = x.var(dim=(2, 3), keepdim=True, unbiased=False)
+    per-channel normalisation over the spatial dims (biased variance).
+
+    The statistics are taken in fp32 and cast to x's dtype, as jnp.mean and
+    jnp.var do for bf16; the normalisation itself runs in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True).to(x.dtype)
+    var = xf.var(dim=(2, 3), keepdim=True, unbiased=False).to(x.dtype)
     return (x - mean) * torch.rsqrt(var + eps)
 
 

@@ -39,8 +39,11 @@ class GraphAgg(nn.Module):
         if emask is None:
             emask = torch.ones(N, dtype=x.dtype, device=x.device)
         emask = emask.to(x.dtype)
-        sums = x.new_zeros(B, M, 128, H, W).index_add_(1, kk, x * emask[None, :, None, None, None])
-        counts = x.new_zeros(M).index_add_(0, kk, emask)
+        # the sums in fp32, cast to the compute dtype (the JAX contraction's
+        # preferred_element_type); the counts are small integers, exact in both
+        xm = (x * emask[None, :, None, None, None]).float()
+        sums = xm.new_zeros(B, M, 128, H, W).index_add_(1, kk, xm).to(x.dtype)
+        counts = xm.new_zeros(M).index_add_(0, kk, emask.float()).to(x.dtype)
         mean = sums / counts.clamp_min(1.0)[None, :, None, None, None]
 
         y = F.relu(self.conv2(mean.reshape(B * M, 128, H, W)))

@@ -11,9 +11,15 @@ for CPU tensors:
 - K7 ``cuda_corr.corr_extract_windows`` (plain: ``cuda_corr.corr_extract_windows_plain``)
 - K8 ``cuda_corr.corr_build_windows_levels``
   (plain: ``cuda_corr.corr_build_windows_levels_plain``)
+
+K2-K5 also have bf16 instantiations (``cuda_corr.INSTANCES``): K2
+``corr_build_bf16`` (bf16 levels) and ``corr_build_bf16_f32`` (fp32 levels),
+``corr_lookup_bf16``, ``corr_build_windows_bf16`` and
+``corr_lookup_windows_bf16``, each counted under its own name.
 """
 from .cuda_ba import ba_system_blocks, build_system_blocks
 from .cuda_corr import (
+    INSTANCES,
     corr_build,
     corr_build_plain,
     corr_build_windows,
@@ -30,8 +36,7 @@ from .cuda_corr import (
     corr_lookup_windows_plain,
 )
 
-KERNELS = {
-    "ba_blocks": (ba_system_blocks, build_system_blocks),
+_WRAPPERS = {
     "corr_build": (corr_build, corr_build_plain),
     "corr_lookup": (corr_lookup, corr_lookup_plain),
     "corr_build_windows": (corr_build_windows, corr_build_windows_plain),
@@ -40,18 +45,21 @@ KERNELS = {
     "corr_extract_windows": (corr_extract_windows, corr_extract_windows_plain),
     "corr_build_windows_levels": (corr_build_windows_levels, corr_build_windows_levels_plain),
 }
+# every kernel instantiation by name -> (its wrapper, its plain version)
+KERNELS = {"ba_blocks": (ba_system_blocks, build_system_blocks)}
+KERNELS.update({name: pair for kernel, pair in _WRAPPERS.items() for name in INSTANCES[kernel]})
 
 
 def reset_counts():
-    """Set every kernel's launch count and every plain version's call count to 0."""
-    for wrapper, plain in KERNELS.values():
-        wrapper.launches = 0
-        plain.calls = 0
+    """Set every instantiation's launch count and its plain version's call count to 0."""
+    for name, (wrapper, plain) in KERNELS.items():
+        wrapper.launches[name] = 0
+        plain.calls[name] = 0
 
 
 def counts():
-    """{name: (kernel launches, plain calls)}."""
-    return {name: (w.launches, p.calls) for name, (w, p) in KERNELS.items()}
+    """{instantiation: (kernel launches, plain calls)}."""
+    return {name: (w.launches[name], p.calls[name]) for name, (w, p) in KERNELS.items()}
 
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` source is compiled for ``sm_90a`` by its own nvcc
 process, all started together, and the objects are linked into one shared
 library with a plain C interface under ``build/torch_kernels/`` (listed in
-``.gitignore``).  The build runs at first use and again whenever a source is
-newer than the library; nothing is imported or compiled at module import.
+``.gitignore``).  The build runs at first use and again whenever a source or
+a header (``csrc/*.cuh``) is newer than the library; nothing is imported or
+compiled at module import.
 """
 import ctypes
 import glob
@@ -29,9 +30,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ba_blocks_launch": [_P] * 7 + [_F] * 2 + [_I] * 3 + [_P] * 6,
     "corr_build_launch": [_P, _P] + [_I] * 5 + [_P] * 5,
+    "corr_build_bf16_launch": [_P, _P] + [_I] * 5 + [_P] * 4 + [_I, _P],
     "corr_lookup_launch": [_P] * 5 + [_I] * 4 + [_P, _P],
+    "corr_lookup_bf16_launch": [_P] * 5 + [_I] * 4 + [_P, _P],
     "corr_windows_build_launch": [_P] * 3 + [_I] * 5 + [_P] * 3,
+    "corr_windows_build_bf16_launch": [_P] * 3 + [_I] * 5 + [_P] * 3,
     "corr_windows_lookup_launch": [_P] * 3 + [_I] * 4 + [_P, _P],
+    "corr_windows_lookup_bf16_launch": [_P] * 3 + [_I] * 4 + [_P, _P],
     "corr_pmajor_lookup_launch": [_P] * 5 + [_I] * 4 + [_P, _P],
     "corr_extract_windows_launch": [_P] * 5 + [_I] * 4 + [_P] * 3,
     "corr_windows_build_levels_launch": [_P] * 3 + [_I] * 5 + [_P] * 7,
@@ -95,7 +100,7 @@ def library():
     """The loaded kernel library, built first if it is missing or stale."""
     global _lib
     if _lib is None:
-        sources = glob.glob(os.path.join(CSRC, "*.cu"))
+        sources = glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh"))
         if _stale(sources):
             build()
         lib = ctypes.CDLL(LIB_PATH)

@@ -9,7 +9,12 @@ The spec that the CUDA kernels of ops/cuda_corr.py match:
 - level l is sampled at coords / 2**l with the same radius;
 - lookup channels are ``a * (2r+1) + b`` with a the x tap and b the y tap;
 - bilinear corners outside the level read 0;
-- levels are concatenated level-major.
+- levels are concatenated level-major;
+- in bf16 (the JAX package's bfloat16 compute dtype) every value is computed
+  in fp32 and rounded once where the TPU kernels store it: each level (a
+  pooled level pools the rounded one below it), each window, each lookup
+  output.  The lookups' bilinear weights are rounded to the volume's dtype
+  first, as the TPU kernels cast them.
 """
 import torch
 
@@ -24,11 +29,13 @@ def corr_volume_flat(f1, f2):
 
 
 def pool2x_volume_flat(volp):
-    """2x average pool over the trailing dims of [E, P, H2, W2] (floor)."""
+    """2x average pool over the trailing dims of [E, P, H2, W2] (floor),
+    summed in fp32 and returned in volp's dtype."""
     E, P, H2, W2 = volp.shape
     h, w = H2 // 2, W2 // 2
-    v = volp[..., : 2 * h, : 2 * w].reshape(E, P, h, 2, w, 2)
-    return (v[..., 0, :, 0] + v[..., 0, :, 1] + v[..., 1, :, 0] + v[..., 1, :, 1]) * 0.25
+    v = volp[..., : 2 * h, : 2 * w].float().reshape(E, P, h, 2, w, 2)
+    out = (v[..., 0, :, 0] + v[..., 0, :, 1] + v[..., 1, :, 0] + v[..., 1, :, 1]) * 0.25
+    return out.to(volp.dtype)
 
 
 def build_pyramid_flat(volp, num_levels=4):
@@ -39,26 +46,33 @@ def build_pyramid_flat(volp, num_levels=4):
     return pyr
 
 
+def _weights(x, xf, dtype):
+    """The bilinear weight x - xf [..., 1, 1], rounded to ``dtype`` (as the
+    TPU kernels cast it to the volume's dtype) and computed with in fp32."""
+    return (x - xf).to(dtype).float()[..., None, None]
+
+
 def _lookup_level(vol, coords, radius):
-    """vol [E, P, h, w], coords [E, P, 2] in level pixels -> [E, P, rd*rd]."""
+    """vol [E, P, h, w], coords [E, P, 2] in level pixels -> [E, P, rd*rd]
+    in vol's dtype."""
     E, P, h, w = vol.shape
     rd = 2 * radius + 1
     x, y = coords[..., 0], coords[..., 1]
     xf, yf = torch.floor(x), torch.floor(y)
-    dx, dy = (x - xf)[..., None, None], (y - yf)[..., None, None]
+    dx, dy = _weights(x, xf, vol.dtype), _weights(y, yf, vol.dtype)
     offs = torch.arange(-radius, radius + 2, device=vol.device)
     ys = yf.clamp(-1e6, 1e6).long()[..., None] + offs              # [E, P, rd+1]
     xs = xf.clamp(-1e6, 1e6).long()[..., None] + offs
     ok = (((ys >= 0) & (ys < h))[..., :, None] & ((xs >= 0) & (xs < w))[..., None, :])
     idx = ys.clamp(0, max(h - 1, 0))[..., :, None] * w + xs.clamp(0, max(w - 1, 0))[..., None, :]
     if h * w == 0:
-        g = vol.new_zeros(E, P, rd + 1, rd + 1)
+        g = vol.new_zeros(E, P, rd + 1, rd + 1, dtype=torch.float32)
     else:
         g = vol.reshape(E, P, h * w).gather(2, idx.reshape(E, P, -1)).reshape(E, P, rd + 1, rd + 1)
-        g = torch.where(ok, g, torch.zeros_like(g))
+        g = torch.where(ok, g, torch.zeros_like(g)).float()
     yb = (1.0 - dy) * g[:, :, :rd, :] + dy * g[:, :, 1:, :]         # [E, P, b, rd+1]
     xb = (1.0 - dx) * yb[..., :rd] + dx * yb[..., 1:]                # [E, P, b, a]
-    return xb.transpose(-1, -2).reshape(E, P, rd * rd)
+    return xb.transpose(-1, -2).reshape(E, P, rd * rd).to(vol.dtype)
 
 
 def corr_lookup_pyramid_flat(pyramid, coords, radius=3):
@@ -145,17 +159,17 @@ def extract_windows(pyramid, bases):
 def _sample_span(win, sy, sx, c, radius):
     """The K3 formula read from a zero-bordered tile: win [E, P, R, S], the
     8-tap span starting at (sy, sx) [E, P], c [E, P, 2] level pixels
-    -> [E, P, (2r+1)**2] (channel a * (2r+1) + b)."""
+    -> [E, P, (2r+1)**2] in win's dtype (channel a * (2r+1) + b)."""
     E, P, _, S = win.shape
     rd = 2 * radius + 1
     taps = torch.arange(rd + 1, device=c.device)
     x, y = c[..., 0], c[..., 1]
-    dx, dy = (x - torch.floor(x))[..., None, None], (y - torch.floor(y))[..., None, None]
+    dx, dy = _weights(x, torch.floor(x), win.dtype), _weights(y, torch.floor(y), win.dtype)
     g = win.gather(2, (sy[..., None] + taps)[..., None].expand(E, P, rd + 1, S))
-    g = g.gather(3, (sx[..., None] + taps)[:, :, None, :].expand(E, P, rd + 1, rd + 1))
+    g = g.gather(3, (sx[..., None] + taps)[:, :, None, :].expand(E, P, rd + 1, rd + 1)).float()
     yb = (1.0 - dy) * g[:, :, :rd, :] + dy * g[:, :, 1:, :]           # [E, P, b, rd+1]
     xb = (1.0 - dx) * yb[..., :rd] + dx * yb[..., 1:]                  # [E, P, b, a]
-    return xb.transpose(-1, -2).reshape(E, P, rd * rd)
+    return xb.transpose(-1, -2).reshape(E, P, rd * rd).to(win.dtype)
 
 
 def lookup_windows(wins, bases, coords, sizes, radius=3):

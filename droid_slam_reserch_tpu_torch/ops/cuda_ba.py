@@ -3,7 +3,8 @@
 The counterpart of the JAX package's ops/pallas_ba.py and, for the plain
 version, of ba/system.py::build_system_blocks.  For CUDA tensors
 ``ba_system_blocks`` launches csrc/ba_blocks.cu or raises; for CPU tensors
-it runs ``build_system_blocks``.  ``launches`` / ``calls`` count each;
+it runs ``build_system_blocks``.  ``launches`` / ``calls`` count each
+(dicts keyed by the kernel's name, as ops.cuda_corr's);
 ``system_blocks`` is the uncounted function itself.
 
 Conventions: weights are scaled by 0.001, pixels behind min_depth get zero
@@ -54,11 +55,11 @@ def system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
 
 def build_system_blocks(*args, **kw):
     """Plain K1: system_blocks, counted."""
-    build_system_blocks.calls += 1
+    build_system_blocks.calls["ba_blocks"] += 1
     return system_blocks(*args, **kw)
 
 
-build_system_blocks.calls = 0
+build_system_blocks.calls = {"ba_blocks": 0}
 
 
 def edge_inputs(poses, ii, jj):
@@ -126,7 +127,7 @@ def ba_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
 
     Hb, vb, Eb, Cb, wb = launch(outputs(N, H, W, dev), target, weight, poses, disps,
                                 intrinsics, ii, jj, min_depth, w_scale)
-    ba_system_blocks.launches += 1
+    ba_system_blocks.launches["ba_blocks"] += 1
     return {
         "Hii": Hb[:, :6, :6], "Hij": Hb[:, :6, 6:], "Hji": Hb[:, 6:, :6], "Hjj": Hb[:, 6:, 6:],
         "vi": vb[:, :6], "vj": vb[:, 6:], "Ei": Eb[:, :6], "Ej": Eb[:, 6:],
@@ -134,4 +135,4 @@ def ba_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
     }
 
 
-ba_system_blocks.launches = 0
+ba_system_blocks.launches = {"ba_blocks": 0}

@@ -2,11 +2,13 @@
 package's tools/profile_frontend.py).
 
 Times each stage of the frontend's hot path in isolation at bench.py's
-shape (E = 48 edges, a 24-frame window, 40x64 at 1/8 resolution, C = 128,
-fp32), every correlation variant beside it, and ``fused_rounds`` over six
-rounds, and returns the breakdown as a dict:
+shape (E = 48 edges, a 24-frame window, 40x64 at 1/8 resolution, C = 128),
+in the compute dtype (fp32 or bf16, ``dtype``), every correlation variant
+beside it, and ``fused_rounds`` over six rounds, and returns the breakdown
+as a dict:
 
     python -m droid_slam_reserch_tpu_torch.tools.profile_frontend          # on the card
+    python -m droid_slam_reserch_tpu_torch.tools.profile_frontend --dtype bfloat16
     python -m droid_slam_reserch_tpu_torch.tools.profile_frontend --device cpu --small
 
 prints it as one JSON line (``--small`` is bench.py's small shape, 8x16,
@@ -20,6 +22,12 @@ ops/cuda_ba.system_blocks) directly, as the JAX tool times its XLA paths:
 they are not a wrapper's CPU path, so on the card they leave the plain
 call counts of ``ops.counts()`` at 0.
 
+In bf16 the features, the update operator and the correlation are bf16
+(the BA stays fp32).  K6, K7 and K8 have no bf16 instantiation, so their
+keys are None; K5 then reads K4's windows, its error and K3's are taken
+against the plain lookup of K2's own levels, and the amortised build is
+K4's.
+
 Keys, and the JAX tool's key for the same section:
 
 | key                          | JAX tool key                     | what runs                     |
@@ -32,10 +40,12 @@ Keys, and the JAX tool's key for the same section:
 | lookup_k3_ms                 | lookup_pallas_ms                 | K3 corr_lookup                |
 | lookup_k6_ms                 | (none)                           | K6 corr_lookup_pmajor         |
 | extract_k7_ms                | window_extract_ms                | K7 corr_extract_windows       |
+| build_k4_ms                  | (none)                           | K4 corr_build_windows         |
 | lookup_k5_ms                 | lookup_windows_ms                | K5 over K7's windows          |
 | k3_max_err                   | pallas_max_err                   | K3 against lookup_plain       |
 | k6_max_err                   | (none)                           | K6 against lookup_plain       |
 | k5_max_err                   | windows_max_err                  | K5(K7) against lookup_plain   |
+| lookup_ref_max               | (none)                           | largest |lookup_plain|        |
 | update_module_ms             | update_module_ms                 | UpdateModule + GraphAgg       |
 | ba_2iter_plain_ms            | ba_2iter_xla_ms                  | 2 BA iterations, plain blocks |
 | ba_2iter_k1_ms               | ba_2iter_pallas_ms               | 2 BA iterations, K1           |
@@ -54,7 +64,7 @@ import torch
 from ..ba.solver import ba_iterations, schur_pairs
 from ..engine.droid import resolve_device
 from ..engine.factor_graph import fused_rounds
-from ..engine.net_ops import update_apply
+from ..engine.net_ops import compute_dtype, update_apply
 from ..geom import projective_transform
 from ..lie import se3_exp
 from ..models import UpdateModule, init_params
@@ -67,6 +77,7 @@ from ..ops.corr import (
 from ..ops.cuda_ba import ba_system_blocks, system_blocks
 from ..ops.cuda_corr import (
     corr_build,
+    corr_build_windows,
     corr_build_windows_levels,
     corr_extract_windows,
     corr_lookup,
@@ -109,10 +120,12 @@ def _timeit(fn, iters, device):
 
 
 @torch.no_grad()
-def profile(h8=40, w8=64, N=48, MW=24, device="cuda", iters=10):
-    """The per-section breakdown at (h8, w8) with N edges over MW frames;
-    see the module docstring for the keys."""
+def profile(h8=40, w8=64, N=48, MW=24, device="cuda", iters=10, dtype="float32"):
+    """The per-section breakdown at (h8, w8) with N edges over MW frames in
+    the compute dtype ``dtype``; see the module docstring for the keys."""
     dev = resolve_device(device)
+    dt = compute_dtype(dtype)
+    fp32 = dt == torch.float32
 
     def timeit(fn, n):
         return _timeit(fn, n, dev)
@@ -125,7 +138,7 @@ def profile(h8=40, w8=64, N=48, MW=24, device="cuda", iters=10):
     disps = torch.ones(MW, h8, w8, device=dev)
     intr = torch.tensor([w8 * 4.0, w8 * 4.0, w8 / 2.0, h8 / 2.0], device=dev)
     intr_win = intr.expand(MW, 4)
-    fmaps = 0.1 * torch.randn(MW, h8, w8, 128, generator=gen, device=dev)
+    fmaps = (0.1 * torch.randn(MW, h8, w8, 128, generator=gen, device=dev)).to(dt)
     ii, jj = edge_graph(N, MW)
     be, bm = schur_pairs(ii, MW)
     ii, jj = torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev)
@@ -135,9 +148,9 @@ def profile(h8=40, w8=64, N=48, MW=24, device="cuda", iters=10):
     update = UpdateModule()
     update.load_state_dict({k[len("update."):]: v for k, v in init_params(0).items()
                             if k.startswith("update.")})
-    update.to(dev).eval().requires_grad_(False)
+    update.to(dev, dt).eval().requires_grad_(False)
     res = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-           "h8": h8, "w8": w8, "edges": N, "window": MW}
+           "h8": h8, "w8": w8, "edges": N, "window": MW, "dtype": dtype}
 
     def reproject():
         return projective_transform(poses[None], disps[None], intr_win[None], ii, jj)[0][0]
@@ -147,37 +160,47 @@ def profile(h8=40, w8=64, N=48, MW=24, device="cuda", iters=10):
     cflat = coords1.reshape(N, P, 2).contiguous()
 
     # volume + pyramid builds (once per keyframe)
-    res["build_plain_ms"] = timeit(lambda: build_pyramid_flat(corr_volume_flat(f1, f2)), iters)
-    pyr = build_pyramid_flat(corr_volume_flat(f1, f2))
+    def build_plain():
+        return build_pyramid_flat(corr_volume_flat(f1, f2).to(dt))
+
+    res["build_plain_ms"] = timeit(build_plain, iters)
     res["build_k2_ms"] = timeit(lambda: corr_build(f1, f2), iters)
     levels = corr_build(f1, f2)
-    res["build_k8_ms"] = timeit(lambda: corr_build_windows_levels(f1, f2, cflat), iters)
+    res["build_k8_ms"] = (timeit(lambda: corr_build_windows_levels(f1, f2, cflat), iters)
+                          if fp32 else None)
+    res["build_k4_ms"] = timeit(lambda: corr_build_windows(f1, f2, cflat), iters)
 
-    # lookups (per round), each held against the plain flat lookup
-    ref = corr_lookup_pyramid_flat(pyr, cflat)
-    del pyr
+    # lookups (per round), each held against the plain flat lookup (in bf16,
+    # of K2's own levels: K2 and the plain build may round a sum apart)
+    ref = corr_lookup_pyramid_flat(build_plain() if fp32 else levels, cflat)
 
     def max_err(out):
-        return float((out - ref).abs().max())
+        return float((out.float() - ref.float()).abs().max())
+
+    res["lookup_ref_max"] = float(ref.float().abs().max())
 
     res["lookup_plain_ms"] = timeit(lambda: corr_lookup_pyramid_flat(levels, cflat), iters)
     res["lookup_k3_ms"] = timeit(lambda: corr_lookup(levels, cflat), iters)
     res["k3_max_err"] = max_err(corr_lookup(levels, cflat))
-    padded, _ = build_pyramid_pmajor(f1, f2)
-    res["lookup_k6_ms"] = timeit(lambda: corr_lookup_pmajor(padded, cflat), iters)
-    res["k6_max_err"] = max_err(corr_lookup_pmajor(padded, cflat))
-    del padded
-    res["extract_k7_ms"] = timeit(lambda: corr_extract_windows(levels, cflat), iters)
-    wins, bases = corr_extract_windows(levels, cflat)
+    if fp32:
+        padded, _ = build_pyramid_pmajor(f1, f2)
+        res["lookup_k6_ms"] = timeit(lambda: corr_lookup_pmajor(padded, cflat), iters)
+        res["k6_max_err"] = max_err(corr_lookup_pmajor(padded, cflat))
+        del padded
+        res["extract_k7_ms"] = timeit(lambda: corr_extract_windows(levels, cflat), iters)
+        wins, bases = corr_extract_windows(levels, cflat)
+    else:
+        res["lookup_k6_ms"] = res["k6_max_err"] = res["extract_k7_ms"] = None
+        wins, bases = corr_build_windows(f1, f2, cflat)
     res["lookup_k5_ms"] = timeit(lambda: corr_lookup_windows(wins, bases, cflat, (h8, w8)), iters)
     res["k5_max_err"] = max_err(corr_lookup_windows(wins, bases, cflat, (h8, w8)))
     del levels, wins, bases
 
     # the update operator alone
-    nets = torch.zeros(N, h8, w8, 128, device=dev)
-    inps = torch.zeros(N, h8, w8, 128, device=dev)
+    nets = torch.zeros(N, h8, w8, 128, dtype=dt, device=dev)
+    inps = torch.zeros(N, h8, w8, 128, dtype=dt, device=dev)
     corr = ref.reshape(N, h8, w8, -1)
-    motn = torch.zeros(N, h8, w8, 4, device=dev)
+    motn = torch.zeros(N, h8, w8, 4, dtype=dt, device=dev)
     res["update_module_ms"] = timeit(
         lambda: update(nets[None], inps[None], corr[None], motn[None], ii, MW), iters)
 
@@ -213,7 +236,8 @@ def profile(h8=40, w8=64, N=48, MW=24, device="cuda", iters=10):
     res["fused_per_round_ms"] = res["fused_6rounds_ms"] / ROUNDS
     res["sum_parts_per_round_ms"] = (res["reproject_ms"] + res["lookup_k5_ms"]
                                      + res["update_module_ms"] + res["ba_2iter_k1_ms"])
-    res["build_amortized_per_round_ms"] = (res["build_k2_ms"] + res["extract_k7_ms"]) / ROUNDS
+    res["build_amortized_per_round_ms"] = (
+        (res["build_k2_ms"] + res["extract_k7_ms"]) if fp32 else res["build_k4_ms"]) / ROUNDS
     return res
 
 
@@ -221,11 +245,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true", help="bench.py's small shape")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="the compute dtype (DroidConfig.compute_dtype)")
     args = ap.parse_args(argv)
-    torch.backends.cudnn.allow_tf32 = False          # fp32 throughout, as the tests
+    torch.backends.cudnn.allow_tf32 = False          # fp32 in full, as the tests
     torch.backends.cuda.matmul.allow_tf32 = False
     shape = SMALL if args.small else FULL
-    print(json.dumps(profile(**shape, device=args.device)), flush=True)
+    print(json.dumps(profile(**shape, device=args.device, dtype=args.dtype)), flush=True)
 
 
 if __name__ == "__main__":

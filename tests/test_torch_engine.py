@@ -238,14 +238,20 @@ def test_save_reconstruction(runs, tmp_path):
     assert np.isfinite(data["poses"]).all()
 
 
-OUT_OF_SLICE = {"upsample": True, "stereo": True, "rgbd": True,
-                "compute_dtype": "bfloat16", "vis_path": "viz"}
+OUT_OF_SLICE = {"upsample": True, "stereo": True, "rgbd": True, "vis_path": "viz"}
 
 
 @pytest.mark.parametrize("flag", sorted(OUT_OF_SLICE))
 def test_out_of_slice_options_raise(flag):
     with pytest.raises(NotImplementedError):
         TDroid(torch_config(**{flag: OUT_OF_SLICE[flag]}), device="cpu")
+
+
+def test_unknown_compute_dtype_raises():
+    """float32 and bfloat16 are the compute dtypes, as in the JAX package's
+    net_ops lookup; any other value is refused."""
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TDroid(torch_config(compute_dtype="float16"), device="cpu")
 
 
 def test_terminate_is_slice_two_and_cuda_is_required():

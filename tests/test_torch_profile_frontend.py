@@ -141,8 +141,11 @@ def test_profile_on_the_cpu():
     assert res["device"] == "cpu" and set(KEYS) <= set(res)
     assert all(np.isfinite(res[k]) and res[k] >= 0 for k in KEYS)
     assert max(res["k3_max_err"], res["k6_max_err"], res["k5_max_err"]) <= 1e-5
-    # CPU tensors: every wrapper ran its plain version, no kernel launched
-    assert all(launches == 0 and plain > 0 for launches, plain in counts.values()), counts
+    # CPU tensors: every fp32 instantiation ran its plain version, no kernel
+    # launched, and no bf16 instantiation ran at all
+    fp32 = {k: v for k, v in counts.items() if "bf16" not in k}
+    assert all(launches == 0 and plain > 0 for launches, plain in fp32.values()), counts
+    assert all(counts[k] == (0, 0) for k in counts if k not in fp32), counts
 
 
 def test_profile_needs_cuda_unless_asked_for_the_cpu():
