@@ -37,8 +37,20 @@
 // was slower at every buffer size tried, with smooth and with random
 // coords: the shared memory it takes shrinks L1, which already gave that
 // reuse.
+//
+// bf16 (the JAX package's bfloat16 levels, where the TPU kernel writes
+// padded[0].dtype): the same kernel reads bf16 cells and widens them, rounds
+// the fractional parts to bf16 as the TPU kernel casts them, blends in fp32
+// with each operation rounded alone, and rounds each output once, so it
+// equals the plain version (ops/corr.py) exactly.  The outputs are staged as
+// bf16 and stored 8 to a 16-byte store; a tile's run starts 8-byte aligned
+// (196 outputs a pixel), so its first and last 8 bytes may take an 8-byte
+// store.  It moves about half the bytes of the fp32 kernel, with as many
+// loads.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtype_io.cuh"
 
 namespace {
 
@@ -48,8 +60,8 @@ constexpr int kOut = kLevels * kD * kD; // 196 outputs per pixel
 constexpr int kTile = 32;               // pixels per block
 constexpr int kThreads = kTile * kD;    // a thread per (pixel, x tap)
 
-struct Padded {
-  const float* lv[kLevels];
+template <typename T> struct Padded {
+  const T* lv[kLevels];
   int Hp[kLevels], Wp[kLevels];
 };
 
@@ -68,13 +80,18 @@ __device__ __forceinline__ float blend(float g00, float g01, float g10, float g1
   return __fadd_rn(__fmul_rn(wx, y0), __fmul_rn(f.x, y1));
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-pmajor_lookup_kernel(Padded pad, const float2* __restrict__ coords, float* __restrict__ out,
+pmajor_lookup_kernel(Padded<T> pad, const float2* __restrict__ coords, T* __restrict__ out,
                      int P) {
-  __shared__ __align__(16) float stage[kTile * kOut];
+  // the outputs in T; a bf16 run may start 8 bytes into a 16-byte chunk, and
+  // the stage starts as many bytes in, so that it lines up with the chunks
+  __shared__ __align__(16) T stage[kTile * kOut + (sizeof(T) == 2 ? 8 : 0)];
   const int tid = threadIdx.x, q = tid / kD, a = tid - q * kD;
   const int e = blockIdx.y, p0 = blockIdx.x * kTile;
   const int np = min(kTile, P - p0);
+  // where the tile's first output lies in its 16-byte chunk: 0 or 4 (kOut % 4 == 0)
+  const int sh = sizeof(T) == 2 ? (int)((((size_t)e * P + p0) * kOut) & 7) : 0;
 
   if (q < np) {
     const float2 c = coords[(size_t)e * P + p0 + q];
@@ -88,29 +105,67 @@ pmajor_lookup_kernel(Padded pad, const float2* __restrict__ coords, float* __res
       const float x = c.x * scale, y = c.y * scale;
       const int sy = min(max(floor_clamped(y) + kPad - kR, 0), Hp - 8);
       const int sx = min(max(floor_clamped(x) + kPad - kR, 0), Wp - 8);
-      f[l] = make_float2(x - floorf(x), y - floorf(y));
+      f[l] = make_float2(Io<T>::round(x - floorf(x)), Io<T>::round(y - floorf(y)));
       // cell (row, column) of edge e lives at ((e * Hp + row) * Wp + column) * P + p
-      const float* v = pad.lv[l] + (((size_t)e * Hp + sy) * Wp + sx + a) * col + p0 + q;
+      const T* v = pad.lv[l] + (((size_t)e * Hp + sy) * Wp + sx + a) * col + p0 + q;
       const size_t row = (size_t)Wp * col;
 #pragma unroll
       for (int i = 0; i <= kD; i++) {
-        g[l][0][i] = __ldg(v + i * row);
-        g[l][1][i] = __ldg(v + i * row + col);
+        g[l][0][i] = Io<T>::load(v + i * row);
+        g[l][1][i] = Io<T>::load(v + i * row + col);
       }
     }
-    float* o = stage + q * kOut + a * kD;
+    T* o = stage + sh + q * kOut + a * kD;
 #pragma unroll
     for (int l = 0; l < kLevels; l++)
 #pragma unroll
       for (int b = 0; b < kD; b++)
-        o[l * kD * kD + b] = blend(g[l][0][b], g[l][1][b], g[l][0][b + 1], g[l][1][b + 1], f[l]);
+        o[l * kD * kD + b] =
+            Io<T>::cvt(blend(g[l][0][b], g[l][1][b], g[l][0][b + 1], g[l][1][b + 1], f[l]));
   }
   __syncthreads();
 
-  // ---- the tile's np x 196 outputs are one contiguous run: 16-byte stores
-  float4* dst = reinterpret_cast<float4*>(out + ((size_t)e * P + p0) * kOut);
-  const float4* src = reinterpret_cast<const float4*>(stage);
-  for (int i = tid; i < np * (kOut / 4); i += kThreads) dst[i] = src[i];
+  // ---- the tile's np x 196 outputs are one contiguous run: 16-byte stores,
+  // chunk i holding outputs 8 i - sh .. 8 i - sh + 7 (bf16) or 4 i .. 4 i + 3
+  const size_t first = ((size_t)e * P + p0) * kOut;
+  if constexpr (sizeof(T) == 4) {
+    float4* dst = reinterpret_cast<float4*>(out + first);
+    const float4* src = reinterpret_cast<const float4*>(stage);
+    for (int i = tid; i < np * (kOut / 4); i += kThreads) dst[i] = src[i];
+  } else {
+    const int n = np * kOut;
+    uint4* dst = reinterpret_cast<uint4*>(out + first - sh);
+    const uint4* src = reinterpret_cast<const uint4*>(stage);
+    for (int i = tid; i < (sh + n + 7) / 8; i += kThreads) {
+      const uint4 v = src[i];
+      const int lo = 8 * i - sh;                 // the chunk's first output
+      if (lo >= 0 && lo + 8 <= n) {
+        dst[i] = v;
+      } else {                                    // half in the run: 8 bytes
+        uint2* d = reinterpret_cast<uint2*>(dst + i);
+        if (lo >= 0) d[0] = make_uint2(v.x, v.y);
+        else d[1] = make_uint2(v.z, v.w);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* const* lv, const void* coords, int E, int P, int H2, int W2, void* out,
+           void* stream) {
+  Padded<T> pad;
+  for (int l = 0; l < kLevels; l++) {
+    pad.lv[l] = (const T*)lv[l];
+    pad.Hp[l] = (H2 >> l) + 2 * kPad;
+    pad.Wp[l] = (W2 >> l) + 2 * kPad;
+  }
+  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
+  if (E > 0 && P > 0) {
+    dim3 grid((P + kTile - 1) / kTile, E);
+    pmajor_lookup_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        pad, (const float2*)coords, (T*)out, P);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -123,18 +178,15 @@ extern "C" int corr_pmajor_lookup_launch(const void* level0, const void* level1,
                                          const void* level2, const void* level3,
                                          const void* coords, int E, int P, int H2, int W2,
                                          void* out, void* stream) {
-  Padded pad;
   const void* lv[kLevels] = {level0, level1, level2, level3};
-  for (int l = 0; l < kLevels; l++) {
-    pad.lv[l] = (const float*)lv[l];
-    pad.Hp[l] = (H2 >> l) + 2 * kPad;
-    pad.Wp[l] = (W2 >> l) + 2 * kPad;
-  }
-  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
-  if (E > 0 && P > 0) {
-    dim3 grid((P + kTile - 1) / kTile, E);
-    pmajor_lookup_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        pad, (const float2*)coords, (float*)out, P);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(lv, coords, E, P, H2, W2, out, stream);
+}
+
+// The same on bf16 padded levels -> out [E, P, 196] bf16.
+extern "C" int corr_pmajor_lookup_bf16_launch(const void* level0, const void* level1,
+                                              const void* level2, const void* level3,
+                                              const void* coords, int E, int P, int H2,
+                                              int W2, void* out, void* stream) {
+  const void* lv[kLevels] = {level0, level1, level2, level3};
+  return launch<bf16>(lv, coords, E, P, H2, W2, out, stream);
 }

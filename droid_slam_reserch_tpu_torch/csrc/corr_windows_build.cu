@@ -56,8 +56,8 @@
 // each block reads f2's band (256 KB) once, 2.5 GB from L2 at the main path.
 // Maps wider than about 80 cells need more shared memory than a block has.
 //
-// bf16 features (the JAX package's bfloat16 path; K4 only) are a third
-// template argument of the same kernel: the product is one mma.sync
+// bf16 features (the JAX package's bfloat16 path) are a third template
+// argument of the same kernel, for K4 and K8: the product is one mma.sync
 // m16n8k16 bf16 with fp32 accumulation where fp32 takes three TF32
 // products, a stage holds 32 channels (the same 64 bytes a pixel, so the
 // shared memory and the width limit are the fp32 kernel's), and the windows
@@ -66,7 +66,11 @@
 // the rounded cells below it, rounded once, as the plain version does.  At
 // the main path's shapes the product is 0.081 ms at the 989 TFLOP/s bf16
 // peak against 0.61 GB moved (0.55 GB of bf16 windows), 0.18 ms at
-// 3.35 TB/s: bytes bound it.
+// 3.35 TB/s: bytes bound it.  K8 in bf16 stores each level from the same
+// rounded cells of the tile that its windows are cut from (0.84 GB more of
+// bf16 levels, 0.43 ms in all), so its windows equal K7's cut from its own
+// levels, bit for bit; its levels are within one rounding step of K2's (the
+// two sum the products in other orders).
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,8 +110,8 @@ struct Meta {
   int base_off;                  // floats from the tile to the block's window bases
 };
 
-struct LevelsOut {
-  float* lv[kLevels];            // K8's levels [E, P, H_l, W_l]; unused by K4
+template <typename Elem> struct LevelsOut {
+  Elem* lv[kLevels];             // K8's levels [E, P, H_l, W_l]; unused by K4
 };
 
 __device__ __forceinline__ int floor_clamped(float v) {
@@ -167,21 +171,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Eight consecutive window cells, 16 bytes (bf16), or four (fp32).
-__device__ __forceinline__ void store_cells(float* d, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store_cells(bf16* d, const float (&v)[8]) {
-  *reinterpret_cast<uint4*>(d) = make_uint4(Io<bf16>::pack(v[0], v[1]), Io<bf16>::pack(v[2], v[3]),
-                                            Io<bf16>::pack(v[4], v[5]), Io<bf16>::pack(v[6], v[7]));
-}
-
 // Elem: the features' and the windows' element type, fp32 or bf16.
 template <int kM, bool kStoreLevels, typename Elem>
 __global__ void __launch_bounds__(Tile<kM>::kThreads, 64 / kM)
 windows_build_kernel(const Elem* __restrict__ f1, const Elem* __restrict__ f2,
                      const float2* __restrict__ coords0, Elem* __restrict__ wins,
-                     int* __restrict__ bases, int P, int C, Meta m, LevelsOut out_lv) {
+                     int* __restrict__ bases, int P, int C, Meta m, LevelsOut<Elem> out_lv) {
   using T = Tile<kM>;
   using io = Io<Elem>;
   constexpr int kChan = 64 / sizeof(Elem);        // channels a stage: 64 bytes a pixel
@@ -423,7 +418,7 @@ windows_build_kernel(const Elem* __restrict__ f1, const Elem* __restrict__ f2,
           }
           Elem* d = dst + r * wwm;
           if (wwm % kVec == 0) {
-            store_cells(d, v);
+            io::store_run(d, v);
           } else {
 #pragma unroll
             for (int j = 0; j < kVec; j++)
@@ -432,8 +427,8 @@ windows_build_kernel(const Elem* __restrict__ f1, const Elem* __restrict__ f2,
         }
       if constexpr (kStoreLevels) {    // K8: the band's rows of the level, one run
         const int nl = min(kBand >> l, Hl - ylo) * Wl;
-        float* d = out_lv.lv[l] + (ep * Hl + ylo) * Wl;
-        for (int i = lane; i < nl; i += 32) d[i] = lv[i];
+        Elem* d = out_lv.lv[l] + (ep * Hl + ylo) * Wl;
+        for (int i = lane; i < nl; i += 32) d[i] = io::cvt(lv[i]);   // already rounded
       }
     }
   }
@@ -477,7 +472,7 @@ int make_meta(Meta& m, int H2, int W2, size_t* bytes) {
 
 template <int kM, bool kStoreLevels, typename Elem>
 int launch(const Meta& m, size_t bytes, const void* f1, const void* f2, const void* coords0,
-           int E, int P, int C, void* wins, void* bases, const LevelsOut& lo,
+           int E, int P, int C, void* wins, void* bases, const LevelsOut<Elem>& lo,
            cudaStream_t s) {
   int err = (int)cudaFuncSetAttribute(windows_build_kernel<kM, kStoreLevels, Elem>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -491,7 +486,8 @@ int launch(const Meta& m, size_t bytes, const void* f1, const void* f2, const vo
 
 template <bool kStoreLevels, typename Elem = float>
 int build_windows(const void* f1, const void* f2, const void* coords0, int E, int P, int H2,
-                  int W2, int C, void* wins, void* bases, const LevelsOut& lo, void* stream) {
+                  int W2, int C, void* wins, void* bases, const LevelsOut<Elem>& lo,
+                  void* stream) {
   Meta m;
   size_t bytes = 0;
   const int M = make_meta(m, H2, W2, &bytes);
@@ -531,8 +527,8 @@ int blocks_per_sm(size_t bytes) {
 extern "C" int corr_windows_build_launch(const void* f1, const void* f2, const void* coords0,
                                          int E, int P, int H2, int W2, int C, void* wins,
                                          void* bases, void* stream) {
-  return build_windows<false>(f1, f2, coords0, E, P, H2, W2, C, wins, bases, LevelsOut{},
-                              stream);
+  return build_windows<false>(f1, f2, coords0, E, P, H2, W2, C, wins, bases,
+                              LevelsOut<float>{}, stream);
 }
 
 // K4 on bf16 features (C a multiple of 8) -> bf16 windows, the same bases.
@@ -541,7 +537,7 @@ extern "C" int corr_windows_build_bf16_launch(const void* f1, const void* f2,
                                               int W2, int C, void* wins, void* bases,
                                               void* stream) {
   return build_windows<false, bf16>(f1, f2, coords0, E, P, H2, W2, C, wins, bases,
-                                    LevelsOut{}, stream);
+                                    LevelsOut<bf16>{}, stream);
 }
 
 // Launches K8 on `stream`: K4's outputs, plus level0..level3
@@ -551,8 +547,19 @@ extern "C" int corr_windows_build_levels_launch(const void* f1, const void* f2,
                                                 int W2, int C, void* wins, void* bases,
                                                 void* level0, void* level1, void* level2,
                                                 void* level3, void* stream) {
-  const LevelsOut lo{{(float*)level0, (float*)level1, (float*)level2, (float*)level3}};
+  const LevelsOut<float> lo{{(float*)level0, (float*)level1, (float*)level2, (float*)level3}};
   return build_windows<true>(f1, f2, coords0, E, P, H2, W2, C, wins, bases, lo, stream);
+}
+
+// K8 on bf16 features (C a multiple of 8) -> bf16 windows and levels, the
+// same bases.
+extern "C" int corr_windows_build_levels_bf16_launch(const void* f1, const void* f2,
+                                                     const void* coords0, int E, int P, int H2,
+                                                     int W2, int C, void* wins, void* bases,
+                                                     void* level0, void* level1, void* level2,
+                                                     void* level3, void* stream) {
+  const LevelsOut<bf16> lo{{(bf16*)level0, (bf16*)level1, (bf16*)level2, (bf16*)level3}};
+  return build_windows<true, bf16>(f1, f2, coords0, E, P, H2, W2, C, wins, bases, lo, stream);
 }
 
 // What a launch at H2 x W2 uses: out[0] source pixels a block takes,

@@ -1,8 +1,7 @@
 // Loads and stores of the correlation kernels' two element types, fp32 and
 // bf16.  Every kernel computes in fp32; a bf16 value is widened when it is
 // loaded and rounded (to nearest even) once, where it is stored, as the TPU
-// kernels round with astype.  Included by corr_build.cu, corr_lookup.cu,
-// corr_windows_build.cu and corr_windows_lookup.cu.
+// kernels round with astype.  Included by every correlation kernel's source.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -23,6 +22,10 @@ template <> struct Io<float> {
   }
   static __device__ __forceinline__ void store4(float* d, float4 v) {
     __stcs(reinterpret_cast<float4*>(d), v);
+  }
+  // kVec consecutive cells, one 16-byte store (d 16-byte aligned)
+  static __device__ __forceinline__ void store_run(float* d, const float (&v)[kVec]) {
+    *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
   }
 };
 
@@ -45,5 +48,9 @@ template <> struct Io<bf16> {
   }
   static __device__ __forceinline__ void store4(bf16* d, float4 v) {   // 8 bytes
     __stcs(reinterpret_cast<uint2*>(d), make_uint2(pack(v.x, v.y), pack(v.z, v.w)));
+  }
+  static __device__ __forceinline__ void store_run(bf16* d, const float (&v)[kVec]) {
+    *reinterpret_cast<uint4*>(d) = make_uint4(pack(v[0], v[1]), pack(v[2], v[3]),
+                                              pack(v[4], v[5]), pack(v[6], v[7]));
   }
 };

@@ -12,10 +12,12 @@ for CPU tensors:
 - K8 ``cuda_corr.corr_build_windows_levels``
   (plain: ``cuda_corr.corr_build_windows_levels_plain``)
 
-K2-K5 also have bf16 instantiations (``cuda_corr.INSTANCES``): K2
+K2-K8 also have bf16 instantiations (``cuda_corr.INSTANCES``): K2
 ``corr_build_bf16`` (bf16 levels) and ``corr_build_bf16_f32`` (fp32 levels),
-``corr_lookup_bf16``, ``corr_build_windows_bf16`` and
-``corr_lookup_windows_bf16``, each counted under its own name.
+``corr_lookup_bf16``, ``corr_build_windows_bf16``,
+``corr_lookup_windows_bf16``, ``corr_lookup_pmajor_bf16``,
+``corr_extract_windows_bf16`` and ``corr_build_windows_levels_bf16``, each
+counted under its own name.
 """
 from .cuda_ba import ba_system_blocks, build_system_blocks
 from .cuda_corr import (

@@ -38,8 +38,11 @@ _SIGNATURES = {
     "corr_windows_lookup_launch": [_P] * 3 + [_I] * 4 + [_P, _P],
     "corr_windows_lookup_bf16_launch": [_P] * 3 + [_I] * 4 + [_P, _P],
     "corr_pmajor_lookup_launch": [_P] * 5 + [_I] * 4 + [_P, _P],
+    "corr_pmajor_lookup_bf16_launch": [_P] * 5 + [_I] * 4 + [_P, _P],
     "corr_extract_windows_launch": [_P] * 5 + [_I] * 4 + [_P] * 3,
+    "corr_extract_windows_bf16_launch": [_P] * 5 + [_I] * 4 + [_P] * 3,
     "corr_windows_build_levels_launch": [_P] * 3 + [_I] * 5 + [_P] * 7,
+    "corr_windows_build_levels_bf16_launch": [_P] * 3 + [_I] * 5 + [_P] * 7,
     "corr_windows_build_info": [_I, _I, _P],
     "corr_build_info": [_P],
 }

@@ -235,17 +235,23 @@ def corr_volume_pmajor(f1, f2):
 
 
 def pool2x_pmajor(v):
-    """2x average pool over the spatial dims of [E, H, W, P] (floor)."""
+    """2x average pool over the spatial dims of [E, H, W, P] (floor),
+    summed in fp32 and returned in v's dtype."""
     E, H, W, P = v.shape
     h, w = H // 2, W // 2
-    x = v[:, : 2 * h, : 2 * w].reshape(E, h, 2, w, 2, P)
-    return (x[:, :, 0, :, 0] + x[:, :, 0, :, 1] + x[:, :, 1, :, 0] + x[:, :, 1, :, 1]) * 0.25
+    x = v[:, : 2 * h, : 2 * w].float().reshape(E, h, 2, w, 2, P)
+    out = (x[:, :, 0, :, 0] + x[:, :, 0, :, 1] + x[:, :, 1, :, 0] + x[:, :, 1, :, 1]) * 0.25
+    return out.to(v.dtype)
 
 
-def build_pyramid_pmajor(f1, f2, num_levels=4):
+def build_pyramid_pmajor(f1, f2, num_levels=4, dtype=None):
     """Zero-bordered P-major pyramid: ([E, H2_l + 16, W2_l + 16, P] per
-    level, [(H2_l, W2_l)])."""
+    level, [(H2_l, W2_l)]).  The levels are fp32, or ``dtype``: the fp32
+    volume rounded once, each pooled level the fp32 mean of the rounded
+    level below it, rounded once."""
     vol = corr_volume_pmajor(f1, f2)
+    if dtype is not None:
+        vol = vol.to(dtype)
     pyr = [vol]
     for _ in range(num_levels - 1):
         vol = pool2x_pmajor(vol)

@@ -27,15 +27,17 @@
                              corr_build_windows_pallas)
 
 For a CUDA tensor each wrapper launches its hand-written kernel or raises;
-for a CPU tensor it runs the plain version.  K2-K5 take fp32 or bf16
-features, levels and windows; each dtype is its own instantiation of the
-kernel, counted under its own name (INSTANCES), and a CUDA tensor of a dtype
-without one raises.  K2 on bf16 features writes bf16 levels, or fp32 levels
-when asked (``out_dtype``); the others write their input's dtype.  bf16
-results are computed in fp32 and rounded once where the TPU kernels store
-(each level, each window, each lookup), and level l + 1 pools the rounded
-level l.  ``launches`` / ``calls`` count each, keyed by instantiation, so a
-run can show which one it took.
+for a CPU tensor it runs the plain version.  Every kernel here takes fp32 or
+bf16 features, levels and windows; each dtype is its own instantiation of
+the kernel, counted under its own name (INSTANCES), and a tensor of a dtype
+without one raises, on the CPU as on the card.  K2 on bf16 features writes
+bf16 levels, or fp32 levels when asked (``out_dtype``); the others write
+their input's dtype.  fp32 features to bf16 outputs (the JAX signatures'
+default for K2, K4 and K8) is reached by no caller and has no
+instantiation.  bf16 results are computed in fp32 and rounded once where
+the TPU kernels store (each level, each window, each lookup), and level
+l + 1 pools the rounded level l.  ``launches`` / ``calls`` count each, keyed
+by instantiation, so a run can show which one it took.
 """
 import torch
 
@@ -65,9 +67,12 @@ INSTANCES = {
                            "corr_build_windows_bf16": (BF16, BF16)},
     "corr_lookup_windows": {"corr_lookup_windows": (F32, F32),
                             "corr_lookup_windows_bf16": (BF16, BF16)},
-    "corr_lookup_pmajor": {"corr_lookup_pmajor": (F32, F32)},
-    "corr_extract_windows": {"corr_extract_windows": (F32, F32)},
-    "corr_build_windows_levels": {"corr_build_windows_levels": (F32, F32)},
+    "corr_lookup_pmajor": {"corr_lookup_pmajor": (F32, F32),
+                           "corr_lookup_pmajor_bf16": (BF16, BF16)},
+    "corr_extract_windows": {"corr_extract_windows": (F32, F32),
+                             "corr_extract_windows_bf16": (BF16, BF16)},
+    "corr_build_windows_levels": {"corr_build_windows_levels": (F32, F32),
+                                  "corr_build_windows_levels_bf16": (BF16, BF16)},
 }
 
 
@@ -321,8 +326,8 @@ corr_lookup_windows.launches = _counter("corr_lookup_windows")
 
 def corr_lookup_pmajor_plain(padded, coords):
     """Plain K6: padded levels from ops.corr.build_pyramid_pmajor, coords
-    [E, P, 2] -> [E, P, 196]."""
-    corr_lookup_pmajor_plain.calls["corr_lookup_pmajor"] += 1
+    [E, P, 2] -> [E, P, 196] in the levels' dtype."""
+    corr_lookup_pmajor_plain.calls[_instance("corr_lookup_pmajor", padded[0].dtype)] += 1
     return lookup_pmajor(padded, coords, RADIUS)
 
 
@@ -332,8 +337,9 @@ corr_lookup_pmajor_plain.calls = _counter("corr_lookup_pmajor")
 def corr_lookup_pmajor(padded, coords):
     """Radius-3 lookup in the zero-bordered P-major pyramid (K6).  padded
     [E, (H2 >> l) + 16, (W2 >> l) + 16, P] per level (ops.corr.
-    build_pyramid_pmajor), coords [E, P, 2] level-0 pixels -> [E, P, 196].
-    Equals corr_lookup on K2's levels of the same features."""
+    build_pyramid_pmajor; fp32 or bf16), coords [E, P, 2] float32 level-0
+    pixels -> [E, P, 196] in the levels' dtype.  Equals corr_lookup on K2's
+    levels of the same features."""
     coords = coords.detach()
     if coords.device.type == "cpu":
         return corr_lookup_pmajor_plain(padded, coords)
@@ -344,15 +350,19 @@ def corr_lookup_pmajor(padded, coords):
     if two != 2 or padded[0].dim() != 4:
         raise ValueError(f"corr_lookup_pmajor: coords {tuple(coords.shape)}")
     H2, W2 = padded[0].shape[1] - 16, padded[0].shape[2] - 16
-    _check_levels("corr_lookup_pmajor", padded, E, P, H2, W2, border=8)
-    out = torch.empty(E, P, NUM_LEVELS * (2 * RADIUS + 1) ** 2, device=coords.device)
+    _check_levels("corr_lookup_pmajor", padded, E, P, H2, W2, border=8, dtypes=(F32, BF16))
+    dt = padded[0].dtype
+    name = _instance("corr_lookup_pmajor", dt)
+    out = torch.empty(E, P, NUM_LEVELS * (2 * RADIUS + 1) ** 2, dtype=dt, device=coords.device)
     lib = build.library()
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.corr_pmajor_lookup_launch(*[v.data_ptr() for v in padded], coords.data_ptr(),
-                                            E, P, H2, W2, out.data_ptr(), stream)
-    build.check(err, "corr_lookup_pmajor")
-    corr_lookup_pmajor.launches["corr_lookup_pmajor"] += 1
+        launch = (lib.corr_pmajor_lookup_launch if dt == F32
+                  else lib.corr_pmajor_lookup_bf16_launch)
+        err = launch(*[v.data_ptr() for v in padded], coords.data_ptr(), E, P, H2, W2,
+                     out.data_ptr(), stream)
+    build.check(err, name)
+    corr_lookup_pmajor.launches[name] += 1
     return out
 
 
@@ -361,8 +371,8 @@ corr_lookup_pmajor.launches = _counter("corr_lookup_pmajor")
 
 def corr_extract_windows_plain(levels, coords):
     """Plain K7: the windows and bases of K4 around coords [E, P, 2], cut
-    out of K2's levels."""
-    corr_extract_windows_plain.calls["corr_extract_windows"] += 1
+    out of K2's levels, in the levels' dtype."""
+    corr_extract_windows_plain.calls[_instance("corr_extract_windows", levels[0].dtype)] += 1
     return _cut_windows(levels, coords)
 
 
@@ -371,9 +381,10 @@ corr_extract_windows_plain.calls = _counter("corr_extract_windows")
 
 def corr_extract_windows(levels, coords):
     """The per-pixel window cache cut out of an existing pyramid (K7).
-    levels from corr_build, coords [E, P, 2] level-0 pixels -> (windows
-    [E, P, sum(WH), max(WW)] float32, bases [E, 2L, P] int32), as
-    corr_build_windows gives them for the same features."""
+    levels from corr_build (fp32 or bf16), coords [E, P, 2] float32 level-0
+    pixels -> (windows [E, P, sum(WH), max(WW)] in the levels' dtype, bases
+    [E, 2L, P] int32), as corr_build_windows gives them for the same
+    features."""
     coords = coords.detach()
     if coords.device.type == "cpu":
         return corr_extract_windows_plain(levels, coords)
@@ -384,18 +395,21 @@ def corr_extract_windows(levels, coords):
     if two != 2 or levels[0].dim() != 4:
         raise ValueError(f"corr_extract_windows: coords {tuple(coords.shape)}")
     H2, W2 = levels[0].shape[-2:]
-    _check_levels("corr_extract_windows", levels, E, P, H2, W2)
+    _check_levels("corr_extract_windows", levels, E, P, H2, W2, dtypes=(F32, BF16))
+    dt = levels[0].dtype
+    name = _instance("corr_extract_windows", dt)
     _, sum_wh, ww_max = pack_offsets(level_sizes(H2, W2, NUM_LEVELS))
-    wins = torch.empty(E, P, sum_wh, ww_max, device=coords.device)
+    wins = torch.empty(E, P, sum_wh, ww_max, dtype=dt, device=coords.device)
     bases = torch.empty(E, 2 * NUM_LEVELS, P, dtype=torch.int32, device=coords.device)
     lib = build.library()
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.corr_extract_windows_launch(*[v.data_ptr() for v in levels], coords.data_ptr(),
-                                              E, P, H2, W2, wins.data_ptr(), bases.data_ptr(),
-                                              stream)
-    build.check(err, "corr_extract_windows")
-    corr_extract_windows.launches["corr_extract_windows"] += 1
+        launch = (lib.corr_extract_windows_launch if dt == F32
+                  else lib.corr_extract_windows_bf16_launch)
+        err = launch(*[v.data_ptr() for v in levels], coords.data_ptr(), E, P, H2, W2,
+                     wins.data_ptr(), bases.data_ptr(), stream)
+    build.check(err, name)
+    corr_extract_windows.launches[name] += 1
     return wins, bases
 
 
@@ -403,10 +417,10 @@ corr_extract_windows.launches = _counter("corr_extract_windows")
 
 
 def corr_build_windows_levels_plain(f1, f2, coords0):
-    """Plain K8: the plain pyramid and K4's windows and bases cut from it
-    -> (levels, windows, bases)."""
-    corr_build_windows_levels_plain.calls["corr_build_windows_levels"] += 1
-    pyramid = build_pyramid_flat(corr_volume_flat(f1, f2), NUM_LEVELS)
+    """Plain K8: the plain pyramid in the features' dtype and K4's windows
+    and bases cut from it -> (levels, windows, bases)."""
+    corr_build_windows_levels_plain.calls[_instance("corr_build_windows_levels", f1.dtype)] += 1
+    pyramid = build_pyramid_flat(corr_volume_flat(f1, f2).to(f1.dtype), NUM_LEVELS)
     return (pyramid, *_cut_windows(pyramid, coords0))
 
 
@@ -416,26 +430,31 @@ corr_build_windows_levels_plain.calls = _counter("corr_build_windows_levels")
 def corr_build_windows_levels(f1, f2, coords0):
     """Pyramid and per-pixel window cache in one pass (K8).  Arguments as
     corr_build_windows -> (levels as corr_build gives them, windows, bases
-    as corr_build_windows gives them)."""
+    as corr_build_windows gives them), all in the features' dtype."""
     if f1.device.type == "cpu" and f2.device.type == "cpu" and coords0.device.type == "cpu":
         return corr_build_windows_levels_plain(f1, f2, coords0)
     if not (f1.is_cuda and f1.device == f2.device == coords0.device):
         raise ValueError(f"corr_build_windows_levels: f1 on {f1.device}, f2 on {f2.device}, "
                          f"coords0 on {coords0.device}")
     coords0 = coords0.detach()
-    E, P, H2, W2, C = _check_windows_build("corr_build_windows_levels", f1, f2, coords0)
+    E, P, H2, W2, C = _check_windows_build("corr_build_windows_levels", f1, f2, coords0,
+                                           (F32, BF16))
+    dt = f1.dtype
+    name = _instance("corr_build_windows_levels", dt)
     _, sum_wh, ww_max = pack_offsets(level_sizes(H2, W2, NUM_LEVELS))
-    levels = [torch.empty(E, P, H2 >> l, W2 >> l, device=f1.device) for l in range(NUM_LEVELS)]
-    wins = torch.empty(E, P, sum_wh, ww_max, device=f1.device)
+    levels = [torch.empty(E, P, H2 >> l, W2 >> l, dtype=dt, device=f1.device)
+              for l in range(NUM_LEVELS)]
+    wins = torch.empty(E, P, sum_wh, ww_max, dtype=dt, device=f1.device)
     bases = torch.empty(E, 2 * NUM_LEVELS, P, dtype=torch.int32, device=f1.device)
     lib = build.library()
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.corr_windows_build_levels_launch(
-            f1.data_ptr(), f2.data_ptr(), coords0.data_ptr(), E, P, H2, W2, C, wins.data_ptr(),
-            bases.data_ptr(), *[v.data_ptr() for v in levels], stream)
-    build.check(err, "corr_build_windows_levels")
-    corr_build_windows_levels.launches["corr_build_windows_levels"] += 1
+        launch = (lib.corr_windows_build_levels_launch if dt == F32
+                  else lib.corr_windows_build_levels_bf16_launch)
+        err = launch(f1.data_ptr(), f2.data_ptr(), coords0.data_ptr(), E, P, H2, W2, C,
+                     wins.data_ptr(), bases.data_ptr(), *[v.data_ptr() for v in levels], stream)
+    build.check(err, name)
+    corr_build_windows_levels.launches[name] += 1
     return levels, wins, bases
 
 

@@ -23,10 +23,11 @@ they are not a wrapper's CPU path, so on the card they leave the plain
 call counts of ``ops.counts()`` at 0.
 
 In bf16 the features, the update operator and the correlation are bf16
-(the BA stays fp32).  K6, K7 and K8 have no bf16 instantiation, so their
-keys are None; K5 then reads K4's windows, its error and K3's are taken
-against the plain lookup of K2's own levels, and the amortised build is
-K4's.
+(the BA stays fp32), as in the JAX tool on the TPU: every kernel but K1
+runs its bf16 instantiation, K6 over the bf16 P-major pyramid
+(``build_pyramid_pmajor(dtype=bf16)``), K7 over K2's bf16 levels and K5
+over K7's windows, and the lookups' errors are taken against the plain
+lookup of K2's own levels (K2 and the plain build may round a sum apart).
 
 Keys, and the JAX tool's key for the same section:
 
@@ -38,8 +39,8 @@ Keys, and the JAX tool's key for the same section:
 | build_k8_ms                  | (none)                           | K8 corr_build_windows_levels  |
 | lookup_plain_ms              | lookup_flat_ms                   | corr_lookup_pyramid_flat      |
 | lookup_k3_ms                 | lookup_pallas_ms                 | K3 corr_lookup                |
-| lookup_k6_ms                 | (none)                           | K6 corr_lookup_pmajor         |
-| extract_k7_ms                | window_extract_ms                | K7 corr_extract_windows       |
+| lookup_k6_ms                 | (none)                           | K6 over build_pyramid_pmajor  |
+| extract_k7_ms                | window_extract_ms                | K7 over K2's levels           |
 | build_k4_ms                  | (none)                           | K4 corr_build_windows         |
 | lookup_k5_ms                 | lookup_windows_ms                | K5 over K7's windows          |
 | k3_max_err                   | pallas_max_err                   | K3 against lookup_plain       |
@@ -166,8 +167,7 @@ def profile(h8=40, w8=64, N=48, MW=24, device="cuda", iters=10, dtype="float32")
     res["build_plain_ms"] = timeit(build_plain, iters)
     res["build_k2_ms"] = timeit(lambda: corr_build(f1, f2), iters)
     levels = corr_build(f1, f2)
-    res["build_k8_ms"] = (timeit(lambda: corr_build_windows_levels(f1, f2, cflat), iters)
-                          if fp32 else None)
+    res["build_k8_ms"] = timeit(lambda: corr_build_windows_levels(f1, f2, cflat), iters)
     res["build_k4_ms"] = timeit(lambda: corr_build_windows(f1, f2, cflat), iters)
 
     # lookups (per round), each held against the plain flat lookup (in bf16,
@@ -182,16 +182,12 @@ def profile(h8=40, w8=64, N=48, MW=24, device="cuda", iters=10, dtype="float32")
     res["lookup_plain_ms"] = timeit(lambda: corr_lookup_pyramid_flat(levels, cflat), iters)
     res["lookup_k3_ms"] = timeit(lambda: corr_lookup(levels, cflat), iters)
     res["k3_max_err"] = max_err(corr_lookup(levels, cflat))
-    if fp32:
-        padded, _ = build_pyramid_pmajor(f1, f2)
-        res["lookup_k6_ms"] = timeit(lambda: corr_lookup_pmajor(padded, cflat), iters)
-        res["k6_max_err"] = max_err(corr_lookup_pmajor(padded, cflat))
-        del padded
-        res["extract_k7_ms"] = timeit(lambda: corr_extract_windows(levels, cflat), iters)
-        wins, bases = corr_extract_windows(levels, cflat)
-    else:
-        res["lookup_k6_ms"] = res["k6_max_err"] = res["extract_k7_ms"] = None
-        wins, bases = corr_build_windows(f1, f2, cflat)
+    padded, _ = build_pyramid_pmajor(f1, f2, dtype=dt)
+    res["lookup_k6_ms"] = timeit(lambda: corr_lookup_pmajor(padded, cflat), iters)
+    res["k6_max_err"] = max_err(corr_lookup_pmajor(padded, cflat))
+    del padded
+    res["extract_k7_ms"] = timeit(lambda: corr_extract_windows(levels, cflat), iters)
+    wins, bases = corr_extract_windows(levels, cflat)
     res["lookup_k5_ms"] = timeit(lambda: corr_lookup_windows(wins, bases, cflat, (h8, w8)), iters)
     res["k5_max_err"] = max_err(corr_lookup_windows(wins, bases, cflat, (h8, w8)))
     del levels, wins, bases
@@ -236,8 +232,7 @@ def profile(h8=40, w8=64, N=48, MW=24, device="cuda", iters=10, dtype="float32")
     res["fused_per_round_ms"] = res["fused_6rounds_ms"] / ROUNDS
     res["sum_parts_per_round_ms"] = (res["reproject_ms"] + res["lookup_k5_ms"]
                                      + res["update_module_ms"] + res["ba_2iter_k1_ms"])
-    res["build_amortized_per_round_ms"] = (
-        (res["build_k2_ms"] + res["extract_k7_ms"]) if fp32 else res["build_k4_ms"]) / ROUNDS
+    res["build_amortized_per_round_ms"] = (res["build_k2_ms"] + res["extract_k7_ms"]) / ROUNDS
     return res
 
 

@@ -11,7 +11,9 @@ and targets 2e-4 times the output's largest magnitude (1.4 and 20 pixels
 here): random weights make the update operator sensitive to float32
 summation order, and six rounds of BA compound it (measured: disparities
 1.3e-4, targets 3.9e-4).  The culling distance 1e-4 relative; the
-profiler's max errors 1e-5.
+profiler's max errors 1e-5, and in bf16 one rounding step, 2**-7 of the
+largest lookup (K6 reads the P-major pyramid, whose volume sums the same
+products in another order before it is rounded).
 """
 import jax
 import jax.numpy as jnp
@@ -146,6 +148,20 @@ def test_profile_on_the_cpu():
     fp32 = {k: v for k, v in counts.items() if "bf16" not in k}
     assert all(launches == 0 and plain > 0 for launches, plain in fp32.values()), counts
     assert all(counts[k] == (0, 0) for k in counts if k not in fp32), counts
+
+
+def test_profile_bf16_on_the_cpu():
+    """The bf16 pass gives every key the fp32 pass gives, K6, K7 and K8 too;
+    holds K3, K6 and K5 over K7's windows against the plain lookup; and
+    amortises K2 + K7 over the rounds.  (tests/test_torch_bf16_engine.py
+    holds which instantiations it runs.)"""
+    res = profile(**SMALL, device="cpu", iters=1, dtype="bfloat16")
+    assert res["dtype"] == "bfloat16" and set(KEYS) <= set(res)
+    assert all(res[k] is not None and np.isfinite(res[k]) and res[k] >= 0 for k in KEYS), res
+    tol = 2.0 ** -7 * res["lookup_ref_max"]
+    assert max(res["k3_max_err"], res["k6_max_err"], res["k5_max_err"]) <= tol
+    assert res["build_amortized_per_round_ms"] == pytest.approx(
+        (res["build_k2_ms"] + res["extract_k7_ms"]) / ROUNDS, rel=1e-12)
 
 
 def test_profile_needs_cuda_unless_asked_for_the_cpu():
