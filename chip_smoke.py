@@ -25,8 +25,9 @@ Phases (one line each; any failure exits nonzero):
            F.grid_sample nearest for K7's window extraction);
    kernels-bf16  the same for the bf16 instantiations of K2 (bf16 levels and
            fp32 levels), K3, K4, K5, K6, K7 and K8, with their ptxas reports,
-           at E = 48, E = 1, K2 also at EB = 64 and on the 48x120 map, all
-           also at 30x44, K4-K8 also at 60x80; K6 and K7 exactly, K8's windows
+           at E = 48, E = 1, K2 also at EB = 64, all also at 30x44, 60x80,
+           30x45, 24x34, 24x66 and on the 48x120 map (K4 and K8 in bf16 take
+           maps up to 181 cells wide); K6 and K7 exactly, K8's windows
            exactly against K7 over K8's own levels; the yardsticks take bf16
            (torch.bmm of the bf16 volume, F.grid_sample on bf16 levels);
 3. drift   the frontend's windowed lookup with coords that leave the cached
@@ -438,6 +439,15 @@ def hold_k1(torch, args, what):
     return err
 
 
+def windows_build_info(build):
+    """K4/K8's geometry at the main path's 40x64 (corr_windows_build_info):
+    fp32 then bf16, each source pixels a block, dynamic shared memory bytes,
+    and K4's and K8's resident blocks per SM."""
+    info = (ctypes.c_int * 8)()
+    build.library().corr_windows_build_info(H8, W8, info)
+    return list(info)
+
+
 def phase_kernels(torch):
     from droid_slam_reserch_tpu_torch.geom import coords_grid
     from droid_slam_reserch_tpu_torch.ops import build, cuda_ba, cuda_corr
@@ -462,8 +472,7 @@ def phase_kernels(torch):
     build.library().corr_build_info(info2)
     say("kernels", f"K2: {info2[0]} bytes of dynamic shared memory a block, {info2[1]} "
                    f"block(s) resident per SM")
-    info = (ctypes.c_int * 4)()
-    build.library().corr_windows_build_info(H8, W8, info)
+    info = windows_build_info(build)
     say("kernels", f"K4/K8 at {H8}x{W8}: {info[0]} source pixels and {info[1]} bytes of "
                    f"dynamic shared memory a block, {info[2]} (K4) and {info[3]} (K8) blocks "
                    f"resident per SM")
@@ -884,8 +893,9 @@ def window_cells_in_levels(torch, sizes, bases):
 def phase_kernels_bf16(torch):
     """The bf16 instantiations of K2 (bf16 and fp32 levels), K3, K4, K5, K6,
     K7 and K8 against their plain bf16 versions, at the shapes of the bf16
-    path (E = 48 and E = 1 at 40x64, K2 also at the backend's EB = 64 and on
-    the 48x120 map, all also at the ragged 30x44, K4-K8 also at 60x80), and
+    path (E = 48 and E = 1 at 40x64, K2 also at the backend's EB = 64, all
+    also at the ragged 30x44, at 60x80, at the odd widths 30x45, 24x34 and
+    24x66, and on the 48x120 map), and
     timed beside their plain versions and, as the library yardstick,
     torch.bmm of the bf16 volume (K2, K4, K8) and F.grid_sample on the bf16
     levels or windows (K3, K5, K6 bilinear; its grid is bf16 too, as the call
@@ -905,14 +915,20 @@ def phase_kernels_bf16(torch):
         return (0.3 * torch.randn(*shape, generator=gen, device=dev)).to(bf16)
 
     for line in ptxas_report(build.BUILD_LOG["ptxas"],
-                             ("corr_build_kernel", "windows_build_kernel",
+                             ("corr_build_kernel", "windows_build_bf16_kernel",
                               "windows_lookup_kernel", "corr_lookup_kernel",
                               "pmajor_lookup_kernel", "extract_windows_kernel")):
         if "bf16" in line:
             say("kernels-bf16", f"ptxas: {line}")
+    info = windows_build_info(build)[4:]
+    say("kernels-bf16", f"K4/K8 bf16 at {H8}x{W8}: {info[0]} source pixels and {info[1]} bytes "
+                        f"of dynamic shared memory a block, {info[2]} (K4) and {info[3]} (K8) "
+                        f"blocks resident per SM")
 
-    # ragged 30x44 and 60x80 (K4's column chunks), the 48x120 map, EB = 64
-    for Er, Hr, Wr in ((4, 30, 44), (2, 60, 80)):
+    # ragged 30x44, 60x80 and the 48x120 map (K4's and K8's column chunks), odd
+    # widths and levels whose rows are not 16-byte runs (45, 34, 66), EB = 64
+    for Er, Hr, Wr in ((4, 30, 44), (2, 60, 80), (2, 48, 120), (2, 30, 45), (2, 24, 34),
+                       (2, 24, 66)):
         fr1, fr2 = randn16(Er, Hr, Wr, C), randn16(Er, Hr, Wr, C)
         hold_build_bf16(torch, fr1, fr2, f32)
         lr, _ = hold_build_bf16(torch, fr1, fr2, bf16)
@@ -923,10 +939,6 @@ def phase_kernels_bf16(torch):
         c0r = hold_windows_bf16(torch, fr1, fr2, lr, gen)[0]
         hold_pmajor_windows_bf16(torch, fr1, fr2, lr, c0r, kindsr, f"E={Er} {Hr}x{Wr}")
         del fr1, fr2, lr
-    fw1, fw2 = randn16(2, 48, 120, C), randn16(2, 48, 120, C)
-    hold_build_bf16(torch, fw1, fw2, bf16)
-    hold_build_bf16(torch, fw1, fw2, f32)
-    del fw1, fw2
     EB = 64
     fb1, fb2 = randn16(EB, H8, W8, C), randn16(EB, H8, W8, C)
     hold_build_bf16(torch, fb1, fb2, bf16)
@@ -1439,7 +1451,7 @@ KERNEL_GROUPS = (      # substrings of device kernel names -> group, first match
     ("layout transposes NCHW<->NHWC", ("nchwtonhwc", "nhwctonchw")),
     ("port K2 corr_build", ("corr_build_kernel",)),
     ("port K3 corr_lookup", ("corr_lookup_kernel",)),
-    ("port K4 corr_build_windows", ("windows_build_kernel",)),
+    ("port K4 corr_build_windows", ("windows_build_kernel", "windows_build_bf16_kernel")),
     ("port K5 corr_lookup_windows", ("windows_lookup_kernel",)),
     ("port K6 corr_lookup_pmajor", ("pmajor_lookup_kernel",)),
     ("port K7 corr_extract_windows", ("extract_windows_kernel",)),

@@ -7,10 +7,23 @@ rely on, emulated in plain torch on the CPU; no kernel runs here.
   below it (the last band).  Put together, the bands give the plain versions'
   windows and levels bit for bit, and every window cell is written exactly
   once, at full, ragged and small sizes, with coords off the image.
+- bf16: the same with a tile of bf16 cells, as the bf16 kernels keep it:
+  level 0 rounded once after the 1/16 scale, each pooled band row the fp32
+  mean of the rounded rows below it, rounded once.  Every cell the kernel
+  writes is then a bf16 value, and the bands give the plain bf16 versions'
+  windows and levels bit for bit.
 - 3xTF32: the product taken as three TF32 products per 8 channels (small*big
   + big*small + big*big, fp32 sums) stays within K4's tolerance,
   1e-5 * max(1, |w|), of the plain windows at the main path's feature scale;
   one TF32 product does not.
+- The bf16 tile's layout (make_meta): K4 pads each level's rows to 3 or 5
+  mod 8 words, so the window stores' reads of up to 8 rows and 3 runs of 8
+  cells find distinct banks; pixels are 4 (2 j + 1) words apart, so the tile
+  stores of a warp's 32 threads do too; every 4-byte access of the tile falls
+  on a word, odd widths included; K8's rows are W_l cells rounded up to even,
+  and its level copies put each cell once where it belongs, in 16-byte runs
+  aligned at both ends where W_l and the run's offset are multiples of 8; the
+  tile fits a block up to 181 cells wide.
 """
 import numpy as np
 import pytest
@@ -51,9 +64,10 @@ def _case(E, H, W, C, seed):
     return torch.from_numpy(f1), torch.from_numpy(f2), torch.from_numpy(c0.astype(np.float32))
 
 
-def band_build(f1, f2, c0):
-    """K4/K8's algorithm band by band -> (levels, windows, bases, writes):
-    writes counts how often each window cell was written."""
+def band_build(f1, f2, c0, dtype=torch.float32):
+    """K4/K8's algorithm band by band, with a tile of `dtype` cells ->
+    (levels, windows, bases, writes): writes counts how often each window
+    cell was written."""
     E, H1, W1, _ = f1.shape
     H, W = f2.shape[1:3]
     P = H1 * W1
@@ -62,12 +76,12 @@ def band_build(f1, f2, c0):
     bases = window_bases(c0, sizes, RADIUS)
     vol = corr_volume_flat(f1, f2)
     nbands = -(-H // BAND)
-    wins = torch.full((E, P, sum_wh, ww_max), float("nan"))
+    wins = torch.full((E, P, sum_wh, ww_max), float("nan"), dtype=dtype)
     writes = torch.zeros((E, P, sum_wh, ww_max), dtype=torch.int32)
-    levels = [torch.full((E, P, h, w), float("nan")) for h, w in sizes]
+    levels = [torch.full((E, P, h, w), float("nan"), dtype=dtype) for h, w in sizes]
     cols = torch.arange(ww_max)
     for k in range(nbands):
-        slab = vol[:, :, BAND * k:BAND * (k + 1)]         # the band's level-0 rows
+        slab = vol[:, :, BAND * k:BAND * (k + 1)].to(dtype)   # the band's level-0 rows
         for l, (off, (h, w)) in enumerate(zip(offs, sizes)):
             if l:
                 slab = pool2x_volume_flat(slab)            # this band's rows of level l
@@ -87,8 +101,8 @@ def band_build(f1, f2, c0):
                 g = slab.gather(2, r[..., None].expand(E, P, WH, w))
                 g = g.gather(3, x.clamp(0, w - 1)[:, :, None, :].expand(E, P, WH, ww_max))
             else:                                         # no rows of the level in this band
-                g = torch.zeros(E, P, WH, ww_max)
-            vals = torch.where(inside, g, torch.zeros(()))
+                g = torch.zeros(E, P, WH, ww_max, dtype=dtype)
+            vals = torch.where(inside, g, torch.zeros((), dtype=dtype))
             region = wins[:, :, off:off + WH]
             region[own] = vals[own]
             writes[:, :, off:off + WH] += own.int()
@@ -111,6 +125,132 @@ def test_bands_equal_the_plain_versions_bit_for_bit(E, H, W, C):
     assert torch.equal(wins, lwins) and torch.equal(bases, lbases)
     for mine, ref in zip(levels, plevels):
         assert torch.equal(mine, ref)
+
+
+@pytest.mark.parametrize("E,H,W,C", BAND_SHAPES, ids=BAND_IDS)
+def test_bf16_bands_equal_the_plain_versions_bit_for_bit(E, H, W, C):
+    f1, f2, c0 = _case(E, H, W, C, 0)
+    f1, f2 = f1.to(torch.bfloat16), f2.to(torch.bfloat16)
+    levels, wins, bases, writes = band_build(f1, f2, c0, torch.bfloat16)
+    assert bool((writes == 1).all()), "a window cell is written other than once"
+    pwins, pbases = corr_build_windows_plain(f1, f2, c0)
+    assert pwins.dtype == wins.dtype == torch.bfloat16
+    assert torch.equal(bases, pbases)
+    assert torch.equal(wins, pwins)
+    plevels, lwins, lbases = corr_build_windows_levels_plain(f1, f2, c0)
+    assert torch.equal(wins, lwins) and torch.equal(bases, lbases)
+    for mine, ref in zip(levels, plevels):
+        assert mine.dtype == ref.dtype == torch.bfloat16
+        assert torch.equal(mine, ref)
+
+
+def bf16_row_cells(w, pad_rows=True):
+    """make_meta's bf16 row stride for a level w cells wide: whole words,
+    padded to 3 or 5 mod 8 words for K4 (pad_rows), not for K8."""
+    words = (w + 1) // 2
+    while pad_rows and words % 8 not in (3, 5):
+        words += 1
+    return 2 * words
+
+
+def bf16_layout(W2, pad_rows=True):
+    """make_meta's bf16 layout at width W2: each level's row stride, the
+    offsets of each level's band rows in a pixel's tile, and the pixel
+    stride S, all in cells."""
+    rs = [bf16_row_cells(W2 >> l, pad_rows) for l in range(4)]
+    lo = [sum((BAND >> k) * rs[k] for k in range(l)) for l in range(5)]
+    return rs, lo[:4], ((lo[4] + 1) // 2 + 7) // 8 * 16 + 8
+
+
+def bf16_tile(W2, pad_rows=True):
+    """(pixel stride S in cells, pixels a block, dynamic shared bytes) of a
+    bf16 block at width W2, as make_meta computes them (K4 pads its rows,
+    K8 does not)."""
+    S = bf16_layout(W2, pad_rows)[2]
+    if W2 <= 64:     # the tile shares memory with 4 stages of (64 + 512) x 64 bytes
+        return S, 64, max(64 * S * 2, 4 * 576 * 64) + 4 * 8 * 64
+    return S, 32, 32 * S * 2 + 3 * 544 * 64 + 4 * 8 * 32
+
+
+WIDTHS = [64, 44, 80, 20, 12, 120, 181]
+
+
+@pytest.mark.parametrize("W2", WIDTHS)
+def test_bf16_tile_reads_and_stores_find_distinct_banks(W2):
+    S, _, _ = bf16_tile(W2)
+    for l in range(4):
+        w = W2 >> l
+        if not w:
+            continue
+        rs = bf16_row_cells(w)
+        assert rs >= w and rs % 2 == 0
+        # a window store: lanes (row lr, run q) read cell x0 + 8 q + j of up
+        # to 8 >> l rows of the band; lanes reading one word share it
+        for x0 in range(-8, 8):
+            for j in range(8):
+                banks = {}
+                for lr in range(BAND >> l):
+                    for q in range(3):
+                        word = (lr * rs + x0 + 8 * q + j) // 2
+                        banks.setdefault(word % 32, set()).add(word)
+                assert max(len(v) for v in banks.values()) == 1, (l, x0, j)
+    # a tile store: thread (g, t) writes cells x, x + 1 (x = 2 t + const) of
+    # pixel g, all in one row
+    words = [(S // 2) * g + t for g in range(8) for t in range(4)]
+    assert len({v % 32 for v in words}) == 32
+
+
+@pytest.mark.parametrize("W2", WIDTHS)
+def test_bf16_tile_fits_a_block(W2):
+    _, px, nbytes = bf16_tile(W2)
+    assert bf16_tile(W2, pad_rows=False)[2] <= nbytes <= 232448
+    assert px == (64 if W2 <= 64 else 32)
+    assert bf16_tile(W2 + 1)[2] > 232448 or W2 < 181
+
+
+def k8_level_copy(lo, rs, Wl, rows, dst):
+    """K8 bf16's copy of one pixel's band rows of a level, indexed as the
+    kernel indexes it -> {cell of the level tensor: cell of the tile}.  Where
+    W_l and the run's offset lo are multiples of 8, the band's rows are one
+    run in the tile (rs = W_l) copied 16 bytes at a time, aligned at both
+    ends; else a cell at a time, row by row."""
+    out = {}
+    if Wl % 8 == 0 and lo % 8 == 0:
+        assert rs == Wl
+        for i in range(rows * Wl // 8):
+            assert (lo + 8 * i) % 8 == 0 and (dst + 8 * i) % 8 == 0
+            out.update({dst + 8 * i + c: lo + 8 * i + c for c in range(8)})
+    else:
+        for i in range(rows * Wl):
+            r = i // Wl
+            out[dst + i] = lo + r * rs + i - r * Wl
+    return out
+
+
+@pytest.mark.parametrize("W2", WIDTHS + [45, 34, 66, 35, 13])
+def test_bf16_tile_words_and_k8_level_copies(W2):
+    # the 4-byte accesses (a tile store's cell pair x, x + 1, x even, in
+    # level-0 rows 2k and 2k + 1 of any pixel) start on even cells, for K4's
+    # rows and K8's, odd widths included; a pixel's tile is 16-byte aligned
+    for pad in (True, False):
+        rs, lo, S = bf16_layout(W2, pad)
+        assert S % 8 == 0 and all(r % 2 == 0 for r in rs) and all(v % 2 == 0 for v in lo)
+    rs, lo, S = bf16_layout(W2, pad_rows=False)
+    H2, P = 20, 3
+    for l in range(4):
+        Hl, Wl = H2 >> l, W2 >> l
+        if not Wl:
+            continue
+        for e_p in range(P):
+            for band in range(-(-H2 // BAND)):
+                ylo = (band * BAND) >> l
+                rows = min(BAND >> l, Hl - ylo)
+                if rows <= 0:
+                    continue
+                got = k8_level_copy(e_p * S + lo[l], rs[l], Wl, rows, (e_p * Hl + ylo) * Wl)
+                want = {(e_p * Hl + ylo + r) * Wl + x: e_p * S + lo[l] + r * rs[l] + x
+                        for r in range(rows) for x in range(Wl)}
+                assert got == want, (l, e_p, band)
 
 
 def tf32(x):
