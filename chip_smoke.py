@@ -29,7 +29,9 @@ Phases (one line each; any failure exits nonzero):
            30x45, 24x34, 24x66 and on the 48x120 map (K4 and K8 in bf16 take
            maps up to 181 cells wide); K6 and K7 exactly, K8's windows
            exactly against K7 over K8's own levels; the yardsticks take bf16
-           (torch.bmm of the bf16 volume, F.grid_sample on bf16 levels);
+           (torch.bmm of the bf16 volume, or from bf16 to an fp32 volume for
+           K2's fp32 levels, F.grid_sample on bf16 levels); K2 bf16's
+           persistent grid is printed;
 3. drift   the frontend's windowed lookup with coords that leave the cached
            windows, in fp32 and in bf16: the fallback (K2 once, K3) is taken,
            counted and equal to the plain full lookup;
@@ -463,8 +465,8 @@ def phase_kernels(torch):
 
     # ---- what the redesigned kernels compiled to, and K4's occupancy
     for line in ptxas_report(build.BUILD_LOG["ptxas"],
-                             ("corr_build_kernel", "ba_blocks_kernel", "windows_build_kernel",
-                              "windows_lookup_kernel", "corr_lookup_kernel",
+                             ("corr_build_kernel", "corr_build_bf16_kernel", "ba_blocks_kernel",
+                              "windows_build_kernel", "windows_lookup_kernel", "corr_lookup_kernel",
                               "pmajor_lookup_kernel", "extract_windows_kernel")):
         if "bf16" not in line:
             say("kernels", f"ptxas: {line}")
@@ -897,7 +899,8 @@ def phase_kernels_bf16(torch):
     also at the ragged 30x44, at 60x80, at the odd widths 30x45, 24x34 and
     24x66, and on the 48x120 map), and
     timed beside their plain versions and, as the library yardstick,
-    torch.bmm of the bf16 volume (K2, K4, K8) and F.grid_sample on the bf16
+    torch.bmm of the bf16 volume (K2, K4, K8; K2 with fp32 levels beside
+    torch.bmm from bf16 to an fp32 volume, out_dtype) and F.grid_sample on the bf16
     levels or windows (K3, K5, K6 bilinear; its grid is bf16 too, as the call
     requires, so its positions are rounded and its output is not held; K7
     nearest, whose rounded grid still picks each window's cells at 40x64, so
@@ -915,8 +918,9 @@ def phase_kernels_bf16(torch):
         return (0.3 * torch.randn(*shape, generator=gen, device=dev)).to(bf16)
 
     for line in ptxas_report(build.BUILD_LOG["ptxas"],
-                             ("corr_build_kernel", "windows_build_bf16_kernel",
-                              "windows_lookup_kernel", "corr_lookup_kernel",
+                             ("corr_build_kernel", "corr_build_bf16_kernel",
+                              "windows_build_bf16_kernel", "windows_lookup_kernel",
+                              "corr_lookup_kernel",
                               "pmajor_lookup_kernel", "extract_windows_kernel")):
         if "bf16" in line:
             say("kernels-bf16", f"ptxas: {line}")
@@ -924,6 +928,14 @@ def phase_kernels_bf16(torch):
     say("kernels-bf16", f"K4/K8 bf16 at {H8}x{W8}: {info[0]} source pixels and {info[1]} bytes "
                         f"of dynamic shared memory a block, {info[2]} (K4) and {info[3]} (K8) "
                         f"blocks resident per SM")
+    EB = 64
+    for E in (E_MAIN, 1, EB):
+        g = (ctypes.c_int * 6)()
+        build.check(build.library().corr_build_bf16_info(E, H8 * W8, H8, W8, g),
+                    "corr_build_bf16_info")
+        say("kernels-bf16", f"K2 bf16 at E={E} {H8}x{W8}: {g[0]} persistent blocks over {g[1]} "
+                            f"tiles, at most {g[2]} tiles a block, {g[3]} stages, {g[4]} bytes of "
+                            f"dynamic shared memory a block, {g[5]} block(s) resident per SM")
 
     # ragged 30x44, 60x80 and the 48x120 map (K4's and K8's column chunks), odd
     # widths and levels whose rows are not 16-byte runs (45, 34, 66), EB = 64
@@ -939,14 +951,16 @@ def phase_kernels_bf16(torch):
         c0r = hold_windows_bf16(torch, fr1, fr2, lr, gen)[0]
         hold_pmajor_windows_bf16(torch, fr1, fr2, lr, c0r, kindsr, f"E={Er} {Hr}x{Wr}")
         del fr1, fr2, lr
-    EB = 64
     fb1, fb2 = randn16(EB, H8, W8, C), randn16(EB, H8, W8, C)
     hold_build_bf16(torch, fb1, fb2, bf16)
     _, errb = hold_build_bf16(torch, fb1, fb2, f32)
     msb = cuda_ms(torch, lambda: cuda_corr.corr_build(fb1, fb2, f32), 10)
     plain_msb = cuda_ms(torch, lambda: cuda_corr.corr_build_plain(fb1, fb2, f32), 2)
     ab, bb = fb1.reshape(EB, H8 * W8, C), fb2.reshape(EB, H8 * W8, C).transpose(1, 2)
-    lib_msb = cuda_ms(torch, lambda: torch.bmm(ab, bb), 10)
+    # the library yardsticks: the volume in bf16, and from bf16 to fp32 as
+    # these levels are
+    lib_msb16 = cuda_ms(torch, lambda: torch.bmm(ab, bb), 10)
+    lib_msb = cuda_ms(torch, lambda: torch.bmm(ab, bb, out_dtype=f32), 10)
     del fb1, fb2, ab, bb
 
     P = Q = H8 * W8
@@ -957,6 +971,7 @@ def phase_kernels_bf16(torch):
         product = 2.0 * E * P * Q * C
         a, b = f1.reshape(E, P, C), f2.reshape(E, Q, C).transpose(1, 2)
         lib_ms2 = cuda_ms(torch, lambda: torch.bmm(a, b), reps)
+        lib_ms2f = cuda_ms(torch, lambda: torch.bmm(a, b, out_dtype=f32), reps)
         for out_dtype, name in ((bf16, "corr_build_bf16"), (f32, "corr_build_bf16_f32")):
             levels, err2 = hold_build_bf16(torch, f1, f2, out_dtype)
             ms2 = cuda_ms(torch, lambda: cuda_corr.corr_build(f1, f2, out_dtype), reps)
@@ -964,10 +979,11 @@ def phase_kernels_bf16(torch):
                                 max(reps // 5, 2))
             bound2 = bound_bf16(0, (f1.numel() + f2.numel()) * 2
                                 + E * P * cells * levels[0].element_size(), product)
+            lib = lib_ms2 if out_dtype == bf16 else lib_ms2f
             say("kernels-bf16", f"E={E}: K2 {name} {ms2:.4f} ms (plain {plain_ms2:.4f}, "
-                                f"torch.bmm bf16 volume {lib_ms2:.4f}, bound {bound2[0]:.4f} by "
-                                f"{bound2[1]})")
-            row = dict(max_abs_err=err2, ms=ms2, plain_ms=plain_ms2, library_ms=lib_ms2,
+                                f"torch.bmm {'bf16' if out_dtype == bf16 else 'bf16 -> fp32'} "
+                                f"volume {lib:.4f}, bound {bound2[0]:.4f} by {bound2[1]})")
+            row = dict(max_abs_err=err2, ms=ms2, plain_ms=plain_ms2, library_ms=lib,
                        bound_ms=bound2[0], bound_by=bound2[1], ops_route="bf16")
             if E == E_MAIN:
                 rows[name] = row
@@ -1111,8 +1127,9 @@ def phase_kernels_bf16(torch):
         del levels, w7, b7, l8, w8, b8, f1, f2, a, b
     bound_b = bound_bf16(0, EB * P * 2 * C * 2 + EB * P * cells * 4, 2.0 * EB * P * Q * C)
     say("kernels-bf16", f"E={EB}: K2 corr_build_bf16_f32 {msb:.4f} ms, the backend's call per "
-                        f"chunk (plain {plain_msb:.4f}, torch.bmm bf16 volume {lib_msb:.4f}, "
-                        f"bound {bound_b[0]:.4f} by {bound_b[1]})")
+                        f"chunk (plain {plain_msb:.4f}, torch.bmm bf16 -> fp32 volume "
+                        f"{lib_msb:.4f}, bf16 volume {lib_msb16:.4f}, bound {bound_b[0]:.4f} by "
+                        f"{bound_b[1]})")
     rows["corr_build_bf16_f32_eb64"] = dict(max_abs_err=errb, ms=msb, plain_ms=plain_msb,
                                             library_ms=lib_msb, bound_ms=bound_b[0],
                                             bound_by=bound_b[1])
@@ -1449,7 +1466,7 @@ def phase_profile_frontend(torch, ops, dtype="float32"):
 
 KERNEL_GROUPS = (      # substrings of device kernel names -> group, first match wins
     ("layout transposes NCHW<->NHWC", ("nchwtonhwc", "nhwctonchw")),
-    ("port K2 corr_build", ("corr_build_kernel",)),
+    ("port K2 corr_build", ("corr_build_kernel", "corr_build_bf16_kernel")),
     ("port K3 corr_lookup", ("corr_lookup_kernel",)),
     ("port K4 corr_build_windows", ("windows_build_kernel", "windows_build_bf16_kernel")),
     ("port K5 corr_lookup_windows", ("windows_lookup_kernel",)),

@@ -48,19 +48,19 @@
 // the epilogue's 36 KB of level 1 reuse them.  One block of 256 threads an
 // SM.
 //
-// bf16 features (the JAX package's bfloat16 path) are a second
-// instantiation of the same kernel.  bf16 needs no split: the product is
-// wgmma m64n256k16 bf16 with fp32 accumulators, one product where fp32
-// takes three, and a stage holds 64 channels (128 bytes a row, the same
-// swizzle), so C = 128 is two stages, both loaded at the start.  Its
-// epilogue writes fp32 levels (the motion filter's and the backend's
-// volume, computed from bf16 features) or bf16 levels (the frontend's
-// drift fallback).  In bf16 each level-0 cell is rounded once after the
-// scale, and each pooled cell is the fp32 mean of the rounded cells below
-// it, rounded once, as the plain version does; the stores carry 8, 8, 4
-// and 2 bytes.  At the main path's shapes the product is 0.081 ms at the
-// 989 TFLOP/s bf16 peak against 0.90 GB of bf16 levels, 0.27 ms at
-// 3.35 TB/s: bytes bound it, and fp32 levels double them.
+// bf16 features (the JAX package's bfloat16 path) take the product as
+// wgmma m64n256k16 bf16 with fp32 accumulators, one product where fp32 takes
+// three, with no split, and a stage holds 64 channels (128 bytes a row, the
+// same swizzle).  With fp32 levels (the motion filter's and the backend's
+// volume) they are a second instantiation of the kernel above, C = 128 being
+// two stages loaded at the start: its fp32 stores already write whole
+// sectors.  bf16 levels (the frontend's drift fallback) have a kernel of their
+// own, corr_build_bf16_kernel, below.  In bf16 each level-0 cell is rounded
+// once after the scale, and each pooled cell is the fp32 mean of the rounded
+// cells below it, rounded once, as the plain version does.  At the main
+// path's shapes the product is 0.081 ms at the 989 TFLOP/s bf16 peak against
+// 0.90 GB of bf16 levels, 0.27 ms at 3.35 TB/s: bytes bound it, and fp32
+// levels double them.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,6 +81,13 @@ constexpr int kBBytes = kN * kBK * 4;    // 32 KB
 constexpr int kStageBytes = 2 * (kABytes + kBBytes);     // whole and split parts
 constexpr int kS = 72;                   // floats a staged pixel: its 64 level-1 cells, 8 mod 32
 constexpr int kSmemBytes = kStages * kStageBytes + 1024 + 64;
+// the bf16 kernel: a ring of stages of f1's 128 pixels and f2's 256 cells x
+// 64 channels, and its own level-1 staging area (16 pixels a warp)
+constexpr int kStages16 = 2;
+constexpr int kA16 = kM * kBK16 * 2;     // 16 KB
+constexpr int kStage16 = kA16 + kN * kBK16 * 2;          // 48 KB
+constexpr int kStgBytes = kThreads / 32 * 16 * kS * 4;   // 36 KB
+constexpr int kSmem16 = kStages16 * kStage16 + kStgBytes + 1024 + 64;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -426,6 +433,258 @@ corr_build_kernel(const __grid_constant__ CUtensorMap map_f1,
   }
 }
 
+// ---- K2 with bf16 levels: a kernel of its own, persistent.
+//
+// (d) bf16 stores write whole 32-byte sectors.  A quad of lanes holds two
+//     pixels' rows of level 0 whole, as pairs of columns; transposed within
+//     the quad (two xor shuffles of packed pairs), a lane stores 8 columns
+//     (16 bytes) and the quad a pixel row's 64 contiguous bytes, where the
+//     fp32 kernel's map left half sectors of 8 bytes.  A pixel row's 8 cells
+//     of level 2 and 4 of level 3 are gathered into one lane and stored at
+//     once (16 and 8 bytes); level 1 keeps its 32 bytes a quad.  Where a
+//     level's rows are not whole runs of that size (W0 % 8, W2 % 8, W3 % 4),
+//     that level is stored as the fp32 map stores it, cell by cell or 2 cells
+//     a lane.
+// (e) min(tiles, SMs) persistent blocks of one an SM.  Tiles go in the order
+//     cell block (fastest), pixel block, edge, and block b takes tiles b,
+//     b + G, b + 2 G, ... (G blocks), so the tiles in flight at any moment
+//     are neighbours, as a grid of one block a tile keeps them: the same
+//     edges' features in L2 and the same rows of the levels being written.
+//     A block's (tile, channel chunk) items run through a ring of kStages16
+//     stages of 48 KB: once item n's products are done and the block has
+//     synchronised, thread 0 loads item n + kStages16 into the freed stage,
+//     so the next tile's chunks load while this tile's epilogue runs.  The
+//     level-1 staging area (36 KB) has its own place beside the ring.
+struct Tile {
+  int e, m0, y0, x0;
+};
+
+__device__ __forceinline__ Tile tile_at(int t, int nblk, int nm, int ncols) {
+  const int cb = t % nblk, mt = t / nblk;
+  return {mt / nm, (mt % nm) * kM, (cb / ncols) * kRows, (cb % ncols) * kCols};
+}
+
+// x[k] of lane q becomes x[q] of lane k, over the 4 lanes of a quad: lane
+// bit 0 is swapped with word bit 0, then lane bit 1 with word bit 1.
+__device__ __forceinline__ void quad_transpose(uint32_t (&x)[4], int q) {
+  const bool b0 = q & 1, b1 = q & 2;
+#pragma unroll
+  for (int i = 0; i < 2; i++) {
+    const uint32_t t = __shfl_xor_sync(0xffffffffu, b0 ? x[2 * i] : x[2 * i + 1], 1);
+    if (b0) x[2 * i] = t;
+    else x[2 * i + 1] = t;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; i++) {
+    const uint32_t t = __shfl_xor_sync(0xffffffffu, b1 ? x[i] : x[i + 2], 2);
+    if (b1) x[i] = t;
+    else x[i + 2] = t;
+  }
+}
+
+// The bf16 kernel's epilogue for tile t, from the accumulators, with this
+// warp's level-1 staging area stg.  Thread (g, q) of warp w holds, for pixels
+// 16 (w % 4) + g and + 8 of its warpgroup (half hf), cells n = 8 j + 2 q +
+// {0, 1}, j = 0 .. 31: tile row j / 4, columns 8 (j % 4) + 2 q + {0, 1}.
+// Every value is rounded to bf16 before it is stored or pooled.
+__device__ __forceinline__ void store_tile_bf16(float (&acc)[128], const Levels<bf16>& out,
+                                                float* stg, int P, const Tile& t) {
+  using io = Io<bf16>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int pw = t.m0 + 64 * (warp >> 2) + 16 * (warp & 3);   // the warp's first pixel
+  const size_t ep0 = (size_t)t.e * P;
+#pragma unroll
+  for (int i = 0; i < 128; i++) acc[i] = io::round(acc[i] * 0.0625f);   // level 0
+
+  // level 0: a quad holds rows r of pixels g and g + 8 whole, as pairs of
+  // columns (one a cj); transposed, lane q holds columns 8 q .. 8 q + 7
+  {
+    const int H0 = out.H[0], W0 = out.W[0];
+    const bool vec = (W0 & 7) == 0;               // then x < W0 holds x + 7 < W0 too
+    const int x = t.x0 + 8 * q;
+#pragma unroll
+    for (int r = 0; r < kRows; r++)
+#pragma unroll
+      for (int hf = 0; hf < 2; hf++) {
+        uint32_t w[4];
+#pragma unroll
+        for (int cj = 0; cj < 4; cj++) {
+          const int i = 4 * (4 * r + cj) + 2 * hf;
+          w[cj] = io::pack(acc[i], acc[i + 1]);
+        }
+        quad_transpose(w, q);
+        const int p = pw + g + 8 * hf, y = t.y0 + r;
+        if (p >= P || y >= H0 || x >= W0) continue;
+        bf16* d = out.lv[0] + ((ep0 + p) * H0 + y) * W0 + x;
+        if (vec) {
+          __stcs(reinterpret_cast<uint4*>(d), make_uint4(w[0], w[1], w[2], w[3]));
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; k++)
+            if (x + k < W0)
+              __stcs(reinterpret_cast<unsigned short*>(d + k),
+                     (unsigned short)(w[k >> 1] >> (16 * (k & 1))));
+        }
+      }
+  }
+
+  // level 1 pooled from the accumulators (a thread holds both columns and
+  // both rows of its cells) and staged: 4 rows x 16 cells a pixel
+#pragma unroll
+  for (int hf = 0; hf < 2; hf++)
+#pragma unroll
+    for (int r1 = 0; r1 < 4; r1++)
+#pragma unroll
+      for (int cj = 0; cj < 4; cj++) {
+        const int i0 = 4 * (8 * r1 + cj) + 2 * hf, i1 = i0 + 16;   // rows 2 r1, 2 r1 + 1
+        const float s0 = acc[i0], s1 = acc[i0 + 1], s2 = acc[i1], s3 = acc[i1 + 1];
+        stg[(g + 8 * hf) * kS + r1 * 16 + 4 * cj + q] = io::round((((s0 + s1) + s2) + s3) * 0.25f);
+      }
+  __syncwarp();
+
+  // each lane takes 4 level-1 columns of a pixel (all 4 rows), pools them to
+  // 2 columns of level 2 and 1 cell of level 3, and stores all three; the
+  // quad of a pixel (qq = 0 .. 3) shuffles together, so every lane runs
+  // through and only the stores test the pixel
+  const int H1 = out.H[1], W1 = out.W[1], H2 = out.H[2], W2 = out.W[2];
+  const int H3 = out.H[3], W3 = out.W[3];
+  const bool wide2 = (W2 & 7) == 0, wide3 = (W3 & 3) == 0;   // one store a pixel row
+#pragma unroll
+  for (int u = 0; u < 2; u++) {
+    const int it = lane + 32 * u, lp = it >> 2, qq = it & 3, p = pw + lp;
+    const bool live = p < P, b0 = qq & 1, b1 = qq & 2;
+    float4 l1[4];
+#pragma unroll
+    for (int r1 = 0; r1 < 4; r1++) l1[r1] = *(const float4*)(stg + lp * kS + r1 * 16 + 4 * qq);
+    float l2[2][2];
+#pragma unroll
+    for (int r2 = 0; r2 < 2; r2++) {
+      const float4 a = l1[2 * r2], b = l1[2 * r2 + 1];
+      l2[r2][0] = io::round((((a.x + a.y) + b.x) + b.y) * 0.25f);
+      l2[r2][1] = io::round((((a.z + a.w) + b.z) + b.w) * 0.25f);
+    }
+    const float l3 = io::round((((l2[0][0] + l2[0][1]) + l2[1][0]) + l2[1][1]) * 0.25f);
+
+    const int x1 = (t.x0 >> 1) + 4 * qq, x2 = (t.x0 >> 2) + 2 * qq, x3 = (t.x0 >> 3) + qq;
+#pragma unroll
+    for (int r1 = 0; r1 < 4; r1++) {
+      const int y = (t.y0 >> 1) + r1;
+      if (!live || y >= H1 || x1 >= W1) continue;
+      bf16* d = out.lv[1] + ((ep0 + p) * H1 + y) * W1 + x1;
+      if ((W1 & 3) == 0) {
+        io::store4(d, l1[r1]);
+      } else {
+        const float vs[4] = {l1[r1].x, l1[r1].y, l1[r1].z, l1[r1].w};
+#pragma unroll
+        for (int k = 0; k < 4; k++)
+          if (x1 + k < W1) io::store1(d + k, vs[k]);
+      }
+    }
+    if (wide2) {
+      // pairs of row b0 from lanes qq ^ 1 (columns 4 b1 .. 4 b1 + 3), then the
+      // other half from lane qq ^ 2: lanes qq = 0, 1 hold row qq's 8 cells
+      const uint32_t w0 = io::pack(l2[0][0], l2[0][1]), w1 = io::pack(l2[1][0], l2[1][1]);
+      const uint32_t pr = __shfl_xor_sync(0xffffffffu, b0 ? w0 : w1, 1);
+      const uint32_t h0 = b0 ? pr : w0, h1 = b0 ? w1 : pr;
+      const uint32_t o0 = __shfl_xor_sync(0xffffffffu, h0, 2);
+      const uint32_t o1 = __shfl_xor_sync(0xffffffffu, h1, 2);
+      const int y = (t.y0 >> 2) + qq;
+      if (!b1 && live && y < H2 && (t.x0 >> 2) < W2)
+        __stcs(reinterpret_cast<uint4*>(out.lv[2] + ((ep0 + p) * H2 + y) * W2 + (t.x0 >> 2)),
+               make_uint4(h0, h1, o0, o1));
+    } else {
+#pragma unroll
+      for (int r2 = 0; r2 < 2; r2++) {
+        const int y = (t.y0 >> 2) + r2;
+        if (!live || y >= H2 || x2 >= W2) continue;
+        bf16* d = out.lv[2] + ((ep0 + p) * H2 + y) * W2 + x2;
+        if ((W2 & 1) == 0) {
+          io::store2(d, l2[r2][0], l2[r2][1]);
+        } else {
+          io::store1(d, l2[r2][0]);
+          if (x2 + 1 < W2) io::store1(d + 1, l2[r2][1]);
+        }
+      }
+    }
+    if (wide3) {
+      // cells 2 b1, 2 b1 + 1 paired across lanes qq ^ 1, then lane 0 takes
+      // lane 2's pair: the row's 4 cells
+      const float o = __shfl_xor_sync(0xffffffffu, l3, 1);
+      const uint32_t w = b0 ? io::pack(o, l3) : io::pack(l3, o);
+      const uint32_t v = __shfl_xor_sync(0xffffffffu, w, 2);
+      if (qq == 0 && live && (t.y0 >> 3) < H3 && (t.x0 >> 3) < W3)
+        __stcs(reinterpret_cast<uint2*>(out.lv[3] + ((ep0 + p) * H3 + (t.y0 >> 3)) * W3
+                                        + (t.x0 >> 3)),
+               make_uint2(w, v));
+    } else if (live && (t.y0 >> 3) < H3 && x3 < W3) {
+      io::store1(out.lv[3] + ((ep0 + p) * H3 + (t.y0 >> 3)) * W3 + x3, l3);
+    }
+  }
+}
+
+// K2 on bf16 features with bf16 levels; `tiles` tiles over the grid's blocks
+// (see schedule()).
+__global__ void __launch_bounds__(kThreads, 1)
+corr_build_bf16_kernel(const __grid_constant__ CUtensorMap map_f1,
+                       const __grid_constant__ CUtensorMap map_f2, int P, int C, int ncols,
+                       int nblk, int nm, int tiles, Levels<bf16> out) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  const int tid = threadIdx.x, wg = tid >> 7;     // consumer warpgroup: pixels 64 wg ..
+  float* stg = (float*)(smem + kStages16 * kStage16) + (tid >> 5) * 16 * kS;   // this warp's
+  uint64_t* full = (uint64_t*)(smem + kStages16 * kStage16 + kStgBytes);
+  const int nk = (C + kBK16 - 1) / kBK16;         // channel chunks a tile
+  const int per = tiles / (int)gridDim.x, extra = tiles % (int)gridDim.x;
+  const int items = (per + ((int)blockIdx.x < extra)) * nk;
+  auto tile = [&](int k) {                        // the block's k-th tile
+    return tile_at((int)blockIdx.x + k * (int)gridDim.x, nblk, nm, ncols);
+  };
+
+  // stage s: f1 [0, 16K), f2 [16K, 48K)
+  auto load = [&](int n) {                        // one thread: item n into stage n % kStages16
+    const Tile t = tile(n / nk);
+    const int s = n % kStages16, c0 = (n % nk) * kBK16;
+    const uint32_t bar = smem_addr(&full[s]);
+    mbar_expect_tx(bar, kStage16);
+    tma_load_3d(smem_addr(smem + s * kStage16), &map_f1, bar, c0, t.m0, t.e);
+    tma_load_4d(smem_addr(smem + s * kStage16 + kA16), &map_f2, bar, c0, t.x0, t.y0, t.e);
+  };
+
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)&map_f1) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"((uint64_t)&map_f2) : "memory");
+    for (int s = 0; s < kStages16; s++) mbar_init(smem_addr(&full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int n = 0; n < kStages16 && n < items; n++) load(n);
+
+  float acc[128];
+  for (int n = 0; n < items; n++) {
+    const int kc = n % nk, s = n % kStages16;
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < 128; i++) acc[i] = 0.f;
+      pin(acc);
+    }
+    mbar_wait(smem_addr(&full[s]), (n / kStages16) & 1);
+    const uint64_t da = sw128_desc(smem_addr(smem + s * kStage16 + wg * 64 * 128));
+    const uint64_t db = sw128_desc(smem_addr(smem + s * kStage16 + kA16));
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kBK16 / 16; kk++)       // 16 channels (32 bytes) a step
+      wgmma_m64n256k16_bf16(acc, da + 2 * kk, db + 2 * kk);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    pin(acc);
+    __syncthreads();                              // stage s is free
+    if (tid == 0 && n + kStages16 < items) load(n + kStages16);
+    if (kc == nk - 1) store_tile_bf16(acc, out, stg, P, tile(n / nk));
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -500,6 +759,56 @@ int launch(const void* f1, const void* f2, int E, int P, int H2, int W2, int C,
   return (int)cudaGetLastError();
 }
 
+// The bf16 kernel's schedule: tiles of kM pixels x kRows x kCols cells, and
+// one persistent block an SM (fewer where there are fewer tiles).
+struct Schedule {
+  int ncols, nblk, nm, tiles, blocks;
+};
+
+int schedule(int E, int P, int H2, int W2, Schedule* sc) {
+  sc->ncols = (W2 + kCols - 1) / kCols;
+  sc->nblk = sc->ncols * ((H2 + kRows - 1) / kRows);
+  sc->nm = (P + kM - 1) / kM;
+  const long long tiles = (long long)sc->nblk * sc->nm * E;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  sc->tiles = (int)tiles;
+  int dev = 0, sms = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err) return err;
+  sc->blocks = sc->tiles < sms ? sc->tiles : sms;
+  return 0;
+}
+
+int launch_bf16(const void* f1, const void* f2, int E, int P, int H2, int W2, int C,
+                void* const* lv, void* stream) {
+  if (E <= 0 || P <= 0 || H2 <= 0 || W2 <= 0) return (int)cudaGetLastError();
+  // a row of channels is a whole number of 16-byte units, as TMA requires
+  if (C <= 0 || C % 8 || (uintptr_t)f1 % 16 || (uintptr_t)f2 % 16) return (int)cudaErrorInvalidValue;
+  Schedule sc;
+  int err = schedule(E, P, H2, W2, &sc);
+  if (err) return err;
+  CUtensorMap map_f1, map_f2;
+  const cuuint64_t d1[3] = {(cuuint64_t)C, (cuuint64_t)P, (cuuint64_t)E};
+  const cuuint32_t b1[3] = {kBK16, kM, 1};
+  const cuuint64_t d2[4] = {(cuuint64_t)C, (cuuint64_t)W2, (cuuint64_t)H2, (cuuint64_t)E};
+  const cuuint32_t b2[4] = {kBK16, kCols, kRows, 1};
+  if (!make_map(&map_f1, f1, 3, d1, b1, true) || !make_map(&map_f2, f2, 4, d2, b2, true))
+    return (int)cudaErrorInvalidValue;
+  Levels<bf16> out;
+  for (int l = 0; l < 4; l++) {
+    out.lv[l] = (bf16*)lv[l];
+    out.H[l] = H2 >> l;
+    out.W[l] = W2 >> l;
+  }
+  err = (int)cudaFuncSetAttribute(corr_build_bf16_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem16);
+  if (err) return err;
+  corr_build_bf16_kernel<<<sc.blocks, kThreads, kSmem16, (cudaStream_t)stream>>>(
+      map_f1, map_f2, P, C, sc.ncols, sc.nblk, sc.nm, sc.tiles, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches K2 on `stream`: f1 [E, P, C], f2 [E, H2*W2, C] (float32,
@@ -520,7 +829,7 @@ extern "C" int corr_build_bf16_launch(const void* f1, const void* f2, int E, int
                                       void* level2, void* level3, int out_f32, void* stream) {
   void* const lv[4] = {level0, level1, level2, level3};
   return out_f32 ? launch<true, float>(f1, f2, E, P, H2, W2, C, lv, stream)
-                 : launch<true, bf16>(f1, f2, E, P, H2, W2, C, lv, stream);
+                 : launch_bf16(f1, f2, E, P, H2, W2, C, lv, stream);
 }
 
 // What a launch uses: out[0] the dynamic shared memory bytes of a block,
@@ -535,5 +844,29 @@ extern "C" int corr_build_info(void* out) {
                                                     kThreads, kSmemBytes))
     n = -1;
   o[1] = n;
+  return 0;
+}
+
+// The bf16 kernel's schedule for E edges of P source pixels over an H2 x W2
+// map: out[0] blocks, out[1] tiles, out[2] the most tiles a block takes,
+// out[3] stages in the ring, out[4] dynamic shared memory bytes a block,
+// out[5] resident blocks per SM (-1 when the query fails).  Returns 0, or the
+// CUDA error of the device query.
+extern "C" int corr_build_bf16_info(int E, int P, int H2, int W2, void* out) {
+  int* o = (int*)out;
+  Schedule sc;
+  const int err = schedule(E, P, H2, W2, &sc);
+  if (err) return err;
+  o[0] = sc.blocks;
+  o[1] = sc.tiles;
+  o[2] = sc.blocks ? (sc.tiles + sc.blocks - 1) / sc.blocks : 0;
+  o[3] = kStages16;
+  o[4] = kSmem16;
+  int n = -1;
+  if (cudaFuncSetAttribute(corr_build_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmem16) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, corr_build_bf16_kernel, kThreads, kSmem16))
+    n = -1;
+  o[5] = n;
   return 0;
 }

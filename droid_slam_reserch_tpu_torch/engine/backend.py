@@ -23,7 +23,9 @@ class Backend:
         graph = FactorGraph(v, self.update_apply, self.params, max_factors=16 * t)
         graph.add_proximity_factors(rad=cfg.backend_radius, nms=cfg.backend_nms,
                                     thresh=cfg.backend_thresh, beta=cfg.beta)
-        graph.update_lowmem(steps=steps, itrs=cfg.ba_iters)
+        # update_lowmem's default BA iterations, as the JAX backend runs them
+        # (it reads no cfg.ba_iters)
+        graph.update_lowmem(steps=steps)
         self.runs.append({"edges": len(graph.ii), "chunks": graph.chunks[0],
                           "EB": graph.chunks[1]})
         graph.clear_edges()

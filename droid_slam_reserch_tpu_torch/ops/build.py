@@ -45,6 +45,7 @@ _SIGNATURES = {
     "corr_windows_build_levels_bf16_launch": [_P] * 3 + [_I] * 5 + [_P] * 7,
     "corr_windows_build_info": [_I, _I, _P],
     "corr_build_info": [_P],
+    "corr_build_bf16_info": [_I] * 4 + [_P],
 }
 
 

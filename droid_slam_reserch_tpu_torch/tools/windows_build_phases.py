@@ -122,28 +122,26 @@ def variant_sources(text, names=tuple(VARIANTS)):
     return out
 
 
-def build_variants(sources, out_dir=OUT):
-    """Write and nvcc-build every (source name, variant) -> {key: .so path},
+def build_sources(texts, out_dir, filename):
+    """nvcc-build {key: (source text, directory of its headers)}, one process
+    a source, all started together, each as ``<out_dir>/<key>/<filename>``
+    beside a copy of dtype_io.cuh into ``<key>/lib.so`` -> {key: .so path},
     with each build's ptxas report in ``<key>/ptxas.txt``."""
     from droid_slam_reserch_tpu_torch.ops import build
 
     nvcc = build._nvcc()
     procs = {}
-    for name, path in sources.items():
-        with open(path) as f:
-            text = f.read()
-        for v, edited in variant_sources(text).items():
-            key = f"{name}-{v}"
-            d = os.path.join(out_dir, key)
-            os.makedirs(d, exist_ok=True)
-            shutil.copy(os.path.join(os.path.dirname(path), "dtype_io.cuh"), d)
-            src = os.path.join(d, "corr_windows_build.cu")
-            with open(src, "w") as f:
-                f.write(edited)
-            lib = os.path.join(d, "lib.so")
-            cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", lib, src]
-            procs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True))
+    for key, (text, header_dir) in texts.items():
+        d = os.path.join(out_dir, key)
+        os.makedirs(d, exist_ok=True)
+        shutil.copy(os.path.join(header_dir, "dtype_io.cuh"), d)
+        src = os.path.join(d, filename)
+        with open(src, "w") as f:
+            f.write(text)
+        lib = os.path.join(d, "lib.so")
+        cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", lib, src]
+        procs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (lib, proc) in procs.items():
         out, _ = proc.communicate()
@@ -153,6 +151,18 @@ def build_variants(sources, out_dir=OUT):
             raise RuntimeError(f"nvcc failed on {key}:\n{out}")
         libs[key] = lib
     return libs
+
+
+def build_variants(sources, out_dir=OUT):
+    """Write and nvcc-build every (source name, variant) -> {key: .so path},
+    with each build's ptxas report in ``<key>/ptxas.txt``."""
+    texts = {}
+    for name, path in sources.items():
+        with open(path) as f:
+            text = f.read()
+        for v, edited in variant_sources(text).items():
+            texts[f"{name}-{v}"] = (edited, os.path.dirname(path))
+    return build_sources(texts, out_dir, "corr_windows_build.cu")
 
 
 def _load(path):

@@ -11,6 +11,14 @@ kernel runs here.
   big*small + big*big, with big = x cut to TF32 (low 13 bits cleared) and
   small = x - big, stays within chip_smoke's K2 tolerance,
   1e-5 * max(1, |level0|), of the plain levels; one TF32 product does not.
+- K2 with bf16 levels (corr_build_bf16_kernel): its epilogue's store map,
+  with the accumulators laid out as wgmma leaves them, the quad transpose of
+  level 0 and the shuffles that gather a pixel row of levels 2 and 3 into
+  one lane, writes every cell of every level exactly once, in stores aligned
+  to their width, and gives corr_build_plain's bf16 levels bit for bit.  Its
+  persistent schedule takes every tile once, block b tiles b, b + G, ..., and
+  its ring loads no stage before the products of the item in it are done,
+  with the next tile's chunks in flight during each epilogue.
 - K1's relative pose: the kernel's arithmetic (each operation rounded
   alone, in the plain version's order), emulated in numpy float32, gives
   edge_inputs' Gij, stereo self-edges included.
@@ -286,3 +294,281 @@ def test_k1_cluster_split_sums_hold_jax_blocks(H, W):
         assert np.abs(a).max() > 0, k
         np.testing.assert_allclose(mine[k].numpy(), a, rtol=0,
                                    atol=K1_TOL * max(1.0, np.abs(a).max()), err_msg=k)
+
+
+# ---- the bf16 kernel (corr_build_bf16_kernel): its epilogue's store map and
+# its persistent schedule.  The kernel's constants: tiles of KM pixels x 8 x 32
+# cells, 8 warps of 32 lanes, SMS blocks at most (the H100's SMs).
+KM, WARPS, SMS = 128, 8, 132
+
+
+def _bits(x):
+    """bf16 bits of x (rounded to nearest even) as int64."""
+    return x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def _pack(a, b):
+    """Io<bf16>::pack: a in the low half, b in the high half."""
+    return _bits(a) | (_bits(b) << 16)
+
+
+def _halves(w):
+    return [w & 0xFFFF, (w >> 16) & 0xFFFF]
+
+
+def _shfl_xor(x, m):
+    """__shfl_xor_sync over the 32 lanes on the last dim of x."""
+    return x[..., torch.arange(32) ^ m]
+
+
+def _quad_transpose(x):
+    """quad_transpose: x [..., 32 lanes, 4 words] -> word k of lane q is
+    word q of lane k, within each quad, in the kernel's two xor steps."""
+    x = x.clone()
+    q = torch.arange(32) & 3
+    b0, b1 = (q & 1).bool(), (q & 2).bool()
+    for i in range(2):
+        t = _shfl_xor(torch.where(b0, x[..., 2 * i], x[..., 2 * i + 1]), 1)
+        x[..., 2 * i] = torch.where(b0, t, x[..., 2 * i])
+        x[..., 2 * i + 1] = torch.where(b0, x[..., 2 * i + 1], t)
+    for i in range(2):
+        t = _shfl_xor(torch.where(b1, x[..., i], x[..., i + 2]), 2)
+        x[..., i] = torch.where(b1, t, x[..., i])
+        x[..., i + 2] = torch.where(b1, x[..., i + 2], t)
+    return x
+
+
+class _Memory:
+    """The four bf16 levels as flat bf16 bits, with a write count a cell, and
+    every store's width and byte address checked for alignment."""
+
+    def __init__(self, E, P, H, W):
+        self.sizes = [(H >> l, W >> l) for l in range(4)]
+        self.P = P
+        self.bits = [torch.zeros(E * P * h * w, dtype=torch.int64) for h, w in self.sizes]
+        self.count = [torch.zeros(E * P * h * w, dtype=torch.int64) for h, w in self.sizes]
+
+    def store(self, l, mask, e, p, y, x, cells):
+        """Store run `cells` (a list of bit tensors, consecutive columns from
+        x) where mask holds, as one store of len(cells) * 2 bytes."""
+        h, w = self.sizes[l]
+        off = ((e * self.P + p) * h + y) * w + x
+        m = mask.reshape(-1)
+        off = off.expand(mask.shape).reshape(-1)[m]
+        width = 2 * len(cells)
+        assert bool(((2 * off) % width == 0).all()), f"a {width}-byte store of level {l} misaligned"
+        for k, c in enumerate(cells):
+            assert bool((x.expand(mask.shape).reshape(-1)[m] + k < w).all()), "a store past a row"
+            self.bits[l][off + k] = c.expand(mask.shape).reshape(-1)[m]
+            self.count[l].index_add_(0, off + k, torch.ones_like(off))
+
+
+def bf16_tile_path(f1, f2, chunk=256):
+    """corr_build_bf16_kernel's epilogue with bf16 levels, emulated over the
+    tiles of tile_at(), `chunk` tiles at a time: the accumulators as wgmma
+    leaves them, each value rounded once after the scale, the quad transpose
+    and the packing shuffles, and every store of every (tile, warp, lane)
+    -> _Memory.  Tensors are [tile, warp, lane] or broadcast to it."""
+    E, H1, W1, _ = f1.shape
+    H, W = f2.shape[1:3]
+    P = H1 * W1
+    mem = _Memory(E, P, H, W)
+    (H0, W0), (Hl1, Wl1), (Hl2, Wl2), (Hl3, Wl3) = mem.sizes
+    ncols, nbands, nm = -(-W // COLS), -(-H // ROWS), -(-P // KM)
+    nblk = ncols * nbands
+    vol = torch.zeros(E, nm * KM, nbands * ROWS, ncols * COLS)   # TMA's zeros past the map
+    vol[:, :P, :H, :W] = corr_volume_flat(f1, f2)      # scaled by 1/16, as acc * 0.0625
+    lane = torch.arange(32)
+    g, q = lane >> 2, lane & 3
+    warp = torch.arange(WARPS)[:, None]
+    i = torch.arange(128)
+    j, hf_i, c_i = i >> 2, (i >> 1) & 1, i & 1
+    # acc[..., warp, lane, i]: pixel (in the tile), row and column of the cell
+    pix = 64 * (warp[..., None] >> 2) + 16 * (warp[..., None] & 3) + g[:, None] + 8 * hf_i
+    row, col = j // 4, 8 * (j % 4) + 2 * q[:, None] + c_i
+    for t0 in range(0, nblk * nm * E, chunk):
+        e, m0, y0, x0 = (v[:, None, None] for v in
+                         tile_at(torch.arange(t0, min(t0 + chunk, nblk * nm * E)), nblk, nm, ncols))
+        T = e.shape[0]
+        acc = vol[e[..., None], m0[..., None] + pix, y0[..., None] + row, x0[..., None] + col]
+        acc = acc.to(torch.bfloat16).float()          # [T, 8, 32, 128]
+        pw = m0 + 64 * (warp >> 2) + 16 * (warp & 3)   # the warp's first pixel, [T, 8, 1]
+        # level 0: pairs of columns, transposed in each quad, 16 bytes a lane
+        for r in range(ROWS):
+            for hf in range(2):
+                idx = [4 * (4 * r + cj) + 2 * hf for cj in range(4)]
+                w = torch.stack([_pack(acc[..., k], acc[..., k + 1]) for k in idx], -1)
+                w = _quad_transpose(w)
+                p, y, x = pw + g + 8 * hf, y0 + r, x0 + 8 * q
+                live = (p < P) & (y < H0) & (x < W0)
+                cells = [h for k in range(4) for h in _halves(w[..., k])]
+                if W0 % 8 == 0:
+                    mem.store(0, live, e, p, y, x, cells)
+                else:
+                    for k in range(8):
+                        mem.store(0, live & (x + k < W0), e, p, y, x + k, [cells[k]])
+        # level 1 staged: [tile, warp, 16 pixels, 4 rows, 16 columns]
+        stg = torch.zeros(T, WARPS, 16, 4, 16)
+        tix = torch.arange(T)[:, None, None]
+        for hf in range(2):
+            for r1 in range(4):
+                for cj in range(4):
+                    i0 = 4 * (8 * r1 + cj) + 2 * hf
+                    i1 = i0 + 16
+                    s = (((acc[..., i0] + acc[..., i0 + 1]) + acc[..., i1]) + acc[..., i1 + 1])
+                    stg[tix, warp, g + 8 * hf, r1, 4 * cj + q] = \
+                        (s * 0.25).to(torch.bfloat16).float()
+        for u in range(2):
+            it = lane + 32 * u
+            lp, qq = it >> 2, it & 3
+            p = pw + lp
+            live = p < P
+            cols = 4 * qq[:, None] + torch.arange(4)
+            l1 = [stg[tix[..., None], warp[..., None], lp[:, None], r1, cols]
+                  for r1 in range(4)]                  # [T, 8, 32, 4]
+            l2 = [[((((a[..., 2 * c] + a[..., 2 * c + 1]) + b[..., 2 * c]) + b[..., 2 * c + 1])
+                    * 0.25).to(torch.bfloat16).float() for c in range(2)]
+                  for a, b in (l1[0:2], l1[2:4])]
+            l3 = ((((l2[0][0] + l2[0][1]) + l2[1][0]) + l2[1][1]) * 0.25).to(torch.bfloat16).float()
+            x1, x2, x3 = (x0 >> 1) + 4 * qq, (x0 >> 2) + 2 * qq, (x0 >> 3) + qq
+            for r1 in range(4):
+                y = (y0 >> 1) + r1
+                ok = live & (y < Hl1) & (x1 < Wl1)
+                cells = [_bits(l1[r1][..., k]) for k in range(4)]
+                if Wl1 % 4 == 0:
+                    mem.store(1, ok, e, p, y, x1, cells)
+                else:
+                    for k in range(4):
+                        mem.store(1, ok & (x1 + k < Wl1), e, p, y, x1 + k, [cells[k]])
+            b0, b1 = (qq & 1).bool(), (qq & 2).bool()
+            if Wl2 % 8 == 0:
+                w0, w1 = _pack(l2[0][0], l2[0][1]), _pack(l2[1][0], l2[1][1])
+                pr = _shfl_xor(torch.where(b0, w0, w1), 1)
+                h0, h1 = torch.where(b0, pr, w0), torch.where(b0, w1, pr)
+                o0, o1 = _shfl_xor(h0, 2), _shfl_xor(h1, 2)
+                y = (y0 >> 2) + qq
+                ok = ~b1 & live & (y < Hl2) & ((x0 >> 2) < Wl2)
+                cells = [h for v in (h0, h1, o0, o1) for h in _halves(v)]
+                mem.store(2, ok, e, p, y, x0 >> 2, cells)
+            else:
+                for r2 in range(2):
+                    y = (y0 >> 2) + r2
+                    ok = live & (y < Hl2) & (x2 < Wl2)
+                    cells = [_bits(l2[r2][0]), _bits(l2[r2][1])]
+                    if Wl2 % 2 == 0:
+                        mem.store(2, ok, e, p, y, x2, cells)
+                    else:
+                        mem.store(2, ok, e, p, y, x2, cells[:1])
+                        mem.store(2, ok & (x2 + 1 < Wl2), e, p, y, x2 + 1, cells[1:])
+            if Wl3 % 4 == 0:
+                o = _shfl_xor(l3, 1)
+                w = torch.where(b0, _pack(o, l3), _pack(l3, o))
+                v = _shfl_xor(w, 2)
+                ok = (qq == 0) & live & ((y0 >> 3) < Hl3) & ((x0 >> 3) < Wl3)
+                mem.store(3, ok, e, p, y0 >> 3, x0 >> 3, _halves(w) + _halves(v))
+            else:
+                ok = live & ((y0 >> 3) < Hl3) & (x3 < Wl3)
+                mem.store(3, ok, e, p, y0 >> 3, x3, [_bits(l3)])
+    return mem
+
+
+def tile_at(t, nblk, nm, ncols):
+    """The kernel's tile_at: tile t -> (e, m0, y0, x0), the cell block
+    fastest, then the pixel block, then the edge."""
+    cb, mt = t % nblk, t // nblk
+    return mt // nm, (mt % nm) * KM, (cb // ncols) * ROWS, (cb % ncols) * COLS
+
+
+@pytest.mark.parametrize("E,H,W", TILE_SHAPES, ids=TILE_IDS)
+def test_k2_bf16_store_map_writes_the_plain_levels_bit_for_bit(E, H, W):
+    f1, f2 = (f.to(torch.bfloat16) for f in _features(E, H, W, 8, 3))
+    mem = bf16_tile_path(f1, f2)
+    plain = corr_build_plain(f1, f2, torch.bfloat16)
+    for l, ref in enumerate(plain):
+        assert bool((mem.count[l] == 1).all()), f"a cell of level {l} is written other than once"
+        assert torch.equal(mem.bits[l], _bits(ref.float()).reshape(-1)), l
+
+
+def schedule(tiles, sms=SMS):
+    """The kernel's schedule() and its tile(k): per block, the tiles it takes
+    in order, block b tiles b, b + G, b + 2 G, ... of G = min(tiles, sms)."""
+    blocks = min(tiles, sms)
+    per, extra = divmod(tiles, blocks)
+    return [[b + k * blocks for k in range(per + (b < extra))] for b in range(blocks)]
+
+
+def ring(count, nk, stages):
+    """A block's items through the ring, in its program order: thread 0
+    loads items 0 .. stages - 1, then for each item n the block waits on
+    stage n % stages with parity (n // stages) & 1, runs the products,
+    synchronises, loads item n + stages, and after a tile's last chunk runs
+    its epilogue.  Returns, per tile, the items loaded before its epilogue;
+    asserts that no stage is loaded while it holds an item not yet
+    consumed and that every wait finds its item in the phase it names."""
+    items = count * nk
+    held, phases, issued = {}, [0] * stages, []
+
+    def load(n):
+        s = n % stages
+        assert s not in held, f"item {n} loaded into stage {s} before item {held.get(s)} was consumed"
+        held[s] = n
+        phases[s] += 1
+        issued.append(n)
+
+    for n in range(min(stages, items)):
+        load(n)
+    before_epilogue = []
+    for n in range(items):
+        s = n % stages
+        assert held.get(s) == n and (phases[s] - 1) & 1 == (n // stages) & 1, (n, held, phases)
+        del held[s]                                   # consumed: the products of item n
+        if n + stages < items:
+            load(n + stages)
+        if n % nk == nk - 1:
+            before_epilogue.append(set(issued))
+    return before_epilogue
+
+
+def _tiles(E, H, W):
+    return -(-W // COLS) * -(-H // ROWS) * -(-(H * W) // KM) * E
+
+
+SCHEDULE_SHAPES = [(1, 40, 64), (48, 40, 64), (64, 40, 64), (4, 30, 44), (2, 60, 80),
+                   (2, 48, 120), (2, 30, 45), (2, 24, 34), (2, 24, 66)]
+SCHEDULE_IDS = ["E1", "E48", "EB64", "30x44", "60x80", "48x120", "30x45", "24x34", "24x66"]
+
+
+@pytest.mark.parametrize("E,H,W", SCHEDULE_SHAPES, ids=SCHEDULE_IDS)
+def test_k2_bf16_schedule_takes_every_tile_once(E, H, W):
+    tiles = _tiles(E, H, W)
+    blocks = schedule(tiles)
+    assert len(blocks) == min(tiles, SMS)
+    assert sorted(t for b in blocks for t in b) == list(range(tiles))   # each tile once
+    counts = [len(b) for b in blocks]
+    assert max(counts) - min(counts) <= 1 and min(counts) >= 1
+    for k in range(max(counts)):
+        # the k-th tiles of all blocks are neighbours, as one block a tile
+        # would run them
+        kth = [b[k] for b in blocks if k < len(b)]
+        assert kth == list(range(k * len(blocks), k * len(blocks) + len(kth)))
+    ncols, nblk, nm = -(-W // COLS), -(-W // COLS) * -(-H // ROWS), -(-(H * W) // KM)
+    cover = {tile_at(t, nblk, nm, ncols) for t in range(tiles)}
+    assert cover == {(e, m0, y0, x0) for e in range(E) for m0 in range(0, H * W, KM)
+                     for y0 in range(0, H, ROWS) for x0 in range(0, W, COLS)}
+    assert [tile_at(t, nblk, nm, ncols)[2:] for t in range(nblk)] == \
+        [(y0, x0) for y0 in range(0, H, ROWS) for x0 in range(0, W, COLS)]   # cells fastest
+
+
+@pytest.mark.parametrize("E,H,W", SCHEDULE_SHAPES, ids=SCHEDULE_IDS)
+@pytest.mark.parametrize("C,stages", [(128, 2), (128, 3), (64, 2), (192, 2)],
+                         ids=["C128-S2", "C128-S3", "C64-S2", "C192-S2"])
+def test_k2_bf16_ring_loads_a_stage_only_once_consumed(E, H, W, C, stages):
+    nk = -(-C // 64)
+    for block in schedule(_tiles(E, H, W)):
+        count = len(block)
+        before = ring(count, nk, stages)
+        for i in range(count - 1):
+            # the next tile's chunks that fit the ring are in flight during
+            # this tile's epilogue
+            nxt = set(range((i + 1) * nk, min((i + 1) * nk + stages, (i + 2) * nk)))
+            assert nxt <= before[i], (i, sorted(before[i]))

@@ -3,9 +3,12 @@ out, from copies of csrc/corr_windows_build.cu with a few lines of the bf16
 kernel edited.  Its timings run on the card only; here each edit is held to
 a source laid out as the kernel file is (an fp32 kernel, then a bf16 one, or
 one template shared by both): it finds its lines in the kernel with the bf16
-products only, exactly once, and changes what it says it does."""
+products only, exactly once, and changes what it says it does.
+tools/corr_build_sources.py's variants of K2's bf16-levels kernel are held
+to the committed csrc/corr_build.cu: each edits exactly one line of it."""
 import pytest
 
+from droid_slam_reserch_tpu_torch.tools import corr_build_sources as k2_sources
 from droid_slam_reserch_tpu_torch.tools import windows_build_phases as phases
 
 _BODY = """(const {t}* f1, int* bases, Meta m) {{
@@ -70,3 +73,19 @@ def test_an_edit_that_misses_its_line_raises():
         phases.variant_sources(SPLIT.replace(phases._STORES, ""), ("b",))
     with pytest.raises(ValueError):     # no kernel with bf16 products
         phases.variant_sources(SPLIT.replace("mma_bf16", "mma_tf32"), ("a",))
+
+
+# tools/corr_build_sources.py builds variants of K2's bf16-levels kernel from
+# the committed csrc/corr_build.cu: each edit must find its one line there.
+
+
+@pytest.mark.parametrize("variant", list(k2_sources.VARIANTS))
+def test_k2_variant_edits_one_line_of_the_committed_source(variant):
+    texts = k2_sources.variant_texts("this", k2_sources.SOURCE)
+    assert set(texts) == {"this"} | {f"this-{v}" for v in k2_sources.VARIANTS}
+    a, b = texts["this"][0].splitlines(), texts[f"this-{variant}"][0].splitlines()
+    assert len(a) == len(b)
+    changed = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    assert len(changed) == 1
+    old, new = k2_sources.VARIANTS[variant]
+    assert a[changed[0]].strip().endswith(old) and b[changed[0]].strip().endswith(new)
