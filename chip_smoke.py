@@ -22,13 +22,16 @@ Phases (one line each; any failure exits nonzero):
            and K8 against K2 and K4, and times kernel, plain version and,
            where one PyTorch call computes the same function, that call
            (torch.bmm for the builds, F.grid_sample bilinear for the lookups,
-           F.grid_sample nearest for K7's window extraction);
+           F.grid_sample nearest for K7's window extraction); the lookups'
+           bound also by the 32-byte sectors their span rows touch
+           (sector_bound_ms);
    kernels-bf16  the same for the bf16 instantiations of K2 (bf16 levels and
            fp32 levels), K3, K4, K5, K6, K7 and K8, with their ptxas reports,
            at E = 48, E = 1, K2 also at EB = 64, all also at 30x44, 60x80,
-           30x45, 24x34, 24x66 and on the 48x120 map (K4 and K8 in bf16 take
-           maps up to 181 cells wide); K6 and K7 exactly, K8's windows
-           exactly against K7 over K8's own levels; the yardsticks take bf16
+           30x45, 24x34, 24x66, 27x45 (odd P) and on the 48x120 map (K4 and
+           K8 in bf16 take maps up to 181 cells wide); K6 and K7 exactly, K8's
+           windows exactly against K7 over K8's own levels, and the cells in
+           which K3 and K5 differ from their plain versions; the yardsticks take bf16
            (torch.bmm of the bf16 volume, or from bf16 to an fp32 volume for
            K2's fp32 levels, F.grid_sample on bf16 levels); K2 bf16's
            persistent grid is printed;
@@ -195,6 +198,9 @@ def ptxas_report(log, kernels):
                 name += " bf16 -> fp32"
             elif name and "__nv_bfloat16" in m.group(1):
                 name += " bf16"
+            bulk = re.search(r"windows_lookup_bf16_kernelILb([01])E", m.group(1))
+            if name and bulk:                           # K5 bf16: how a span is read
+                name += ", bulk copy" if bulk.group(1) == "1" else ", 2-byte loads"
         elif name and ("registers" in line or "spill" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -467,6 +473,7 @@ def phase_kernels(torch):
     for line in ptxas_report(build.BUILD_LOG["ptxas"],
                              ("corr_build_kernel", "corr_build_bf16_kernel", "ba_blocks_kernel",
                               "windows_build_kernel", "windows_lookup_kernel", "corr_lookup_kernel",
+                              "windows_lookup_bf16_kernel", "corr_lookup_bf16_kernel",
                               "pmajor_lookup_kernel", "extract_windows_kernel")):
         if "bf16" not in line:
             say("kernels", f"ptxas: {line}")
@@ -555,6 +562,11 @@ def phase_kernels(torch):
         # and writes 196 floats
         bound6 = bound(E * P * 4 * (7 * 8 * 3 + 49 * 3),
                        (E * P * 4 * 64 + coords.numel() + out.numel()) * 4)
+        # the 32-byte sectors that the spans' rows (K6: cells) touch
+        sectors6 = sector_bound(torch, pmajor_spans(torch, padded, coords),
+                                (coords.numel() + out.numel()) * 4)
+        sectors3 = sector_bound(torch, lookup_spans(torch, levels, coords),
+                                (coords.numel() + out.numel()) * 4)
         del padded
         # bytes this run's data needs: the in-bounds cells of every 8x8 window
         need = 0
@@ -576,22 +588,24 @@ def phase_kernels(torch):
                        f"{lib_ms2:.4f}, bound {bound2[0]:.4f} by {bound2[1]}, 3xTF32); random "
                        f"coords: K3 "
                        f"{ms3['random']:.4f} ms (plain {plain_ms3:.4f}, F.grid_sample x4 "
-                       f"{lib_ms3['random']:.4f}, bound {bound3[0]:.4f} by {bound3[1]}), K6 "
-                       f"{ms6['random']:.4f} ms (plain {plain_ms6:.4f}, bound {bound6[0]:.4f} by "
-                       f"{bound6[1]}); grid_sample against K3 {err3_lib:.3e} (tol {tol_lib:.1e}: "
-                       f"its [-1, 1] grid rounds the positions)")
+                       f"{lib_ms3['random']:.4f}, bound {bound3[0]:.4f} by {bound3[1]}, sectors "
+                       f"{sectors3:.4f}), K6 {ms6['random']:.4f} ms (plain {plain_ms6:.4f}, bound "
+                       f"{bound6[0]:.4f} by {bound6[1]}, sectors {sectors6:.4f}); grid_sample "
+                       f"against K3 {err3_lib:.3e} (tol {tol_lib:.1e}: its [-1, 1] grid rounds "
+                       f"the positions)")
         if not err3_lib <= tol_lib:
             fail(f"F.grid_sample does not compute K3's function at E={E}")
         if E == E_MAIN:
             rows["corr_build"] = dict(max_abs_err=err2, ms=ms2, plain_ms=plain_ms2,
                                       library_ms=lib_ms2, bound_ms=bound2[0], bound_by=bound2[1],
                                       ops_route="tf32x3")
-            for name, err, ms, plain_ms, bnd in (("corr_lookup", err3, ms3, plain_ms3, bound3),
-                                                 ("corr_lookup_pmajor", err6, ms6, plain_ms6,
-                                                  bound6)):
+            for name, err, ms, plain_ms, bnd, sectors in (
+                    ("corr_lookup", err3, ms3, plain_ms3, bound3, sectors3),
+                    ("corr_lookup_pmajor", err6, ms6, plain_ms6, bound6, sectors6)):
                 rows[name] = dict(max_abs_err=err, ms=ms["random"], plain_ms=plain_ms,
                                   library_ms=lib_ms3["random"], bound_ms=bnd[0], bound_by=bnd[1],
-                                  ms_pan4=ms["pan4"], library_ms_pan4=lib_ms3["pan4"])
+                                  sector_bound_ms=sectors, ms_pan4=ms["pan4"],
+                                  library_ms_pan4=lib_ms3["pan4"])
         else:
             rows["corr_build_e1"] = dict(ms=ms2, plain_ms=plain_ms2, library_ms=lib_ms2,
                                          bound_ms=bound2[0])
@@ -616,6 +630,8 @@ def phase_kernels(torch):
         # reads the 8x8 block of each window it samples, the bases and coords
         bound5 = bound(E * P * 4 * (7 * 8 * 3 + 49 * 3),
                        (E * P * 4 * 64 + bases.numel() + c1.numel() + out5.numel()) * 4)
+        sectors5 = sector_bound(torch, window_spans(torch, wins, bases, c1, (H8, W8)),
+                                (bases.numel() + c1.numel() + out5.numel()) * 4)
         sizes = level_sizes(H8, W8)
         offs = pack_offsets(sizes)[0]
         win_views = [wins[:, :, o:o + win_shape(*hw)[0], :win_shape(*hw)[1]]
@@ -628,8 +644,9 @@ def phase_kernels(torch):
         say("kernels", f"E={E}: K4 {ms4:.4f} ms (plain {plain_ms4:.4f}, torch.bmm volume "
                        f"{lib_ms2:.4f}, bound {bound4[0]:.4f} by {bound4[1]}, 3xTF32); K5 "
                        f"{ms5:.4f} ms (plain {plain_ms5:.4f}, F.grid_sample x4 over the windows "
-                       f"{lib_ms5:.4f}, bound {bound5[0]:.4f} by {bound5[1]}); grid_sample "
-                       f"against K5 {err5_lib:.3e} (tol {tol_lib:.1e})")
+                       f"{lib_ms5:.4f}, bound {bound5[0]:.4f} by {bound5[1]}, sectors "
+                       f"{sectors5:.4f}); grid_sample against K5 {err5_lib:.3e} (tol "
+                       f"{tol_lib:.1e})")
         if not err5_lib <= tol_lib:
             fail(f"F.grid_sample over the windows does not compute K5's function at E={E}")
         say("kernels", f"E={E}: one update_fused call of 6 rounds, correlation only: "
@@ -642,7 +659,8 @@ def phase_kernels(torch):
                                               ops_route="tf32x3")
             rows["corr_lookup_windows"] = dict(max_abs_err=errs["err5"], ms=ms5,
                                                plain_ms=plain_ms5, library_ms=lib_ms5,
-                                               bound_ms=bound5[0], bound_by=bound5[1])
+                                               bound_ms=bound5[0], bound_by=bound5[1],
+                                               sector_bound_ms=sectors5)
 
         # ---- K7: K4's windows cut out of K2's levels around c0
         w7, b7 = cuda_corr.corr_extract_windows(levels, c0)
@@ -774,7 +792,9 @@ def hold_lookup_bf16(torch, levels, coords, at):
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     tol = BF16 * float(ref.float().abs().max())
-    say("kernels-bf16", f"K3 corr_lookup bf16 {at}: max_abs_err {err:.3e} (tol {tol:.1e})")
+    differ = int((out != ref).sum())
+    say("kernels-bf16", f"K3 corr_lookup bf16 {at}: max_abs_err {err:.3e} (tol {tol:.1e}), "
+                        f"{differ} cells differ")
     if not (err <= tol and out.dtype == torch.bfloat16):
         fail(f"K3 bf16 disagrees with its plain version at {at}")
     return out, err
@@ -820,9 +840,10 @@ def hold_windows_bf16(torch, f1, f2, levels, gen):
     tol5 = BF16 * float(ref5.float().abs().max())
     err53 = float((out5.float() - full.float()).abs().max())
     tol53 = 2 * BF16 * float(full.float().abs().max())
+    differ5 = int((out5 != ref5).sum())
     say("kernels-bf16", f"K5 corr_lookup_windows bf16 {at}: max_abs_err {err5:.3e} (tol "
-                        f"{tol5:.1e}); K5(K4) against K3(K2) where the drift rule holds: "
-                        f"{err53:.3e} (tol {tol53:.1e})")
+                        f"{tol5:.1e}), {differ5} cells differ; K5(K4) against K3(K2) where the "
+                        f"drift rule holds: {err53:.3e} (tol {tol53:.1e})")
     if not (err5 <= tol5 and err53 <= tol53 and out5.dtype == torch.bfloat16):
         fail(f"K5 bf16 disagrees with its plain version or with K3 at {at}")
     return c0, c1, wins, bases, out5, dict(err4=err4, err5=max(err5, err53))
@@ -892,6 +913,81 @@ def window_cells_in_levels(torch, sizes, bases):
     return need
 
 
+def sector_bound(torch, spans, nbytes):
+    """Least time in ms to move, at the HBM rate, every 32-byte sector that
+    the byte ranges of `spans` touch, each once ((start, end) address
+    tensors; a range touches at most two sectors), and `nbytes` more."""
+    sectors = 0
+    for start, end in spans:
+        first, last = start // 32, (end - 1) // 32
+        if bool((last - first > 1).any()):
+            fail("sector_bound: a span row touches more than two sectors")
+        sectors += int(torch.unique(torch.cat([first, last])).numel())
+    return 1e3 * (32 * sectors + nbytes) / PEAK_BYTES
+
+
+def _span_start(torch, c, l, radius=3):
+    """floor(coords / 2^l) - radius, x and y, as int64 [E, P] (the kernels'
+    clamped floor)."""
+    c = c / 2 ** l
+    f = torch.floor(c).clamp(-1e6, 1e6).long() - radius
+    return f[..., 0], f[..., 1]
+
+
+def lookup_spans(torch, levels, coords):
+    """K3's reads: per level, the byte range of each 8-cell span row inside
+    the level, clipped to it."""
+    spans = []
+    for l, v in enumerate(levels):
+        E, P, h, w = v.shape
+        x0, y0 = _span_start(torch, coords, l)
+        rows = y0[..., None] + torch.arange(8, device=v.device)             # [E, P, 8]
+        c0, c1 = x0.clamp(min=0)[..., None], (x0 + 8).clamp(max=w)[..., None]
+        ok = (rows >= 0) & (rows < h) & (c1 > c0)
+        base = (torch.arange(E * P, device=v.device).view(E, P, 1) * h + rows) * w
+        es = v.element_size()
+        spans.append((((base + c0) * es + v.data_ptr())[ok], ((base + c1) * es + v.data_ptr())[ok]))
+    return spans
+
+
+def window_spans(torch, wins, bases, coords, hw):
+    """K5's reads: the byte range of each 8-cell span row of each level's
+    window."""
+    from droid_slam_reserch_tpu_torch.ops.corr import PPAD, level_sizes, pack_offsets, win_shape
+
+    E, P, sum_wh, ww = wins.shape
+    sizes = level_sizes(*hw)
+    starts = []
+    for l, (off, (h, w)) in enumerate(zip(pack_offsets(sizes)[0], sizes)):
+        WH, WW = win_shape(h, w)
+        x0, y0 = _span_start(torch, coords, l)
+        sy = (y0 + PPAD - bases[:, 2 * l].long()).clamp(0, WH - 8)
+        sx = (x0 + PPAD - bases[:, 2 * l + 1].long()).clamp(0, WW - 8)
+        rows = (torch.arange(E * P, device=wins.device).view(E, P, 1) * sum_wh + off
+                + sy[..., None] + torch.arange(8, device=wins.device))
+        starts.append((rows * ww + sx[..., None]).reshape(-1))
+    start = torch.cat(starts) * wins.element_size() + wins.data_ptr()
+    return [(start, start + 8 * wins.element_size())]
+
+
+def pmajor_spans(torch, padded, coords):
+    """K6's reads: per level, each of the 64 cells of each span in the
+    pixels-last padded level [E, Hp, Wp, P]."""
+    spans = []
+    for l, v in enumerate(padded):
+        E, Hp, Wp, P = v.shape
+        x0, y0 = _span_start(torch, coords, l)
+        taps = torch.arange(8, device=v.device)
+        rows = (y0 + 8).clamp(0, Hp - 8)[..., None, None] + taps[:, None]
+        cols = (x0 + 8).clamp(0, Wp - 8)[..., None, None] + taps
+        e = torch.arange(E, device=v.device).view(E, 1, 1, 1)
+        p = torch.arange(P, device=v.device).view(1, P, 1, 1)
+        start = (((e * Hp + rows) * Wp + cols) * P + p).reshape(-1) * v.element_size()
+        start = start + v.data_ptr()
+        spans.append((start, start + v.element_size()))
+    return spans
+
+
 def phase_kernels_bf16(torch):
     """The bf16 instantiations of K2 (bf16 and fp32 levels), K3, K4, K5, K6,
     K7 and K8 against their plain bf16 versions, at the shapes of the bf16
@@ -920,8 +1016,9 @@ def phase_kernels_bf16(torch):
     for line in ptxas_report(build.BUILD_LOG["ptxas"],
                              ("corr_build_kernel", "corr_build_bf16_kernel",
                               "windows_build_bf16_kernel", "windows_lookup_kernel",
-                              "corr_lookup_kernel",
-                              "pmajor_lookup_kernel", "extract_windows_kernel")):
+                              "corr_lookup_kernel", "windows_lookup_bf16_kernel",
+                              "corr_lookup_bf16_kernel", "pmajor_lookup_kernel",
+                              "extract_windows_kernel")):
         if "bf16" in line:
             say("kernels-bf16", f"ptxas: {line}")
     info = windows_build_info(build)[4:]
@@ -938,9 +1035,10 @@ def phase_kernels_bf16(torch):
                             f"dynamic shared memory a block, {g[5]} block(s) resident per SM")
 
     # ragged 30x44, 60x80 and the 48x120 map (K4's and K8's column chunks), odd
-    # widths and levels whose rows are not 16-byte runs (45, 34, 66), EB = 64
+    # widths and levels whose rows are not 16-byte runs (45, 34, 66), an odd
+    # P (27x45: the lookups' output runs of edge 1 start at odd pixels), EB = 64
     for Er, Hr, Wr in ((4, 30, 44), (2, 60, 80), (2, 48, 120), (2, 30, 45), (2, 24, 34),
-                       (2, 24, 66)):
+                       (2, 24, 66), (2, 27, 45)):
         fr1, fr2 = randn16(Er, Hr, Wr, C), randn16(Er, Hr, Wr, C)
         hold_build_bf16(torch, fr1, fr2, f32)
         lr, _ = hold_build_bf16(torch, fr1, fr2, bf16)
@@ -1017,15 +1115,17 @@ def phase_kernels_bf16(torch):
             need += int((((ys >= 0) & (ys < h)).sum(-1) * ((xs >= 0) & (xs < w)).sum(-1)).sum())
         bound3 = bound_bf16(E * P * 4 * (7 * 8 * 3 + 49 * 3),
                             need * 2 + coords.numel() * 4 + E * P * 196 * 2)
+        sectors3 = sector_bound(torch, lookup_spans(torch, levels, coords),
+                                coords.numel() * 4 + E * P * 196 * 2)
         say("kernels-bf16", f"E={E}: K3 corr_lookup_bf16 random coords {ms3['random']:.4f} ms, "
                             f"pan4 {ms3['pan4']:.4f} ms (plain {plain_ms3:.4f}, F.grid_sample "
                             f"x4 bf16 {lib_ms3['random']:.4f} / {lib_ms3['pan4']:.4f}, bound "
-                            f"{bound3[0]:.4f} by {bound3[1]})")
+                            f"{bound3[0]:.4f} by {bound3[1]}, sectors {sectors3:.4f})")
         if E == E_MAIN:
             rows["corr_lookup_bf16"] = dict(max_abs_err=err3, ms=ms3["random"],
                                             plain_ms=plain_ms3, library_ms=lib_ms3["random"],
                                             bound_ms=bound3[0], bound_by=bound3[1],
-                                            ms_pan4=ms3["pan4"],
+                                            sector_bound_ms=sectors3, ms_pan4=ms3["pan4"],
                                             library_ms_pan4=lib_ms3["pan4"])
 
         # K4 and K5
@@ -1043,6 +1143,8 @@ def phase_kernels_bf16(torch):
         bound5 = bound_bf16(E * P * 4 * (7 * 8 * 3 + 49 * 3),
                             E * P * 4 * 64 * 2 + (bases.numel() + c1.numel()) * 4
                             + out5.numel() * 2)
+        sectors5 = sector_bound(torch, window_spans(torch, wins, bases, c1, (H8, W8)),
+                                (bases.numel() + c1.numel()) * 4 + out5.numel() * 2)
         sizes = level_sizes(H8, W8)
         offs = pack_offsets(sizes)[0]
         views = [wins[:, :, o:o + win_shape(*hw)[0], :win_shape(*hw)[1]]
@@ -1054,7 +1156,8 @@ def phase_kernels_bf16(torch):
                             f"{plain_ms4:.4f}, torch.bmm bf16 volume {lib_ms2:.4f}, bound "
                             f"{bound4[0]:.4f} by {bound4[1]}); K5 corr_lookup_windows_bf16 "
                             f"{ms5:.4f} ms (plain {plain_ms5:.4f}, F.grid_sample x4 bf16 over "
-                            f"the windows {lib_ms5:.4f}, bound {bound5[0]:.4f} by {bound5[1]}); "
+                            f"the windows {lib_ms5:.4f}, bound {bound5[0]:.4f} by {bound5[1]}, "
+                            f"sectors {sectors5:.4f}); "
                             f"one update_fused call of 6 rounds, correlation only: K4 + 6 x K5 "
                             f"= {ms4 + 6 * ms5:.4f} ms")
         if E == E_MAIN:
@@ -1064,7 +1167,8 @@ def phase_kernels_bf16(torch):
                                                    ops_route="bf16")
             rows["corr_lookup_windows_bf16"] = dict(max_abs_err=errs["err5"], ms=ms5,
                                                     plain_ms=plain_ms5, library_ms=lib_ms5,
-                                                    bound_ms=bound5[0], bound_by=bound5[1])
+                                                    bound_ms=bound5[0], bound_by=bound5[1],
+                                                    sector_bound_ms=sectors5)
         del wins, bases, out5
 
         # K6 over the bf16 P-major pyramid, K7 over K2's bf16 levels, K8
@@ -1077,6 +1181,8 @@ def phase_kernels_bf16(torch):
         # the 64 cells of each span (no bounds checks), the coords, 196 outputs
         bound6 = bound_bf16(E * P * 4 * (7 * 8 * 3 + 49 * 3),
                             E * P * 4 * 64 * 2 + coords.numel() * 4 + E * P * 196 * 2)
+        sectors6 = sector_bound(torch, pmajor_spans(torch, padded, coords),
+                                coords.numel() * 4 + E * P * 196 * 2)
         del padded
         ms7 = cuda_ms(torch, lambda: cuda_corr.corr_extract_windows(levels, c0), reps)
         plain_ms7 = cuda_ms(torch, lambda: cuda_corr.corr_extract_windows_plain(levels, c0),
@@ -1103,7 +1209,8 @@ def phase_kernels_bf16(torch):
         say("kernels-bf16", f"E={E}: K6 corr_lookup_pmajor_bf16 random coords "
                             f"{ms6['random']:.4f} ms, pan4 {ms6['pan4']:.4f} ms (plain "
                             f"{plain_ms6:.4f}, F.grid_sample x4 bf16 {lib_ms3['random']:.4f} / "
-                            f"{lib_ms3['pan4']:.4f}, bound {bound6[0]:.4f} by {bound6[1]}); K7 "
+                            f"{lib_ms3['pan4']:.4f}, bound {bound6[0]:.4f} by {bound6[1]}, "
+                            f"sectors {sectors6:.4f}); K7 "
                             f"corr_extract_windows_bf16 {ms7:.4f} ms (plain {plain_ms7:.4f}, "
                             f"F.grid_sample nearest x4 bf16 {lib_ms7:.4f}, against K7 "
                             f"{err7_lib:.3e}, bound {bound7[0]:.4f} by {bound7[1]}); K8 "
@@ -1113,7 +1220,7 @@ def phase_kernels_bf16(torch):
         new = {"corr_lookup_pmajor_bf16": dict(max_abs_err=errs["err6"], ms=ms6["random"],
                                                plain_ms=plain_ms6, library_ms=lib_ms3["random"],
                                                bound_ms=bound6[0], bound_by=bound6[1],
-                                               ms_pan4=ms6["pan4"],
+                                               sector_bound_ms=sectors6, ms_pan4=ms6["pan4"],
                                                library_ms_pan4=lib_ms3["pan4"]),
                "corr_extract_windows_bf16": dict(max_abs_err=errs["err7"], ms=ms7,
                                                  plain_ms=plain_ms7, library_ms=lib_ms7,
@@ -1467,9 +1574,10 @@ def phase_profile_frontend(torch, ops, dtype="float32"):
 KERNEL_GROUPS = (      # substrings of device kernel names -> group, first match wins
     ("layout transposes NCHW<->NHWC", ("nchwtonhwc", "nhwctonchw")),
     ("port K2 corr_build", ("corr_build_kernel", "corr_build_bf16_kernel")),
-    ("port K3 corr_lookup", ("corr_lookup_kernel",)),
+    ("port K3 corr_lookup", ("corr_lookup_kernel", "corr_lookup_bf16_kernel")),
     ("port K4 corr_build_windows", ("windows_build_kernel", "windows_build_bf16_kernel")),
-    ("port K5 corr_lookup_windows", ("windows_lookup_kernel",)),
+    ("port K5 corr_lookup_windows",
+     ("windows_lookup_kernel", "windows_lookup_bf16_kernel")),
     ("port K6 corr_lookup_pmajor", ("pmajor_lookup_kernel",)),
     ("port K7 corr_extract_windows", ("extract_windows_kernel",)),
     ("port K1 ba_blocks", ("ba_blocks_kernel",)),
@@ -1652,8 +1760,8 @@ def main():
                         "ops_route": r.get("ops_route", "fp32"),
                         # the lookups' times under a smooth 4-px pan (the others: random
                         # coords); K1's call as a whole, on the device and on the host clock
-                        **{k: r[k] for k in ("ms_pan4", "library_ms_pan4", "call_ms", "host_ms")
-                           if k in r}})
+                        **{k: r[k] for k in ("ms_pan4", "library_ms_pan4", "call_ms", "host_ms",
+                                             "sector_bound_ms") if k in r}})
         # K2 also at E=1 (motion filter) and EB=64 (backend); K6-K8 bf16 at E=1
         for shape in ("e1", "eb64"):
             if f"{name}_{shape}" in rows:

@@ -31,16 +31,30 @@
 // and at E = 1.  16-pixel tiles give the motion filter's single edge 160
 // blocks, more than the 132 SMs.
 //
-// bf16 (the JAX package's bfloat16 path, where K2 stores bf16 levels): the
-// same kernel reads bf16 spans and writes bf16 outputs.  It blends in fp32
-// with the fractional parts rounded to bf16, as the TPU kernel casts them
-// to the volume's dtype, and rounds each output once, so it equals the
-// plain version (ops/corr.py) exactly.  It moves about half the bytes of
-// the fp32 kernel.
+// bf16 (the JAX package's bfloat16 path, where K2 stores bf16 levels) has a
+// kernel of its own, corr_lookup_bf16_kernel: the fp32 design's 64 scalar
+// loads a thread set its time, not its bytes.  One thread per (pixel,
+// level) reads its span's 8 rows as aligned 16-byte chunks wherever the
+// level's width is a multiple of 8 cells and the level 16-byte aligned
+// (every level at the main path's 40x64).  Row yy of the span needs chunk
+// floor(x0 / 8) and, where x0 % 8 != 0, the next one (x0 = floor(x) - 3 may
+// be negative: floor division); each chunk lies wholly inside the level's
+// row or wholly outside it, so cells off the level read 0 by skipping whole
+// chunks and rows.  It loads all 8 rows (up to 16 chunks) before it
+// blends; lookup_bf16.cuh aligns them with funnel shifts, blends row pair
+// by row pair (along y, then x, each product and sum rounded on its own,
+// the fractional parts rounded to bf16 as the TPU kernel casts them to the
+// volume's dtype, the output rounded once, so it equals the plain version,
+// ops/corr.py, exactly) into the tile's outputs staged in shared memory,
+// and the block writes the tile's contiguous run with 16-byte stores
+// (8-byte ones where the run starts at an odd pixel, e * P + p0).  A level whose
+// width is not a multiple of 8, or that is not 16-byte aligned, is read
+// 2 bytes a cell by the same body, with bounds checks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "dtype_io.cuh"
+#include "lookup_bf16.cuh"
 
 namespace {
 
@@ -72,10 +86,9 @@ __device__ __forceinline__ float blend(float g00, float g01, float g10, float g1
   return __fadd_rn(__fmul_rn(wx, y0), __fmul_rn(f.x, y1));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-corr_lookup_kernel(Pyramid<T> pyr, const float2* __restrict__ coords, T* __restrict__ out,
-                   int P) {
+corr_lookup_kernel(Pyramid<float> pyr, const float2* __restrict__ coords,
+                   float* __restrict__ out, int P) {
   __shared__ __align__(16) float stage[kTile * kOut];
   const int tid = threadIdx.x, q = tid / kD, a = tid - q * kD;
   const int e = blockIdx.y, p0 = blockIdx.x * kTile;
@@ -91,15 +104,15 @@ corr_lookup_kernel(Pyramid<T> pyr, const float2* __restrict__ coords, T* __restr
       const float scale = 1.f / (float)(1 << l);
       const float x = c.x * scale, y = c.y * scale;
       const int y0 = floor_clamped(y) - kR, x0 = floor_clamped(x) - kR + a;
-      f[l] = make_float2(Io<T>::round(x - floorf(x)), Io<T>::round(y - floorf(y)));
-      const T* v = pyr.lv[l] + ((size_t)e * P + p0 + q) * H * W;
+      f[l] = make_float2(Io<float>::round(x - floorf(x)), Io<float>::round(y - floorf(y)));
+      const float* v = pyr.lv[l] + ((size_t)e * P + p0 + q) * H * W;
       const bool ok0 = x0 >= 0 && x0 < W, ok1 = x0 + 1 >= 0 && x0 + 1 < W;
 #pragma unroll
       for (int i = 0; i <= kD; i++) {
         const int yy = y0 + i;
         const bool oky = yy >= 0 && yy < H;
-        g[l][0][i] = oky && ok0 ? Io<T>::load(v + (size_t)yy * W + x0) : 0.f;
-        g[l][1][i] = oky && ok1 ? Io<T>::load(v + (size_t)yy * W + x0 + 1) : 0.f;
+        g[l][0][i] = oky && ok0 ? Io<float>::load(v + (size_t)yy * W + x0) : 0.f;
+        g[l][1][i] = oky && ok1 ? Io<float>::load(v + (size_t)yy * W + x0 + 1) : 0.f;
       }
     }
     float* o = stage + q * kOut + a * kD;
@@ -112,36 +125,100 @@ corr_lookup_kernel(Pyramid<T> pyr, const float2* __restrict__ coords, T* __restr
   __syncthreads();
 
   // ---- the tile's np x 196 outputs are one contiguous run: 16-byte stores
-  // (8-byte stores of 4 values in bf16)
   const float4* src = reinterpret_cast<const float4*>(stage);
-  T* dst = out + ((size_t)e * P + p0) * kOut;
-  for (int i = tid; i < np * (kOut / 4); i += kThreads) {
-    if constexpr (sizeof(T) == 4) {
-      reinterpret_cast<float4*>(dst)[i] = src[i];
-    } else {
-      const float4 v = src[i];
-      reinterpret_cast<uint2*>(dst)[i] =
-          make_uint2(Io<T>::pack(v.x, v.y), Io<T>::pack(v.z, v.w));
+  float* dst = out + ((size_t)e * P + p0) * kOut;
+  for (int i = tid; i < np * (kOut / 4); i += kThreads) reinterpret_cast<float4*>(dst)[i] = src[i];
+}
+
+constexpr int kTileB = 16;                  // bf16: pixels a block
+constexpr int kThreadsB = kTileB * kLevels; // a thread per (pixel, level)
+
+// The 8 rows of the span at (x0, y0) of an H x W level (v points at the
+// pixel's level), cells x0 .. x0 + 7 of rows y0 .. y0 + 7, 0 off the level:
+// whole 16-byte chunks (kVec: W % 8 == 0, v 16-byte aligned) or 2-byte cells.
+template <bool kVec>
+__device__ __forceinline__ void load_span(const bf16* v, int H, int W, int x0, int y0,
+                                          uint4 (&rows)[8]) {
+  if constexpr (kVec) {
+    const int cx = x0 >> 3, s = x0 & 7;     // floor division: x0 may be negative
+    const bool ok0 = cx >= 0 && cx < W / 8, ok1 = s && cx + 1 >= 0 && cx + 1 < W / 8;
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    uint4 lo[8], hi[8];
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      const int yy = y0 + i;
+      const bool oky = yy >= 0 && yy < H;
+      const uint4* r = reinterpret_cast<const uint4*>(v + (size_t)(oky ? yy : 0) * W) + cx;
+      lo[i] = oky && ok0 ? __ldg(r) : zero;
+      hi[i] = oky && ok1 ? __ldg(r + 1) : zero;
     }
+#pragma unroll
+    for (int i = 0; i < 8; i++) rows[i] = lookup_bf16::span8(lo[i], hi[i], s);
+  } else {
+    const unsigned short* r = reinterpret_cast<const unsigned short*>(v);
+    unsigned short c[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      const int yy = y0 + i;
+      const bool oky = yy >= 0 && yy < H;
+#pragma unroll
+      for (int j = 0; j < 8; j++) {
+        const int xx = x0 + j;
+        c[i][j] = oky && xx >= 0 && xx < W ? __ldg(r + (size_t)yy * W + xx) : 0;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; i++) rows[i] = lookup_bf16::pack8(c[i]);
   }
 }
 
+// A block takes kTileB consecutive pixels of edge blockIdx.y; thread
+// l * kTileB + q is (pixel p0 + q, level l), so a warp's coords loads
+// coalesce.  Bit l of `vec` says that level l's rows are read in 16-byte
+// chunks.
+__global__ void __launch_bounds__(kThreadsB)
+corr_lookup_bf16_kernel(Pyramid<bf16> pyr, int vec, const float2* __restrict__ coords,
+                        bf16* __restrict__ out, int P) {
+  __shared__ __align__(16) bf16 stage[kTileB * kOut];
+  const int tid = threadIdx.x, l = tid / kTileB, q = tid - l * kTileB;
+  const int e = blockIdx.y, p0 = blockIdx.x * kTileB;
+  const int np = min(kTileB, P - p0);
+  if (q < np) {
+    const bf16* lv = pyr.lv[0];
+    int H = pyr.H[0], W = pyr.W[0];
+#pragma unroll
+    for (int k = 1; k < kLevels; k++)        // select without indexing the parameter
+      if (l == k) {
+        lv = pyr.lv[k];
+        H = pyr.H[k];
+        W = pyr.W[k];
+      }
+    const float2 c = coords[(size_t)e * P + p0 + q];
+    const float scale = 1.f / (float)(1 << l);
+    const float x = c.x * scale, y = c.y * scale;
+    const int y0 = floor_clamped(y) - kR, x0 = floor_clamped(x) - kR;
+    const float fx = Io<bf16>::round(x - floorf(x)), fy = Io<bf16>::round(y - floorf(y));
+    const bf16* v = lv + ((size_t)e * P + p0 + q) * H * W;
+    uint4 rows[8];
+    if ((vec >> l) & 1)
+      load_span<true>(v, H, W, x0, y0, rows);
+    else
+      load_span<false>(v, H, W, x0, y0, rows);
+    lookup_bf16::blend_span(rows, fx, fy, stage + q * kOut + l * kD * kD);
+  }
+  __syncthreads();
+  lookup_bf16::store_run(stage, out + ((size_t)e * P + p0) * kOut, np * kOut, tid, kThreadsB);
+}
+
 template <typename T>
-int launch(const void* const* lv, const void* coords, int E, int P, int H2, int W2, void* out,
-           void* stream) {
+Pyramid<T> pyramid(const void* const* lv, int H2, int W2) {
   Pyramid<T> pyr;
   for (int l = 0; l < kLevels; l++) {
     pyr.lv[l] = (const T*)lv[l];
     pyr.H[l] = H2 >> l;
     pyr.W[l] = W2 >> l;
   }
-  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
-  if (E > 0 && P > 0) {
-    dim3 grid((P + kTile - 1) / kTile, E);
-    corr_lookup_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        pyr, (const float2*)coords, (T*)out, P);
-  }
-  return (int)cudaGetLastError();
+  return pyr;
 }
 
 }  // namespace
@@ -155,14 +232,31 @@ extern "C" int corr_lookup_launch(const void* level0, const void* level1,
                                   const void* coords, int E, int P, int H2, int W2,
                                   void* out, void* stream) {
   const void* lv[kLevels] = {level0, level1, level2, level3};
-  return launch<float>(lv, coords, E, P, H2, W2, out, stream);
+  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
+  if (E > 0 && P > 0) {
+    dim3 grid((P + kTile - 1) / kTile, E);
+    corr_lookup_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        pyramid<float>(lv, H2, W2), (const float2*)coords, (float*)out, P);
+  }
+  return (int)cudaGetLastError();
 }
 
-// The same on bf16 levels (K2's bf16 instantiation) -> out [E, P, 196] bf16.
+// The same on bf16 levels (K2's bf16 instantiation) -> out [E, P, 196] bf16
+// (8-byte aligned).  A level is read 16 bytes at a time where its width is a
+// multiple of 8 and it starts 16-byte aligned, else 2 bytes at a time.
 extern "C" int corr_lookup_bf16_launch(const void* level0, const void* level1,
                                        const void* level2, const void* level3,
                                        const void* coords, int E, int P, int H2, int W2,
                                        void* out, void* stream) {
   const void* lv[kLevels] = {level0, level1, level2, level3};
-  return launch<bf16>(lv, coords, E, P, H2, W2, out, stream);
+  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
+  int vec = 0;
+  for (int l = 0; l < kLevels; l++)
+    if ((W2 >> l) % 8 == 0 && (reinterpret_cast<uintptr_t>(lv[l]) & 15) == 0) vec |= 1 << l;
+  if (E > 0 && P > 0) {
+    dim3 grid((P + kTileB - 1) / kTileB, E);
+    corr_lookup_bf16_kernel<<<grid, kThreadsB, 0, (cudaStream_t)stream>>>(
+        pyramid<bf16>(lv, H2, W2), vec, (const float2*)coords, (bf16*)out, P);
+  }
+  return (int)cudaGetLastError();
 }

@@ -35,6 +35,7 @@ measurement and a JSON line of all of them.
 """
 import argparse
 import ctypes
+import glob
 import json
 import os
 import shutil
@@ -125,8 +126,9 @@ def variant_sources(text, names=tuple(VARIANTS)):
 def build_sources(texts, out_dir, filename):
     """nvcc-build {key: (source text, directory of its headers)}, one process
     a source, all started together, each as ``<out_dir>/<key>/<filename>``
-    beside a copy of dtype_io.cuh into ``<key>/lib.so`` -> {key: .so path},
-    with each build's ptxas report in ``<key>/ptxas.txt``."""
+    beside a copy of its directory's headers (``*.cuh``) into
+    ``<key>/lib.so`` -> {key: .so path}, with each build's ptxas report in
+    ``<key>/ptxas.txt``."""
     from droid_slam_reserch_tpu_torch.ops import build
 
     nvcc = build._nvcc()
@@ -134,7 +136,8 @@ def build_sources(texts, out_dir, filename):
     for key, (text, header_dir) in texts.items():
         d = os.path.join(out_dir, key)
         os.makedirs(d, exist_ok=True)
-        shutil.copy(os.path.join(header_dir, "dtype_io.cuh"), d)
+        for header in glob.glob(os.path.join(header_dir, "*.cuh")):
+            shutil.copy(header, d)
         src = os.path.join(d, filename)
         with open(src, "w") as f:
             f.write(text)

@@ -5,10 +5,13 @@ a source laid out as the kernel file is (an fp32 kernel, then a bf16 one, or
 one template shared by both): it finds its lines in the kernel with the bf16
 products only, exactly once, and changes what it says it does.
 tools/corr_build_sources.py's variants of K2's bf16-levels kernel are held
-to the committed csrc/corr_build.cu: each edits exactly one line of it."""
+to the committed csrc/corr_build.cu: each edits exactly one line of it; and
+tools/lookup_sources.py's variants of the bf16 lookups to the committed
+csrc/corr_lookup.cu and csrc/corr_windows_lookup.cu."""
 import pytest
 
 from droid_slam_reserch_tpu_torch.tools import corr_build_sources as k2_sources
+from droid_slam_reserch_tpu_torch.tools import lookup_sources
 from droid_slam_reserch_tpu_torch.tools import windows_build_phases as phases
 
 _BODY = """(const {t}* f1, int* bases, Meta m) {{
@@ -89,3 +92,20 @@ def test_k2_variant_edits_one_line_of_the_committed_source(variant):
     assert len(changed) == 1
     old, new = k2_sources.VARIANTS[variant]
     assert a[changed[0]].strip().endswith(old) and b[changed[0]].strip().endswith(new)
+
+
+# tools/lookup_sources.py builds variants of the bf16 lookups' kernels (K3
+# bf16, K5 bf16) from the committed csrc/: each variant's edits must find
+# their text there once each, and leave the fp32 kernel before it as it is.
+
+
+@pytest.mark.parametrize("kern,variant", [(k, v) for k, vs in lookup_sources.VARIANTS.items()
+                                          for v in vs])
+def test_lookup_variant_edits_only_the_bf16_kernel(kern, variant):
+    texts = lookup_sources.variant_texts("this", lookup_sources.CSRC)
+    assert {k for kk, k in texts if kk == kern} == {"this", f"this-{variant}"}
+    text, edited = texts[kern, "this"][0], texts[kern, f"this-{variant}"][0]
+    start = text.index("constexpr int kTileB")        # the bf16 kernel's part of the source
+    assert edited[:start] == text[:start] and edited != text
+    for old, new in lookup_sources.VARIANTS[kern][variant]:
+        assert text.count(old) == 1 and new in edited
