@@ -23,8 +23,8 @@ Phases (one line each; any failure exits nonzero):
            where one PyTorch call computes the same function, that call
            (torch.bmm for the builds, F.grid_sample bilinear for the lookups,
            F.grid_sample nearest for K7's window extraction); the lookups'
-           bound also by the 32-byte sectors their span rows touch
-           (sector_bound_ms);
+           and K7's bound also by the 32-byte sectors their span rows (K7:
+           window rows inside the levels) touch (sector_bound_ms);
    kernels-bf16  the same for the bf16 instantiations of K2 (bf16 levels and
            fp32 levels), K3, K4, K5, K6, K7 and K8, with their ptxas reports,
            at E = 48, E = 1, K2 also at EB = 64, all also at 30x44, 60x80,
@@ -201,6 +201,9 @@ def ptxas_report(log, kernels):
             bulk = re.search(r"windows_lookup_bf16_kernelILb([01])E", m.group(1))
             if name and bulk:                           # K5 bf16: how a span is read
                 name += ", bulk copy" if bulk.group(1) == "1" else ", 2-byte loads"
+            boxes = re.search(r"pmajor_lookup_bf16_kernelILb([01])E", m.group(1))
+            if name and boxes:                          # K6 bf16: how its boxes are copied
+                name += ", 16-byte copies" if boxes.group(1) == "1" else ", 2-byte copies"
         elif name and ("registers" in line or "spill" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -474,7 +477,8 @@ def phase_kernels(torch):
                              ("corr_build_kernel", "corr_build_bf16_kernel", "ba_blocks_kernel",
                               "windows_build_kernel", "windows_lookup_kernel", "corr_lookup_kernel",
                               "windows_lookup_bf16_kernel", "corr_lookup_bf16_kernel",
-                              "pmajor_lookup_kernel", "extract_windows_kernel")):
+                              "pmajor_lookup_kernel", "extract_windows_kernel",
+                              "pmajor_lookup_bf16_kernel", "extract_windows_bf16_kernel")):
         if "bf16" not in line:
             say("kernels", f"ptxas: {line}")
     info2 = (ctypes.c_int * 2)()
@@ -681,6 +685,8 @@ def phase_kernels(torch):
         # the window cells inside each level are read, every cell and base written
         need7 = window_cells_in_levels(torch, sizes, b7)
         bound7 = bound(0, (need7 + c0.numel() + w7.numel() + b7.numel()) * 4)
+        sectors7 = sector_bound(torch, window_rows_in_levels(torch, levels, b7),
+                                (c0.numel() + w7.numel() + b7.numel()) * 4)
         # the library yardstick: F.grid_sample nearest, one call per level, at
         # the integer grid of each window, built outside the timed region
         gs7 = window_grid_inputs(torch, levels, b7)
@@ -708,13 +714,15 @@ def phase_kernels(torch):
                        tf32x3=2.0 * E * P * Q * C)
         del l8, w8, b8
         say("kernels", f"E={E}: K7 {ms7:.4f} ms (plain {plain_ms7:.4f}, F.grid_sample nearest "
-                       f"x4 {lib_ms7:.4f}, bound {bound7[0]:.4f} by {bound7[1]}); K8 {ms8:.4f} ms "
+                       f"x4 {lib_ms7:.4f}, bound {bound7[0]:.4f} by {bound7[1]}, sectors "
+                       f"{sectors7:.4f}); K8 {ms8:.4f} ms "
                        f"(plain {plain_ms8:.4f}, torch.bmm volume {lib_ms2:.4f}, bound "
                        f"{bound8[0]:.4f} by {bound8[1]}, 3xTF32)")
         if E == E_MAIN:
             rows["corr_extract_windows"] = dict(max_abs_err=max(err7, err74), ms=ms7,
                                                 plain_ms=plain_ms7, library_ms=lib_ms7,
-                                                bound_ms=bound7[0], bound_by=bound7[1])
+                                                bound_ms=bound7[0], bound_by=bound7[1],
+                                                sector_bound_ms=sectors7)
             rows["corr_build_windows_levels"] = dict(max_abs_err=errs["err8"],
                                                      ms=ms8, plain_ms=plain_ms8,
                                                      library_ms=lib_ms2, bound_ms=bound8[0],
@@ -916,13 +924,15 @@ def window_cells_in_levels(torch, sizes, bases):
 def sector_bound(torch, spans, nbytes):
     """Least time in ms to move, at the HBM rate, every 32-byte sector that
     the byte ranges of `spans` touch, each once ((start, end) address
-    tensors; a range touches at most two sectors), and `nbytes` more."""
+    tensors; every sector from a range's first to its last), and `nbytes`
+    more."""
     sectors = 0
     for start, end in spans:
         first, last = start // 32, (end - 1) // 32
-        if bool((last - first > 1).any()):
-            fail("sector_bound: a span row touches more than two sectors")
-        sectors += int(torch.unique(torch.cat([first, last])).numel())
+        touched = [first]
+        for k in range(1, int((last - first).max()) + 1 if first.numel() else 0):
+            touched.append((first + k)[first + k <= last])
+        sectors += int(torch.unique(torch.cat(touched)).numel())
     return 1e3 * (32 * sectors + nbytes) / PEAK_BYTES
 
 
@@ -943,6 +953,25 @@ def lookup_spans(torch, levels, coords):
         x0, y0 = _span_start(torch, coords, l)
         rows = y0[..., None] + torch.arange(8, device=v.device)             # [E, P, 8]
         c0, c1 = x0.clamp(min=0)[..., None], (x0 + 8).clamp(max=w)[..., None]
+        ok = (rows >= 0) & (rows < h) & (c1 > c0)
+        base = (torch.arange(E * P, device=v.device).view(E, P, 1) * h + rows) * w
+        es = v.element_size()
+        spans.append((((base + c0) * es + v.data_ptr())[ok], ((base + c1) * es + v.data_ptr())[ok]))
+    return spans
+
+
+def window_rows_in_levels(torch, levels, bases):
+    """K7's reads: per level, the byte range of each window row that lies
+    inside the level, clipped to the level's columns."""
+    from droid_slam_reserch_tpu_torch.ops.corr import PPAD, win_shape
+
+    spans = []
+    for l, v in enumerate(levels):
+        E, P, h, w = v.shape
+        WH, WW = win_shape(h, w)
+        y0, x0 = bases[:, 2 * l].long() - PPAD, bases[:, 2 * l + 1].long() - PPAD
+        rows = y0[..., None] + torch.arange(WH, device=v.device)            # [E, P, WH]
+        c0, c1 = x0.clamp(min=0)[..., None], (x0 + WW).clamp(max=w)[..., None]
         ok = (rows >= 0) & (rows < h) & (c1 > c0)
         base = (torch.arange(E * P, device=v.device).view(E, P, 1) * h + rows) * w
         es = v.element_size()
@@ -1018,7 +1047,8 @@ def phase_kernels_bf16(torch):
                               "windows_build_bf16_kernel", "windows_lookup_kernel",
                               "corr_lookup_kernel", "windows_lookup_bf16_kernel",
                               "corr_lookup_bf16_kernel", "pmajor_lookup_kernel",
-                              "extract_windows_kernel")):
+                              "extract_windows_kernel", "pmajor_lookup_bf16_kernel",
+                              "extract_windows_bf16_kernel")):
         if "bf16" in line:
             say("kernels-bf16", f"ptxas: {line}")
     info = windows_build_info(build)[4:]
@@ -1189,6 +1219,8 @@ def phase_kernels_bf16(torch):
                             max(reps // 5, 2))
         bound7 = bound_bf16(0, window_cells_in_levels(torch, sizes, b7) * 2 + c0.numel() * 4
                             + w7.numel() * 2 + b7.numel() * 4)
+        sectors7 = sector_bound(torch, window_rows_in_levels(torch, levels, b7),
+                                c0.numel() * 4 + w7.numel() * 2 + b7.numel() * 4)
         gs7 = [(v, g.to(bf16)) for v, g in window_grid_inputs(torch, levels, b7)]
         lib7 = grid_sample_lookup(torch, gs7, "nearest", align_corners=False)
         err7_lib = max(float((o.reshape(E, P, *o.shape[-2:]).float()
@@ -1213,7 +1245,8 @@ def phase_kernels_bf16(torch):
                             f"sectors {sectors6:.4f}); K7 "
                             f"corr_extract_windows_bf16 {ms7:.4f} ms (plain {plain_ms7:.4f}, "
                             f"F.grid_sample nearest x4 bf16 {lib_ms7:.4f}, against K7 "
-                            f"{err7_lib:.3e}, bound {bound7[0]:.4f} by {bound7[1]}); K8 "
+                            f"{err7_lib:.3e}, bound {bound7[0]:.4f} by {bound7[1]}, sectors "
+                            f"{sectors7:.4f}); K8 "
                             f"corr_build_windows_levels_bf16 {ms8:.4f} ms (plain {plain_ms8:.4f}, "
                             f"torch.bmm bf16 volume {lib_ms2:.4f}, bound {bound8[0]:.4f} by "
                             f"{bound8[1]})")
@@ -1224,7 +1257,8 @@ def phase_kernels_bf16(torch):
                                                library_ms_pan4=lib_ms3["pan4"]),
                "corr_extract_windows_bf16": dict(max_abs_err=errs["err7"], ms=ms7,
                                                  plain_ms=plain_ms7, library_ms=lib_ms7,
-                                                 bound_ms=bound7[0], bound_by=bound7[1]),
+                                                 bound_ms=bound7[0], bound_by=bound7[1],
+                                                 sector_bound_ms=sectors7),
                "corr_build_windows_levels_bf16": dict(max_abs_err=errs["err8"], ms=ms8,
                                                       plain_ms=plain_ms8, library_ms=lib_ms2,
                                                       bound_ms=bound8[0], bound_by=bound8[1],
@@ -1578,8 +1612,8 @@ KERNEL_GROUPS = (      # substrings of device kernel names -> group, first match
     ("port K4 corr_build_windows", ("windows_build_kernel", "windows_build_bf16_kernel")),
     ("port K5 corr_lookup_windows",
      ("windows_lookup_kernel", "windows_lookup_bf16_kernel")),
-    ("port K6 corr_lookup_pmajor", ("pmajor_lookup_kernel",)),
-    ("port K7 corr_extract_windows", ("extract_windows_kernel",)),
+    ("port K6 corr_lookup_pmajor", ("pmajor_lookup_kernel", "pmajor_lookup_bf16_kernel")),
+    ("port K7 corr_extract_windows", ("extract_windows_kernel", "extract_windows_bf16_kernel")),
     ("port K1 ba_blocks", ("ba_blocks_kernel",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "winograd", "fft", "_complex")),
     ("matrix products (cuBLAS)", ("gemm", "gemv", "cutlass")),

@@ -39,18 +39,42 @@
 // reuse.
 //
 // bf16 (the JAX package's bfloat16 levels, where the TPU kernel writes
-// padded[0].dtype): the same kernel reads bf16 cells and widens them, rounds
-// the fractional parts to bf16 as the TPU kernel casts them, blends in fp32
-// with each operation rounded alone, and rounds each output once, so it
-// equals the plain version (ops/corr.py) exactly.  The outputs are staged as
-// bf16 and stored 8 to a 16-byte store; a tile's run starts 8-byte aligned
-// (196 outputs a pixel), so its first and last 8 bytes may take an 8-byte
-// store.  It moves about half the bytes of the fp32 kernel, with as many
-// loads.
+// padded[0].dtype) has a kernel of its own, pmajor_lookup_bf16_kernel, with
+// the same arithmetic: bf16 cells widened, the fractional parts rounded to
+// bf16 as the TPU kernel casts them, each blend operation rounded alone in
+// fp32 and each output rounded once, so it equals the plain version
+// (ops/corr.py) exactly.  The fp32 design issued as many gathers for half
+// the bytes.  Here a block takes a group of 32 consecutive pixels, whose
+// cells are 64 contiguous bytes each (pixels last), and first copies into
+// shared memory, for each level, the box that the group's spans cover: rows
+// [min sy, max sy + 8) x columns [min sx, max sx + 8) x the 32 pixels, by
+// 16-byte cp.async copies (2-byte loads where P is not a multiple of 8 or a
+// level is not 16-byte aligned).  Under smooth motion the box is about the
+// sectors that the spans touch (8 x 39 cells at level 0 under a pan).  The
+// block's 256 threads are (pixel q, x tap a), tid = 32 a + q (a = 7 only
+// copies and stores): the box extents are min/max shuffles across a warp.
+// Each thread then blends its columns a and a + 1 of each level's span from
+// the box, level by level, holds its 28 outputs in registers until the box
+// is read, and stages them in the same buffer for the group's contiguous
+// run, written 16 bytes a store (8 where e * P + p0 is odd;
+// lookup_bf16::store_run).  A group whose four boxes exceed the buffer (768
+// cells of 32 pixels, 48 KB: pixels far apart, as under the random coords
+// of tools/lookup_sources.py, or a group across two image rows), or the last
+// group of an edge where P is not a multiple of 32, gathers its cells
+// through L1 a level at a time, in the same kernel.
+//
+// What that bought (PERF.md §6, tools/lookup_sources.py): a few per cent at
+// E = 48.  Copying the boxes alone takes about as long as the whole kernel
+// under the pan (64-byte runs 5 KB apart move at about two thirds of the HBM
+// rate), so the layout, not the instructions, bounds K6 bf16.  Under random
+// coords most boxes exceed the buffer and those groups gather.  Groups of 16 pixels (one sector a cell, a
+// 1,024-cell buffer, the design first built, variant tile16) were slower
+// than the fp32 design's kernel with random coords.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "dtype_io.cuh"
+#include "lookup_bf16.cuh"
 
 namespace {
 
@@ -80,18 +104,13 @@ __device__ __forceinline__ float blend(float g00, float g01, float g10, float g1
   return __fadd_rn(__fmul_rn(wx, y0), __fmul_rn(f.x, y1));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-pmajor_lookup_kernel(Padded<T> pad, const float2* __restrict__ coords, T* __restrict__ out,
-                     int P) {
-  // the outputs in T; a bf16 run may start 8 bytes into a 16-byte chunk, and
-  // the stage starts as many bytes in, so that it lines up with the chunks
-  __shared__ __align__(16) T stage[kTile * kOut + (sizeof(T) == 2 ? 8 : 0)];
+pmajor_lookup_kernel(Padded<float> pad, const float2* __restrict__ coords,
+                     float* __restrict__ out, int P) {
+  __shared__ __align__(16) float stage[kTile * kOut];   // the tile's outputs
   const int tid = threadIdx.x, q = tid / kD, a = tid - q * kD;
   const int e = blockIdx.y, p0 = blockIdx.x * kTile;
   const int np = min(kTile, P - p0);
-  // where the tile's first output lies in its 16-byte chunk: 0 or 4 (kOut % 4 == 0)
-  const int sh = sizeof(T) == 2 ? (int)((((size_t)e * P + p0) * kOut) & 7) : 0;
 
   if (q < np) {
     const float2 c = coords[(size_t)e * P + p0 + q];
@@ -105,67 +124,173 @@ pmajor_lookup_kernel(Padded<T> pad, const float2* __restrict__ coords, T* __rest
       const float x = c.x * scale, y = c.y * scale;
       const int sy = min(max(floor_clamped(y) + kPad - kR, 0), Hp - 8);
       const int sx = min(max(floor_clamped(x) + kPad - kR, 0), Wp - 8);
-      f[l] = make_float2(Io<T>::round(x - floorf(x)), Io<T>::round(y - floorf(y)));
+      f[l] = make_float2(x - floorf(x), y - floorf(y));
       // cell (row, column) of edge e lives at ((e * Hp + row) * Wp + column) * P + p
-      const T* v = pad.lv[l] + (((size_t)e * Hp + sy) * Wp + sx + a) * col + p0 + q;
+      const float* v = pad.lv[l] + (((size_t)e * Hp + sy) * Wp + sx + a) * col + p0 + q;
       const size_t row = (size_t)Wp * col;
 #pragma unroll
       for (int i = 0; i <= kD; i++) {
-        g[l][0][i] = Io<T>::load(v + i * row);
-        g[l][1][i] = Io<T>::load(v + i * row + col);
+        g[l][0][i] = Io<float>::load(v + i * row);
+        g[l][1][i] = Io<float>::load(v + i * row + col);
       }
     }
-    T* o = stage + sh + q * kOut + a * kD;
+    float* o = stage + q * kOut + a * kD;
 #pragma unroll
     for (int l = 0; l < kLevels; l++)
 #pragma unroll
       for (int b = 0; b < kD; b++)
-        o[l * kD * kD + b] =
-            Io<T>::cvt(blend(g[l][0][b], g[l][1][b], g[l][0][b + 1], g[l][1][b + 1], f[l]));
+        o[l * kD * kD + b] = blend(g[l][0][b], g[l][1][b], g[l][0][b + 1], g[l][1][b + 1], f[l]);
   }
   __syncthreads();
 
   // ---- the tile's np x 196 outputs are one contiguous run: 16-byte stores,
-  // chunk i holding outputs 8 i - sh .. 8 i - sh + 7 (bf16) or 4 i .. 4 i + 3
+  // chunk i holding outputs 4 i .. 4 i + 3
   const size_t first = ((size_t)e * P + p0) * kOut;
-  if constexpr (sizeof(T) == 4) {
-    float4* dst = reinterpret_cast<float4*>(out + first);
-    const float4* src = reinterpret_cast<const float4*>(stage);
-    for (int i = tid; i < np * (kOut / 4); i += kThreads) dst[i] = src[i];
-  } else {
-    const int n = np * kOut;
-    uint4* dst = reinterpret_cast<uint4*>(out + first - sh);
-    const uint4* src = reinterpret_cast<const uint4*>(stage);
-    for (int i = tid; i < (sh + n + 7) / 8; i += kThreads) {
-      const uint4 v = src[i];
-      const int lo = 8 * i - sh;                 // the chunk's first output
-      if (lo >= 0 && lo + 8 <= n) {
-        dst[i] = v;
-      } else {                                    // half in the run: 8 bytes
-        uint2* d = reinterpret_cast<uint2*>(dst + i);
-        if (lo >= 0) d[0] = make_uint2(v.x, v.y);
-        else d[1] = make_uint2(v.z, v.w);
+  float4* dst = reinterpret_cast<float4*>(out + first);
+  const float4* src = reinterpret_cast<const float4*>(stage);
+  for (int i = tid; i < np * (kOut / 4); i += kThreads) dst[i] = src[i];
+}
+
+constexpr int kTileB = 32;               // bf16: pixels a block, 64 bytes of a cell
+constexpr int kThreadsB = 8 * kTileB;    // thread 32 a + q: pixel q, x tap a (a = 7 copies)
+constexpr int kBoxCells = 768;           // cells of kTileB pixels the box buffer holds
+constexpr int kCellChunks = kTileB / 8;  // 16-byte chunks of a cell's kTileB pixels
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ float widen(unsigned short c) {
+  return __uint_as_float((uint32_t)c << 16);
+}
+
+// kVec: the boxes come by 16-byte cp.async copies (P a multiple of 8, the
+// levels 16-byte aligned), else 2 bytes a cell.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreadsB)
+pmajor_lookup_bf16_kernel(Padded<bf16> pad, const float2* __restrict__ coords,
+                          bf16* __restrict__ out, int P) {
+  // the group's four boxes, cell (level l, row ry_l + r, column cx_l + c) at
+  // 16 (at_l + r * nc_l + c) + pixel; then the group's staged outputs
+  __shared__ __align__(16) uint4 buf[kCellChunks * kBoxCells];
+  unsigned short* box = reinterpret_cast<unsigned short*>(buf);
+  const int tid = threadIdx.x, q = tid % kTileB, a = tid / kTileB;
+  const int e = blockIdx.y, p0 = blockIdx.x * kTileB;
+  const int np = min(kTileB, P - p0);
+  // pixel q's coords; lanes past the run take the last pixel's, which keeps
+  // the group's box as it is
+  const float2 c = coords[(size_t)e * P + p0 + min(q, np - 1)];
+  int sy[kLevels], sx[kLevels], ry[kLevels], cx[kLevels], nc[kLevels], at[kLevels];
+  float2 f[kLevels];
+  int cells = 0;
+#pragma unroll
+  for (int l = 0; l < kLevels; l++) {
+    const float scale = 1.f / (float)(1 << l);
+    const float x = c.x * scale, y = c.y * scale;
+    sy[l] = min(max(floor_clamped(y) + kPad - kR, 0), pad.Hp[l] - 8);
+    sx[l] = min(max(floor_clamped(x) + kPad - kR, 0), pad.Wp[l] - 8);
+    f[l] = make_float2(Io<bf16>::round(x - floorf(x)), Io<bf16>::round(y - floorf(y)));
+    int y0 = sy[l], y1 = sy[l], x0 = sx[l], x1 = sx[l];
+#pragma unroll
+    for (int o = 1; o < kTileB; o <<= 1) {       // over the group's pixels (lanes)
+      y0 = min(y0, __shfl_xor_sync(0xffffffffu, y0, o));
+      y1 = max(y1, __shfl_xor_sync(0xffffffffu, y1, o));
+      x0 = min(x0, __shfl_xor_sync(0xffffffffu, x0, o));
+      x1 = max(x1, __shfl_xor_sync(0xffffffffu, x1, o));
+    }
+    ry[l] = y0;
+    cx[l] = x0;
+    nc[l] = x1 - x0 + 8;
+    at[l] = cells;
+    cells += (y1 - y0 + 8) * nc[l];
+  }
+  const bool staged = np == kTileB && cells <= kBoxCells;
+
+  if (staged) {
+#pragma unroll
+    for (int l = 0; l < kLevels; l++) {
+      const int Hp = pad.Hp[l], Wp = pad.Wp[l];
+      const bf16* lv = pad.lv[l] + p0;
+      const int n = (l + 1 < kLevels ? at[l + 1] : cells) - at[l];
+      if constexpr (kVec) {
+        for (int i = tid; i < kCellChunks * n; i += kThreadsB) {   // a cell's chunks
+          const int k = i / kCellChunks, r = k / nc[l], cc = k - r * nc[l];
+          cp_async16(smem_addr(buf + kCellChunks * at[l] + i),
+                     lv + (((size_t)e * Hp + ry[l] + r) * Wp + cx[l] + cc) * P
+                         + 8 * (i % kCellChunks));
+        }
+      } else {
+        for (int i = tid; i < kTileB * n; i += kThreadsB) {
+          const int k = i / kTileB, r = k / nc[l], cc = k - r * nc[l];
+          box[kTileB * at[l] + i] = __ldg(reinterpret_cast<const unsigned short*>(
+              lv + (((size_t)e * Hp + ry[l] + r) * Wp + cx[l] + cc) * P + i % kTileB));
+        }
       }
     }
+    if constexpr (kVec) asm volatile("cp.async.wait_all;" ::: "memory");
   }
+  __syncthreads();
+
+  // ---- columns a and a + 1 of each level's span, from the box or gathered
+  // (cell (row, column) of edge e at ((e * Hp + row) * Wp + column) * P + p)
+  const bool live = q < np && a < kD;
+  unsigned short o[kLevels][kD];
+  if (live) {
+#pragma unroll
+    for (int l = 0; l < kLevels; l++) {
+      float g[2][kD + 1];
+      if (staged) {
+        const unsigned short* v =
+            box + kTileB * (at[l] + (sy[l] - ry[l]) * nc[l] + sx[l] + a - cx[l]) + q;
+        const int row = kTileB * nc[l];
+#pragma unroll
+        for (int i = 0; i <= kD; i++) {
+          g[0][i] = widen(v[i * row]);
+          g[1][i] = widen(v[i * row + kTileB]);
+        }
+      } else {
+        const int Wp = pad.Wp[l];
+        const bf16* v =
+            pad.lv[l] + (((size_t)e * pad.Hp[l] + sy[l]) * Wp + sx[l] + a) * P + p0 + q;
+        const size_t row = (size_t)Wp * P;
+#pragma unroll
+        for (int i = 0; i <= kD; i++) {
+          g[0][i] = Io<bf16>::load(v + i * row);
+          g[1][i] = Io<bf16>::load(v + i * row + P);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kD; b++)
+        o[l][b] = __bfloat16_as_ushort(
+            Io<bf16>::cvt(blend(g[0][b], g[1][b], g[0][b + 1], g[1][b + 1], f[l])));
+    }
+  }
+  __syncthreads();                             // the boxes are read: stage the outputs
+  unsigned short* stage = box;
+  if (live) {
+#pragma unroll
+    for (int l = 0; l < kLevels; l++)
+#pragma unroll
+      for (int b = 0; b < kD; b++) stage[q * kOut + l * kD * kD + a * kD + b] = o[l][b];
+  }
+  __syncthreads();
+  lookup_bf16::store_run(reinterpret_cast<const bf16*>(stage),
+                         out + ((size_t)e * P + p0) * kOut, np * kOut, tid, kThreadsB);
 }
 
 template <typename T>
-int launch(const void* const* lv, const void* coords, int E, int P, int H2, int W2, void* out,
-           void* stream) {
+Padded<T> padded(const void* const* lv, int H2, int W2) {
   Padded<T> pad;
   for (int l = 0; l < kLevels; l++) {
     pad.lv[l] = (const T*)lv[l];
     pad.Hp[l] = (H2 >> l) + 2 * kPad;
     pad.Wp[l] = (W2 >> l) + 2 * kPad;
   }
-  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
-  if (E > 0 && P > 0) {
-    dim3 grid((P + kTile - 1) / kTile, E);
-    pmajor_lookup_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        pad, (const float2*)coords, (T*)out, P);
-  }
-  return (int)cudaGetLastError();
+  return pad;
 }
 
 }  // namespace
@@ -179,14 +304,31 @@ extern "C" int corr_pmajor_lookup_launch(const void* level0, const void* level1,
                                          const void* coords, int E, int P, int H2, int W2,
                                          void* out, void* stream) {
   const void* lv[kLevels] = {level0, level1, level2, level3};
-  return launch<float>(lv, coords, E, P, H2, W2, out, stream);
+  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
+  if (E > 0 && P > 0) {
+    dim3 grid((P + kTile - 1) / kTile, E);
+    pmajor_lookup_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        padded<float>(lv, H2, W2), (const float2*)coords, (float*)out, P);
+  }
+  return (int)cudaGetLastError();
 }
 
-// The same on bf16 padded levels -> out [E, P, 196] bf16.
+// The same on bf16 padded levels -> out [E, P, 196] bf16 (8-byte aligned).
+// The boxes come 16 bytes a copy where P is a multiple of 8 and every level
+// is 16-byte aligned, else 2 bytes a cell.
 extern "C" int corr_pmajor_lookup_bf16_launch(const void* level0, const void* level1,
                                               const void* level2, const void* level3,
                                               const void* coords, int E, int P, int H2,
                                               int W2, void* out, void* stream) {
   const void* lv[kLevels] = {level0, level1, level2, level3};
-  return launch<bf16>(lv, coords, E, P, H2, W2, out, stream);
+  bool vec = P % 8 == 0;
+  for (int l = 0; l < kLevels; l++) vec &= (reinterpret_cast<uintptr_t>(lv[l]) & 15) == 0;
+  if (E > 65535) return (int)cudaErrorInvalidValue;   // edges ride the grid's y
+  if (E > 0 && P > 0) {
+    dim3 grid((P + kTileB - 1) / kTileB, E);
+    auto* kernel = vec ? pmajor_lookup_bf16_kernel<true> : pmajor_lookup_bf16_kernel<false>;
+    kernel<<<grid, kThreadsB, 0, (cudaStream_t)stream>>>(
+        padded<bf16>(lv, H2, W2), (const float2*)coords, (bf16*)out, P);
+  }
+  return (int)cudaGetLastError();
 }

@@ -2,6 +2,9 @@
 // in corr_windows_lookup.cu): a thread per (pixel, level) holds its 8x8 span
 // as eight rows of 8 packed bf16 cells, blends its 49 outputs into the
 // block's staged run in shared memory, and the block writes the run out.
+// K7 bf16 (corr_extract_windows.cu) aligns its window rows' chunks with
+// span8 and packs 2-byte cells with pack8; K6 bf16 (corr_pmajor_lookup.cu)
+// writes its staged run with store_run.
 #pragma once
 #include <stdint.h>
 

@@ -6,8 +6,9 @@ one template shared by both): it finds its lines in the kernel with the bf16
 products only, exactly once, and changes what it says it does.
 tools/corr_build_sources.py's variants of K2's bf16-levels kernel are held
 to the committed csrc/corr_build.cu: each edits exactly one line of it; and
-tools/lookup_sources.py's variants of the bf16 lookups to the committed
-csrc/corr_lookup.cu and csrc/corr_windows_lookup.cu."""
+tools/lookup_sources.py's variants of the bf16 kernels to the committed
+csrc/corr_lookup.cu, csrc/corr_windows_lookup.cu, csrc/corr_pmajor_lookup.cu
+and csrc/corr_extract_windows.cu."""
 import pytest
 
 from droid_slam_reserch_tpu_torch.tools import corr_build_sources as k2_sources
@@ -94,16 +95,17 @@ def test_k2_variant_edits_one_line_of_the_committed_source(variant):
     assert a[changed[0]].strip().endswith(old) and b[changed[0]].strip().endswith(new)
 
 
-# tools/lookup_sources.py builds variants of the bf16 lookups' kernels (K3
-# bf16, K5 bf16) from the committed csrc/: each variant's edits must find
-# their text there once each, and leave the fp32 kernel before it as it is.
+# tools/lookup_sources.py builds variants of the bf16 kernels of K3, K5, K6
+# and K7 from the committed csrc/: each variant's edits must find their text
+# there once each, and leave the fp32 kernel before it as it is.
 
 
 @pytest.mark.parametrize("kern,variant", [(k, v) for k, vs in lookup_sources.VARIANTS.items()
                                           for v in vs])
 def test_lookup_variant_edits_only_the_bf16_kernel(kern, variant):
     texts = lookup_sources.variant_texts("this", lookup_sources.CSRC)
-    assert {k for kk, k in texts if kk == kern} == {"this", f"this-{variant}"}
+    assert ({k for kk, k in texts if kk == kern}
+            == {"this"} | {f"this-{v}" for v in lookup_sources.VARIANTS[kern]})
     text, edited = texts[kern, "this"][0], texts[kern, f"this-{variant}"][0]
     start = text.index("constexpr int kTileB")        # the bf16 kernel's part of the source
     assert edited[:start] == text[:start] and edited != text
