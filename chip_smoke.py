@@ -40,14 +40,22 @@ Phases (one line each; any failure exits nonzero):
            counted and equal to the plain full lookup;
 4. card vs CPU  the oracle frontend and backend gates on the card (ATE <
            0.01), and the port's Droid.track + terminate_eva at 64x96 on the
-           card against the same run with device="cpu", in fp32 and in bf16;
+           card against the same run with device="cpu": mono, stereo and
+           RGB-D in fp32, mono and stereo in bf16;
 5. main path    Droid.track with EUROC_CONFIG (mono, 320x512, full network
            widths, seeded random weights) over synthetic frames, then
            Droid.terminate_eva over the same frames (backend 7 + 12 steps,
            trajectory filler), in fp32 and then with compute_dtype="bfloat16";
-           before each of the four, every kernel's launch count and every
-           plain version's call count is set to 0, and read just after; then
-           K1 held at the largest edge count of the fp32 backend's graphs;
+           the same with EUROC_CONFIG.replace(stereo=True) over stereo pairs
+           of the panned texture (the right view 6 px along), and with
+           ETH3D_CONFIG (RGB-D, 480x640) over 32 frames and a smooth seeded
+           depth, in bf16 and then fp32; before each track and terminate_eva,
+           every kernel's launch count and every plain version's call count
+           is set to 0, and read just after; then K1 held at the largest
+           edge count of the fp32 mono and stereo backends' graphs, and on the
+           stereo and RGB-D paths every kernel held against its plain version
+           on the inputs of the engine's last call of it in the track and in
+           the backend (`[engine-inputs]`);
 6. profile-frontend  the frontend profiler (tools/profile_frontend.py) at
            bench.py's shape, E = 48 edges over a 24-frame window at 40x64,
            in fp32 and in bf16: every section on the card, with the counts
@@ -90,7 +98,12 @@ PEAK_BYTES = 3.35e12
 # main-path shapes: EuRoC 320x512 -> 40x64 feature maps, 48 active edges
 E_MAIN, H8, W8, C = 48, 40, 64, 128
 INTR_EUROC = np.array([296.3, 290.1, 250.2, 168.1], np.float32)
-N_MAIN = 40                    # frames of the main path
+N_MAIN = 40                    # frames of the main path (mono and stereo)
+STEREO_SHIFT = 6               # px of disparity between the stereo main path's views
+# the RGB-D main path: ETH3D_CONFIG (480x640), ETH3D's camera (726.28, 726.28,
+# 354.65, 186.47 at 739x458) scaled to 640x480; 32 frames, 20 of them warmup
+INTR_ETH3D = np.array([629.0, 761.2, 307.1, 195.4], np.float32)
+N_RGBD = 32
 N_BA, MW_BA = 64, 24           # 48 active + 16 inactive edges over a 24-frame window
 K1_OPS_PER_PIXEL = 280         # flops per pixel, counted from csrc/ba_blocks.cu
 # per edge: relative_pose (125 flops) in each of a cluster's 2 blocks, then
@@ -157,15 +170,35 @@ def small_config(DroidConfig):
     )
 
 
-def euroc_frames(n, seed=0, H=320, W=512, step=4):
-    """Smoothed random texture panning `step` px per frame, 3-channel uint8."""
+def euroc_frames(n, seed=0, H=320, W=512, step=4, shift=None):
+    """Smoothed random texture panning `step` px per frame, 3-channel uint8.
+    With `shift`, each frame is a stereo pair [2, H, W, 3]: the right view is
+    the same texture cut `shift` px further along the pan (a disparity of
+    `shift` px everywhere)."""
     from scipy.ndimage import gaussian_filter
 
     rng = np.random.RandomState(seed)
-    base = gaussian_filter(rng.rand(H + 8, W + step * n + 8), 2.0)
+    base = gaussian_filter(rng.rand(H + 8, W + step * n + 8 + (shift or 0)), 2.0)
     base = (base - base.min()) / (base.max() - base.min()) * 255.0
-    return [np.repeat(base[4:4 + H, 4 + step * t: 4 + step * t + W, None], 3, -1).astype(np.uint8)
-            for t in range(n)]
+
+    def view(t, dx):
+        x0 = 4 + step * t + dx
+        return np.repeat(base[4:4 + H, x0: x0 + W, None], 3, -1).astype(np.uint8)
+
+    if shift is None:
+        return [view(t, 0) for t in range(n)]
+    return [np.stack([view(t, 0), view(t, shift)]) for t in range(n)]
+
+
+def depth_frames(n, seed=0, H=480, W=640, step=4):
+    """A smooth seeded depth map of 1 to 4 m panning with euroc_frames'
+    texture, float32 [H, W] per frame (an RGB-D sensor's depth)."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.RandomState(seed)
+    base = gaussian_filter(rng.rand(H + 8, W + step * n + 8), 24.0)
+    base = 1.0 + 3.0 * (base - base.min()) / (base.max() - base.min())
+    return [base[4:4 + H, 4 + step * t: 4 + step * t + W].astype(np.float32) for t in range(n)]
 
 
 def bound(ops, nbytes, tf32x3=0.0):
@@ -1287,12 +1320,14 @@ def k1_bound(N, MW):
                   + N * (144 + 12) + N * 12 * HW + N * HW * 2) * 4)
 
 
-def phase_k1_backend(torch, n_edges, MW):
+def phase_k1_backend(torch, n_edges, MW, self_edges=0):
     """K1 at the backend's largest graph of the main path (n_edges padded to
-    the engine's edge bucket, over MW frames), against its plain version."""
+    the engine's edge bucket, over MW frames, with `self_edges` stereo
+    self-edges), against its plain version."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    hold_k1(torch, k1_problem(torch, gen, n_edges, MW, self_edges=0),
-            f"N={n_edges} over {MW} frames, the main path's largest backend graph")
+    hold_k1(torch, k1_problem(torch, gen, n_edges, MW, self_edges=self_edges),
+            f"N={n_edges} over {MW} frames with {self_edges} self-edges, the main path's "
+            f"largest backend graph")
 
 
 def phase_drift(torch, ops, dtype="float32"):
@@ -1360,10 +1395,24 @@ OFF_ENGINE = tuple(k + sfx for k in ("corr_lookup_pmajor", "corr_extract_windows
                                      "corr_build_windows_levels") for sfx in ("", "_bf16"))
 
 
-def phase_card_vs_cpu(torch, ops, dtype="float32"):
+def small_frames(mode, n=10):
+    """The 64x96 card-vs-CPU frames: tests/test_engine.py's sequences, as
+    (image, depth) pairs; stereo pairs the frame with itself rolled 2 px,
+    RGB-D draws a depth of 2 to 2.5 before each frame."""
+    rng = np.random.RandomState({"mono": 0, "stereo": 1, "rgbd": 2}[mode])
+    out = []
+    for t in range(n):
+        depth = (2.0 + 0.5 * rng.rand(64, 96).astype(np.float32)) if mode == "rgbd" else None
+        img = synth_small(t, rng)
+        out.append((np.stack([img, np.roll(img, -2, axis=1)]) if mode == "stereo" else img, depth))
+    return out
+
+
+def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
     """The oracle frontend and backend gates on the card, and the port's
     Droid.track + terminate_eva at 64x96 on the card against the same run on
-    the CPU, in the compute dtype.  Tolerance on poses and the trajectory:
+    the CPU, in the compute dtype, for each sensor mode of `modes` (mono,
+    stereo, rgbd).  Tolerance on poses and the trajectory:
     fp32 1e-3; bf16 2e-2: bf16 keeps 8 significant bits, and the card's
     cuDNN and the CPU's convolutions round at other places (as the JAX
     package and the port do on the CPU, where 8 frames differ by 2.6e-3 in
@@ -1410,33 +1459,41 @@ def phase_card_vs_cpu(torch, ops, dtype="float32"):
     params = init_params(seed=0)
     intr = np.array([60.0, 60.0, 48.0, 32.0], np.float32)
     tol = 2e-2 if bf16 else 1e-3
-    runs = {}
-    for device in ("cuda", "cpu"):
-        d = Droid(small_config(DroidConfig).replace(compute_dtype=dtype), params=params,
-                  device=device)
-        rng = np.random.RandomState(0)
-        frames = [synth_small(t, rng) for t in range(10)]
-        hist = []
-        for t, img in enumerate(frames):
-            d.track(float(t), img, intrinsics=intr)
-            hist.append((d.video.counter, d.frontend.graph.ii.copy(), d.frontend.graph.jj.copy()))
-        poses = d.video.poses[:d.video.counter].cpu().numpy().copy()   # terminate_eva moves them
-        traj = d.terminate_eva(iter([(float(t), img, intr) for t, img in enumerate(frames)]))
-        runs[device] = (hist, poses, traj)
-    (h_gpu, p_gpu, tr_gpu), (h_cpu, p_cpu, tr_cpu) = runs["cuda"], runs["cpu"]
-    same_graph = all(a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
-                     for a, b in zip(h_gpu, h_cpu))
-    dp = float(np.abs(p_gpu - p_cpu).max()) if p_gpu.shape == p_cpu.shape else float("inf")
-    dt = float(np.abs(tr_gpu - tr_cpu).max()) if tr_gpu.shape == tr_cpu.shape else float("inf")
-    say("card-vs-cpu", f"{dtype} Droid.track 64x96, 10 frames: keyframes {h_gpu[-1][0]} vs "
-                       f"{h_cpu[-1][0]}, edges equal every frame: {same_graph}, "
-                       f"max |pose diff| {dp:.3e} (tol {tol:.0e}); terminate_eva (backend 2 + 3 "
-                       f"steps, filler): trajectory {tr_gpu.shape}, max |diff| {dt:.3e} "
-                       f"(tol {tol:.0e})")
-    if not (same_graph and dp <= tol):
-        fail(f"the card run and the CPU run of Droid.track disagree ({dtype})")
-    if not (tr_gpu.shape == (10, 7) and np.isfinite(tr_gpu).all() and dt <= tol):
-        fail(f"the card run and the CPU run of Droid.terminate_eva disagree ({dtype})")
+    for mode in modes:
+        frames = small_frames(mode)
+        cfg = small_config(DroidConfig).replace(compute_dtype=dtype, stereo=mode == "stereo",
+                                                rgbd=mode == "rgbd")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            d = Droid(cfg, params=params, device=device)
+            hist = []
+            for t, (img, depth) in enumerate(frames):
+                d.track(float(t), img, depth=depth, intrinsics=intr)
+                hist.append((d.video.counter, d.frontend.graph.ii.copy(),
+                             d.frontend.graph.jj.copy()))
+            # terminate_eva moves the poses
+            poses = d.video.poses[:d.video.counter].cpu().numpy().copy()
+            traj = d.terminate_eva(iter([(float(t), img, intr)
+                                         for t, (img, _) in enumerate(frames)]))
+            runs[device] = (hist, poses, traj)
+        (h_gpu, p_gpu, tr_gpu), (h_cpu, p_cpu, tr_cpu) = runs["cuda"], runs["cpu"]
+        same_graph = all(a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+                         for a, b in zip(h_gpu, h_cpu))
+        dp = float(np.abs(p_gpu - p_cpu).max()) if p_gpu.shape == p_cpu.shape else float("inf")
+        dt = float(np.abs(tr_gpu - tr_cpu).max()) if tr_gpu.shape == tr_cpu.shape else float("inf")
+        n_self = int((h_gpu[-1][1] == h_gpu[-1][2]).sum())
+        say("card-vs-cpu", f"{dtype} {mode} Droid.track 64x96, 10 frames: keyframes "
+                           f"{h_gpu[-1][0]} vs {h_cpu[-1][0]}, edges equal every frame: "
+                           f"{same_graph} ({n_self} self-edges at the end), max |pose diff| "
+                           f"{dp:.3e} (tol {tol:.0e}); terminate_eva (backend 2 + 3 steps, "
+                           f"filler): trajectory {tr_gpu.shape}, max |diff| {dt:.3e} "
+                           f"(tol {tol:.0e})")
+        if not (same_graph and dp <= tol):
+            fail(f"the card run and the CPU run of Droid.track disagree ({dtype} {mode})")
+        if mode == "stereo" and n_self == 0:
+            fail("the stereo card-vs-CPU graph has no self-edges")
+        if not (tr_gpu.shape == (10, 7) and np.isfinite(tr_gpu).all() and dt <= tol):
+            fail(f"the card run and the CPU run of Droid.terminate_eva disagree ({dtype} {mode})")
 
 
 def check_counts(counts, what, kernels=MAIN_KERNELS, absent=()):
@@ -1447,17 +1504,149 @@ def check_counts(counts, what, kernels=MAIN_KERNELS, absent=()):
             fail(f"{name}: {launches} kernel launches, {plain} plain calls on {what}")
 
 
-def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS):
-    """Droid.track over EuRoC-size frames in the compute dtype; returns the
-    kernel counts, the Droid, the tracked (tstamp, image) pairs and the
-    frames/s after initialisation."""
+class EngineInputs:
+    """The inputs of the engine's latest call of K1, K4 with the coords of
+    the last K5 round on its windows, and K2 with the coords of the last K3
+    lookup in its levels, taken while `phase` is set: by reference, with no
+    copy and no host read, so the kernels can be held against their plain
+    versions on the main path's own data afterwards.  The retained inputs
+    (one call's features, at most two while the next call gathers its own)
+    count in the peak memory printed while capturing."""
+
+    def __init__(self):
+        import weakref
+
+        from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
+        from droid_slam_reserch_tpu_torch.ops import cuda_ba
+
+        self.phase, self.seen, self._undo = None, {}, []
+        seen = self.seen
+
+        def patch(mod, name, wrap):
+            self._undo.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, wrap(getattr(mod, name)))
+
+        def k1(launch):
+            def f(out, *args, **kw):
+                if self.phase:
+                    seen[self.phase, "K1"] = args[:7]
+                return launch(out, *args, **kw)
+            return f
+
+        def build(fn, key):
+            def f(f1, f2, *args):
+                out = fn(f1, f2, *args)
+                if self.phase:
+                    first = out[0]                   # K4's windows, K2's level 0
+                    seen[self.phase, key] = [f1, f2, args, weakref.ref(first), None]
+                return out
+            return f
+
+        def lookup(fn, key):
+            def f(src, *args):
+                rec = seen.get((self.phase, key)) if self.phase else None
+                first = src if key == "K4" else src[0]
+                if rec is not None and rec[3]() is first:
+                    rec[4] = args[1] if key == "K4" else args[0]   # the round's coords
+                return fn(src, *args)
+            return f
+
+        patch(cuda_ba, "launch", k1)
+        patch(fg, "corr_build_windows", lambda fn: build(fn, "K4"))
+        patch(fg, "corr_lookup_windows", lambda fn: lookup(fn, "K4"))
+        patch(fg, "corr_build", lambda fn: build(fn, "K2"))
+        patch(fg, "corr_lookup", lambda fn: lookup(fn, "K2"))
+
+    def during(self, phase, fn):
+        def f(*args, **kw):
+            self.phase = phase
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.phase = None
+        return f
+
+    def restore(self):
+        for mod, name, orig in reversed(self._undo):
+            setattr(mod, name, orig)
+
+    def retained_mib(self):
+        ts = [x for v in self.seen.values() for x in (v if isinstance(v, tuple) else v[:2] + v[4:])
+              if hasattr(x, "nbytes")]
+        return sum(t.nbytes for t in {id(t): t for t in ts}.values()) / 2**20
+
+
+def hold_engine_inputs(torch, cap, what, stereo):
+    """Each kernel that the capture saw, against its plain version on the
+    captured inputs: K1 (2e-4 * max(1, |ref|) per output); K4's bases
+    exactly and windows, K5 on the last round's coords, K2's levels and K3
+    on K2's levels (fp32: 1e-5 * max(1, |ref|); bf16 windows, K5 and bf16
+    levels: one rounding step, BF16 * |ref|).  A stereo capture must hold
+    self-edges in each K1 batch."""
+    from droid_slam_reserch_tpu_torch.ops import cuda_corr
+
+    for (phase, key), rec in sorted(cap.seen.items()):
+        at = f"{what} {phase}"
+        if key == "K1":
+            ii, jj = rec[5], rec[6]
+            n_self = int((ii == jj).sum())
+            hold_k1(torch, rec, f"on the {at}'s last BA: N={ii.numel()}, {n_self} edges with "
+                                f"ii == jj (self-edges and padding)")
+            if stereo and n_self <= int(((ii == 0) & (jj == 0)).sum()):
+                fail(f"K1 on the {at} saw no stereo self-edge")
+            continue
+        f1, f2, args, _, coords = rec
+        if coords is None and key == "K4":
+            coords = args[0]                       # no windowed round: K5 at the first coords
+        E, H2, W2 = f2.shape[:3]
+        if key == "K4":
+            wins, bases = cuda_corr.corr_build_windows(f1, f2, *args)
+            pwins, pbases = cuda_corr.corr_build_windows_plain(f1, f2, *args)
+            out5 = cuda_corr.corr_lookup_windows(wins, bases, coords, (H2, W2))
+            ref5 = cuda_corr.corr_lookup_windows_plain(wins, bases, coords, (H2, W2))
+            pairs = (("K4 windows", wins, pwins), ("K5", out5, ref5))
+            same = bool((bases == pbases).all())
+        else:
+            levels = cuda_corr.corr_build(f1, f2, *args)
+            plain = cuda_corr.corr_build_plain(f1, f2, *args)
+            pairs = tuple((f"K2 level {l}", a, b) for l, (a, b) in enumerate(zip(levels, plain)))
+            if coords is not None:
+                pairs += (("K3", cuda_corr.corr_lookup(levels, coords),
+                           cuda_corr.corr_lookup_plain(levels, coords)),)
+            same = True
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in pairs:
+            scale = float(b.float().abs().max())
+            tol = BF16 * scale if b.dtype == torch.bfloat16 else 1e-5 * max(1.0, scale)
+            errs.append((name, float((a.float() - b.float()).abs().max()), tol))
+        say("engine-inputs", f"{key}{'' if key == 'K4' else ' + K3'} on the {at}'s last call "
+                             f"(E={E}, {H2}x{W2}, {f1.dtype}): " + ", ".join(
+                                 f"{n} {e:.3e} (tol {t:.1e})" for n, e, t in errs)
+                             + ("" if key == "K2" else f"; bases equal {same}"))
+        if not (same and all(e <= t for _, e, t in errs)):
+            fail(f"{key} disagrees with its plain version on the {at}'s inputs")
+
+
+def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS, mode="mono",
+                    depths=None, capture=None):
+    """Droid.track over full-size frames in the compute dtype: mono and
+    stereo with EUROC_CONFIG (320x512), RGB-D with ETH3D_CONFIG (480x640)
+    and `depths`; returns the kernel counts, the Droid, the tracked (tstamp,
+    image) pairs and the frames/s after initialisation.  With `capture`
+    (EngineInputs), the track's kernel inputs are kept."""
     from droid_slam_reserch_tpu_torch.engine import Droid
     from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
-    from droid_slam_reserch_tpu_torch.utils import EUROC_CONFIG
+    from droid_slam_reserch_tpu_torch.utils import ETH3D_CONFIG, EUROC_CONFIG
 
-    cfg = EUROC_CONFIG.replace(filter_thresh=-1.0, keyframe_thresh=0.0, compute_dtype=dtype)
+    name, base = (("ETH3D_CONFIG", ETH3D_CONFIG) if mode == "rgbd"
+                  else ("EUROC_CONFIG", EUROC_CONFIG))
+    cfg = base.replace(filter_thresh=-1.0, keyframe_thresh=0.0, compute_dtype=dtype,
+                       stereo=mode == "stereo")
+    intr = INTR_ETH3D if mode == "rgbd" else INTR_EUROC
     n_frames = len(frames)
     droid = Droid(cfg, device="cuda")
+    track = droid.track if capture is None else capture.during("track", droid.track)
     torch.cuda.synchronize()
 
     ops.reset_counts()
@@ -1466,7 +1655,7 @@ def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS):
     t0 = time.time()
     t_init = None
     for t, img in enumerate(frames):
-        droid.track(float(t), img, intrinsics=INTR_EUROC)
+        track(float(t), img, depth=None if depths is None else depths[t], intrinsics=intr)
         if t_init is None and droid.frontend.is_initialized:
             torch.cuda.synchronize()
             t_init = (time.time(), t + 1, droid.video.counter, dict(fg.CORR_ROUNDS))
@@ -1486,7 +1675,8 @@ def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS):
     rounds = dict(fg.CORR_ROUNDS)
     steady_rounds = sum(rounds.values()) - sum(t_init[3].values())
     steady_kf = n_kf - t_init[2]
-    say("main-path", f"track: EUROC_CONFIG mono 320x512 {dtype}: {n_frames} frames, {n_kf} "
+    say("main-path", f"track: {name} {mode} {cfg.image_size[0]}x{cfg.image_size[1]} {dtype}: "
+                     f"{n_frames} frames, {n_kf} "
                      f"keyframes, {len(droid.frontend.graph.ii)} active edges; {fps_all:.2f} "
                      f"frames/s and {n_kf / (t1 - t0):.2f} keyframes/s overall, {fps_steady:.2f} "
                      f"frames/s after initialisation; peak memory "
@@ -1500,7 +1690,20 @@ def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS):
         fail(f"only {n_kf} keyframes (< warmup {cfg.warmup})")
     if droid.video.fmaps.dtype != getattr(torch, dtype):
         fail(f"the features are {droid.video.fmaps.dtype}, not {dtype}")
-    check_counts(counts, f"the main path's track ({dtype})", kernels, OFF_ENGINE)
+    g = droid.frontend.graph
+    if mode == "stereo":
+        n_self = int((g.ii == g.jj).sum()) + int((g.ii_inac == g.jj_inac).sum())
+        say("main-path", f"track: {n_self} stereo self-edges in the graph (active and inactive), "
+                         f"fmaps {tuple(v.fmaps.shape)}")
+        if n_self == 0 or v.fmaps.shape[1] != 2:
+            fail("the stereo main path has no self-edges or no right camera")
+    if mode == "rgbd":
+        sens = v.disps_sens[:n_kf]
+        say("main-path", f"track: disps_sens of {n_kf} keyframes in [{float(sens.min()):.4f}, "
+                         f"{float(sens.max()):.4f}]")
+        if not bool((sens > 0).all()):
+            fail("the RGB-D main path has keyframes without sensor disparity")
+    check_counts(counts, f"the main path's track ({mode}, {dtype})", kernels, OFF_ENGINE)
     return counts, droid, [(float(t), img) for t, img in enumerate(frames)], fps_steady
 
 
@@ -1523,19 +1726,23 @@ class Timed:
         return out
 
 
-def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KERNELS):
+def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KERNELS,
+                    intr=INTR_EUROC, capture=None):
     """Droid.terminate_eva over every tracked frame: the backend's two runs
     and the trajectory filler, timed apart on the host clock.  With
     profiling, the call runs under torch.profiler (whose overhead then
-    enters the host-clock times).  Returns the kernel counts and the call's
-    seconds."""
+    enters the host-clock times).  With `capture`, the backend's kernel
+    inputs are kept.  Returns the kernel counts and the call's seconds."""
     from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
 
     n_kf = droid.video.counter
-    backend = droid.backend = Timed(torch, droid.backend)
+    runs = droid.backend.runs
+    run = droid.backend if capture is None else capture.during("backend", droid.backend)
+    backend = droid.backend = Timed(torch, run)
+    backend.runs = runs
     filler = droid.traj_filler = Timed(torch, droid.traj_filler)
     call = Timed(torch, droid.terminate_eva)
-    stream = iter([(t, img, INTR_EUROC) for t, img in tracked])
+    stream = iter([(t, img, intr) for t, img in tracked])
     ops.reset_counts()
     fg.reset_corr_rounds()
     tag = "" if droid.cfg.compute_dtype == "float32" else "_bf16"
@@ -1546,8 +1753,8 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KE
         traj = call(stream)
     counts = ops.counts()
     rounds = dict(fg.CORR_ROUNDS)
-    runs = backend.fn.runs
-    say("main-path", f"terminate_eva {droid.cfg.compute_dtype}: {call.seconds[0]:.2f} s: "
+    mode = "stereo" if droid.cfg.stereo else "rgbd" if droid.cfg.rgbd else "mono"
+    say("main-path", f"terminate_eva {mode} {droid.cfg.compute_dtype}: {call.seconds[0]:.2f} s: "
                      f"backend {backend.seconds[0]:.2f} s "
                      f"({droid.cfg.backend_steps_first} steps, {runs[0]}) + "
                      f"{backend.seconds[1]:.2f} s ({droid.cfg.backend_steps_second} steps, "
@@ -1562,8 +1769,8 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KE
     if not (traj.shape == (len(tracked), 7) and np.isfinite(traj).all()
             and np.abs(q - 1.0).max() < 1e-3):
         fail("terminate_eva did not return a finite trajectory of unit quaternions")
-    check_counts(counts, f"the main path's terminate_eva ({droid.cfg.compute_dtype})", kernels,
-                 OFF_ENGINE)
+    check_counts(counts, f"the main path's terminate_eva ({mode}, {droid.cfg.compute_dtype})",
+                 kernels, OFF_ENGINE)
     return counts, call.seconds[0]
 
 
@@ -1729,27 +1936,48 @@ def main():
     rows = phase_kernels(torch)
     rows.update(phase_kernels_bf16(torch))
     by_path = {"drift": phase_drift(torch, ops), "drift_bf16": phase_drift(torch, ops, "bfloat16")}
-    phase_card_vs_cpu(torch, ops)
-    phase_card_vs_cpu(torch, ops, "bfloat16")
-    frames = euroc_frames(N_MAIN + (12 if profiling else 0))
+    phase_card_vs_cpu(torch, ops, "float32", ("mono", "stereo", "rgbd"))
+    phase_card_vs_cpu(torch, ops, "bfloat16", ("mono", "stereo"))
+    frames = {"mono": (euroc_frames(N_MAIN + (12 if profiling else 0)), None),
+              "stereo": (euroc_frames(N_MAIN, shift=STEREO_SHIFT), None),
+              "rgbd": (euroc_frames(N_RGBD, seed=1, H=480, W=640),
+                       depth_frames(N_RGBD, seed=1, H=480, W=640))}
     speed = {}
-    for dtype, kernels, sfx in (("float32", MAIN_KERNELS, ""),
-                                ("bfloat16", MAIN_KERNELS_BF16, "_bf16")):
-        counts, droid, tracked, fps = phase_main_path(torch, ops, frames[:N_MAIN], dtype, kernels)
-        if profiling:
-            tracked += phase_profile(torch, droid, frames[N_MAIN:], float(N_MAIN), tag=sfx)
-        counts_term, secs = phase_terminate(torch, ops, droid, tracked, profiling, kernels)
+    for mode, dtype in (("mono", "float32"), ("mono", "bfloat16"), ("stereo", "float32"),
+                        ("stereo", "bfloat16"), ("rgbd", "bfloat16"), ("rgbd", "float32")):
+        kernels = MAIN_KERNELS if dtype == "float32" else MAIN_KERNELS_BF16
+        sfx = ("" if mode == "mono" else "_" + mode) + ("" if dtype == "float32" else "_bf16")
+        imgs, depths = frames[mode]
+        n = N_RGBD if mode == "rgbd" else N_MAIN
+        cap = None if mode == "mono" else EngineInputs()
+        counts, droid, tracked, fps = phase_main_path(torch, ops, imgs[:n], dtype, kernels, mode,
+                                                      depths, cap)
+        if profiling and mode == "mono":
+            tracked += phase_profile(torch, droid, imgs[N_MAIN:], float(N_MAIN), tag=sfx)
+        counts_term, secs = phase_terminate(
+            torch, ops, droid, tracked, profiling and mode == "mono", kernels,
+            INTR_ETH3D if mode == "rgbd" else INTR_EUROC, cap)
         by_path["track" + sfx], by_path["terminate_eva" + sfx] = counts, counts_term
-        speed[dtype] = (fps, secs)
-        if dtype == "float32":
+        speed[mode, dtype] = (fps, secs)
+        if dtype == "float32" and mode != "rgbd":
             bucket = droid.cfg.edge_bucket
-            n_back = max(r["edges"] for r in droid.backend.fn.runs)
-            phase_k1_backend(torch, -(-n_back // bucket) * bucket, droid.video.counter)
+            n_back = max(r["edges"] for r in droid.backend.runs)
+            phase_k1_backend(torch, -(-n_back // bucket) * bucket, droid.video.counter,
+                             droid.video.counter if mode == "stereo" else 0)
         del droid
         torch.cuda.empty_cache()
-    say("main-path", f"bf16 against fp32 in this run: {speed['bfloat16'][0]:.2f} against "
-                     f"{speed['float32'][0]:.2f} frames/s after initialisation, terminate_eva "
-                     f"{speed['bfloat16'][1]:.2f} against {speed['float32'][1]:.2f} s")
+        if cap is not None:
+            cap.restore()
+            say("engine-inputs", f"{mode} {dtype}: {cap.retained_mib():.1f} MiB of kernel "
+                                 f"inputs retained by the capture")
+            hold_engine_inputs(torch, cap, f"{mode} {dtype} main path", mode == "stereo")
+            del cap
+            torch.cuda.empty_cache()
+    for mode in ("mono", "stereo", "rgbd"):
+        (f16, s16), (f32, s32) = speed[mode, "bfloat16"], speed[mode, "float32"]
+        say("main-path", f"{mode}: bf16 against fp32 in this run: {f16:.2f} against {f32:.2f} "
+                         f"frames/s after initialisation, terminate_eva {s16:.2f} against "
+                         f"{s32:.2f} s")
     by_path["profile_frontend"] = phase_profile_frontend(torch, ops)
     by_path["profile_frontend_bf16"] = phase_profile_frontend(torch, ops, "bfloat16")
 

@@ -1,9 +1,10 @@
 """Droid facade (mirror of engine/droid.py): motion filter -> frontend ->
 backend -> trajectory filler.
 
-This slice runs mono tracking and the global refinement that ends it, in
-fp32 or bf16 (``compute_dtype``); the other sensor modes, upsampling and the
-viewer raise ``NotImplementedError``.
+The port runs mono, stereo (``config.stereo``: [2, H, W, 3] frames, left
+and right) and RGB-D (``config.rgbd``: a depth map with each frame)
+tracking and the global refinement that ends it, in fp32 or bf16
+(``compute_dtype``); upsampling and the viewer raise ``NotImplementedError``.
 """
 import os
 
@@ -30,10 +31,9 @@ def resolve_device(device):
 
 class Droid:
     def __init__(self, config, params=None, device="cuda"):
-        for flag, what in ((config.upsample, "upsample"), (config.stereo, "stereo"),
-                           (config.rgbd, "rgbd"), (config.vis_path, "the live viewer")):
+        for flag, what in ((config.upsample, "upsample"), (config.vis_path, "the live viewer")):
             if flag:
-                raise NotImplementedError(f"{what} is not part of this slice of the port")
+                raise NotImplementedError(f"{what} is not part of the port yet")
         self.cfg = config
         self.dtype = compute_dtype(config.compute_dtype)
         self.device = resolve_device(device)
@@ -53,9 +53,9 @@ class Droid:
 
     @torch.no_grad()
     def track(self, tstamp, image, depth=None, intrinsics=None):
-        """Per-frame tracking: image [H, W, 3] uint8 BGR, intrinsics [4]."""
-        if np.ndim(image) != 3:
-            raise NotImplementedError("stereo tracking is not part of this slice of the port")
+        """Per-frame tracking (reference droid.py:76-90): image [H, W, 3]
+        uint8 BGR, or [2, H, W, 3] for stereo; depth an optional [H, W]
+        depth map (RGB-D); intrinsics [4]."""
         self.filterx.track(tstamp, image, depth, intrinsics)
         self.frontend()
 
@@ -68,8 +68,9 @@ class Droid:
 
     def terminate_eva(self, stream):
         """Backend, then the trajectory filler over ``stream`` (tstamp, image,
-        intrinsics); returns the camera trajectory [T, 7] (the inverted
-        world-to-camera poses, reference droid.py:132-146)."""
+        intrinsics; images as ``track`` takes them); returns the camera
+        trajectory [T, 7] (the inverted world-to-camera poses, reference
+        droid.py:132-146)."""
         self.terminate()
         return self.terminate_eva_second(stream)
 

@@ -11,7 +11,9 @@ else takes the exact full lookup (K2, built at most once per call, then
 K3).  ``update_lowmem`` (backend) refreshes every edge chunk by chunk with
 K2 + K3 and runs one global BA per step.  Each BA iteration builds its
 blocks once (K1).  Edge counts and BA windows are padded to buckets as in
-the JAX package; padded edges add nothing.
+the JAX package; padded edges add nothing.  In a stereo video a
+self-edge (i, i) correlates frame i's left features with its right ones
+(the JAX package's ``cams``).
 
 Features and the update operator's state are in the compute dtype
 (``video.fmaps.dtype``), and so are update_fused's window cache, fallback
@@ -243,6 +245,12 @@ class FactorGraph:
 
     # ----------------------------------------------------------------- update
 
+    def _cams(self, ii, jj):
+        """The camera of each edge's target features (JAX ``cams``): the
+        right one on a stereo self-edge, padding slots (0, 0) included, else
+        the left.  Computed on the device from the padded index tensors."""
+        return (ii == jj).long() if self.video.stereo else 0
+
     def _padded_edges(self):
         """Pad edge arrays to the bucketed count with (0, 0) zero-weight edges."""
         n = len(self.ii)
@@ -323,7 +331,7 @@ class FactorGraph:
         poses, disps, damping, nets, target_a, weight_a, _, d_cull = fused_rounds(
             self.update_apply, self.params, video.poses[win], video.disps[win],
             video.disps_sens[win], video.damping[win], video.intrinsics[0],
-            video.fmaps[ii_pt, 0], video.fmaps[jj_pt, 0],
+            video.fmaps[ii_pt, 0], video.fmaps[jj_pt, self._cams(ii_pt, jj_pt)],
             torch.cat([self.net, self.net.new_zeros(pad, h8, w8, 128)], 0),
             video.inps[ii_pt],
             torch.cat([self.target, torch.zeros(pad, h8, w8, 2, device=dev)], 0),
@@ -416,7 +424,8 @@ class FactorGraph:
                 ii, jj, emask = ii_ck[c], jj_ck[c], emask_ck[c]
                 coords1 = projective_transform(poses[None], disps[None], intr[None], ii, jj)[0][0]
                 motn = torch.cat([coords1 - coords0, target_ck[c] - coords1], -1).clamp(-64.0, 64.0)
-                levels = corr_build(video.fmaps[ii, 0], video.fmaps[jj, 0], torch.float32)
+                levels = corr_build(video.fmaps[ii, 0], video.fmaps[jj, self._cams(ii, jj)],
+                                    torch.float32)
                 corr = corr_lookup(levels, coords1.reshape(EB, h8 * w8, 2).contiguous())
                 del levels
                 nets, delta, weight, eta, _ = self.update_apply(
@@ -439,8 +448,10 @@ class FactorGraph:
     # ------------------------------------------------------- edge proposals
 
     def add_neighborhood_factors(self, t0, t1, r=3):
-        """Edges between frames within radius r (reference :302-312)."""
-        ii, jj = neighbourhood_graph(t1 - t0, r)
+        """Edges between frames within radius r (reference :302-312); a
+        stereo graph leaves out the |i-j| = 1 pairs too, as the JAX package
+        does."""
+        ii, jj = neighbourhood_graph(t1 - t0, r, c=1 if self.video.stereo else 0)
         self.add_factors(ii + t0, jj + t0)
 
     def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,

@@ -1,4 +1,6 @@
 """Local tracking frontend (mirror of engine/frontend.py, ``Frontend`` only)."""
+import torch
+
 from .factor_graph import FactorGraph
 
 
@@ -26,6 +28,10 @@ class Frontend:
         g.add_proximity_factors(
             self.t1 - 5, max(self.t1 - cfg.frontend_window, 0), rad=cfg.frontend_radius,
             nms=cfg.frontend_nms, thresh=cfg.frontend_thresh, beta=cfg.beta, remove=True)
+
+        # RGB-D: seed the new keyframe's disparity from the sensor (reference :49-50)
+        dsens = v.disps_sens[self.t1 - 1]
+        v.disps[self.t1 - 1] = torch.where(dsens > 0, dsens, v.disps[self.t1 - 1])
 
         # keyframe culling by flow distance on the state after the update
         d_cull = self._run_updates(cfg.iters1, cull_pair=(self.t1 - 3, self.t1 - 2))

@@ -2,10 +2,12 @@
 
 Per frame: fnet features, a one-step update-operator motion check against
 the last keyframe (a 1-edge correlation at the grid coords, one GRU step,
-no BA) and, when the frame is admitted, cnet context features.  The 1-edge
-correlation goes through K2 and K3 like the frontend's: an fp32 volume from
-features in the compute dtype (the JAX package's corr_volume), cast to the
-compute dtype at the update operator's input.
+no BA) and, when the frame is admitted, cnet context features.  A stereo
+frame's fnet runs on both cameras; the motion check and cnet take the left
+one, and the video stores the left image.  The 1-edge correlation goes
+through K2 and K3 like the frontend's: an fp32 volume from features in the
+compute dtype (the JAX package's corr_volume), cast to the compute dtype at
+the update operator's input.
 """
 import numpy as np
 import torch
@@ -28,34 +30,39 @@ class MotionFilter:
 
     def delta_norm(self, gmap):
         """The mean flow correction of one update-operator step for features
-        gmap [1, h8, w8, 128] against the last keyframe's (a 0-d tensor)."""
+        gmap [c, h8, w8, 128] against the last keyframe's, left camera
+        against left camera (a 0-d tensor)."""
         h8, w8 = gmap.shape[1:3]
         coords0 = coords_grid(h8, w8, device=gmap.device).reshape(1, h8 * w8, 2)
-        levels = corr_build(self.fmap.contiguous(), gmap.contiguous(), torch.float32)
+        levels = corr_build(self.fmap[:1].contiguous(), gmap[:1].contiguous(), torch.float32)
         corr = corr_lookup(levels, coords0).reshape(1, 1, h8, w8, -1)
         _, delta, _ = self.net.update(self.hidden[None, None], self.inp[None, None],
                                       corr.to(self.hidden.dtype))
         return delta[0, 0].float().norm(dim=-1).mean()
 
     def track(self, tstamp, image, depth=None, intrinsics=None):
-        """Process one frame: image [H, W, 3] uint8 BGR (host)."""
+        """Process one frame: image [H, W, 3] uint8 BGR (host), or [2, H, W, 3]
+        for stereo (left, right); depth an optional [H, W] depth map."""
         video = self.video
         dev = video.device
-        imgs = torch.as_tensor(np.asarray(image, np.float32), device=dev)[None]
+        image = np.asarray(image)
+        if image.ndim == 3:
+            image = image[None]
+        imgs = torch.as_tensor(image.astype(np.float32), device=dev)
         intr = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev) / 8.0
         gmap = fnet_apply(self.net, imgs)
 
         if video.counter == 0:
-            net, inp = cnet_apply(self.net, imgs)
+            net, inp = cnet_apply(self.net, imgs[:1])
             self.hidden, self.inp, self.fmap = net[0], inp[0], gmap
-            video.append(tstamp, image, se3_identity(device=dev), 1.0, depth, intr,
+            video.append(tstamp, image[0], se3_identity(device=dev), 1.0, depth, intr,
                          gmap, net[0], inp[0])
             return
 
         if float(self.delta_norm(gmap)) > self.thresh:  # the per-frame host sync
             self.count = 0
-            net, inp = cnet_apply(self.net, imgs)
+            net, inp = cnet_apply(self.net, imgs[:1])
             self.hidden, self.inp, self.fmap = net[0], inp[0], gmap
-            video.append(tstamp, image, None, None, depth, intr, gmap, net[0], inp[0])
+            video.append(tstamp, image[0], None, None, depth, intr, gmap, net[0], inp[0])
         else:
             self.count += 1

@@ -2,8 +2,9 @@
 reference trajectory_filler.py:12-103).
 
 Chunks of 16 frames: SE3 interpolation between the bracketing keyframes,
-fnet features only, temporary slots with edges from both brackets, 6
-motion-only rounds of update_fused, then the slots are released.
+fnet features only (of every camera of a stereo frame), temporary slots
+with edges from both brackets, 6 motion-only rounds of update_fused, then
+the slots are released.
 """
 import numpy as np
 import torch
@@ -39,12 +40,15 @@ class TrajectoryFiller:
                                    dtype=torch.float32, device=dev)[:, None]
         Gs = se3_mul(se3_exp(w), Ps[i0])
 
-        imgs = np.stack([np.asarray(im) for im in images])             # [M, H, W, 3]
-        fmaps = fnet_apply(self.net, torch.as_tensor(imgs, dtype=torch.float32, device=dev))
+        # fnet on every camera; set_slot fits the cameras to the buffer's
+        imgs = np.stack([im if im.ndim == 4 else im[None] for im in images])  # [M, c, H, W, 3]
+        c = imgs.shape[1]
+        fmaps = fnet_apply(self.net, torch.as_tensor(imgs.reshape((-1,) + imgs.shape[2:]),
+                                                     dtype=torch.float32, device=dev))
+        fmaps = fmaps.reshape((M, c) + fmaps.shape[1:])
         for m in range(M):
-            v.set_slot(N + m, tstamps[m], imgs[m], Gs[m], None, None,
-                       torch.as_tensor(intrinsics[m], dtype=torch.float32) / 8.0,
-                       fmaps[m][None])
+            v.set_slot(N + m, tstamps[m], imgs[m, 0], Gs[m], None, None,
+                       torch.as_tensor(intrinsics[m], dtype=torch.float32) / 8.0, fmaps[m])
         v.counter = N + M
 
         graph = FactorGraph(v, self.update_apply, self.net.update)
@@ -59,11 +63,10 @@ class TrajectoryFiller:
     @torch.no_grad()
     def __call__(self, image_stream):
         """Poses [T, 7] (world-to-camera, as video.poses) of every frame that
-        image_stream yields as (tstamp, image [H, W, 3], intrinsics [4])."""
+        image_stream yields as (tstamp, image, intrinsics [4]); image is
+        [H, W, 3], [1, H, W, 3] or a stereo [2, H, W, 3]."""
         pose_list, tstamps, images, intrinsics = [], [], [], []
         for tstamp, image, intrinsic in image_stream:
-            if np.ndim(image) != 3:
-                raise NotImplementedError("stereo filling is not part of this slice of the port")
             tstamps.append(tstamp)
             images.append(np.asarray(image))
             intrinsics.append(np.asarray(intrinsic))

@@ -1,5 +1,7 @@
 """Keyframe buffer (mirror of engine/video.py): fixed-capacity tensors on
-the engine's device, updated in place; images stay on the host."""
+the engine's device, updated in place; images stay on the host.  A stereo
+buffer keeps both cameras' features (``fmaps`` [buf, 2, h8, w8, 128]); an
+RGB-D frame's depth becomes its sensor disparity ``disps_sens``."""
 import numpy as np
 import torch
 
@@ -38,7 +40,8 @@ class Video:
         # the networks' features and states in the compute dtype; poses,
         # disparities and intrinsics stay fp32
         fdt = compute_dtype(config.compute_dtype)
-        self.fmaps = torch.zeros(buf, 1, h8, w8, 128, dtype=fdt, device=dev)
+        c = 2 if config.stereo else 1
+        self.fmaps = torch.zeros(buf, c, h8, w8, 128, dtype=fdt, device=dev)
         self.nets = torch.zeros(buf, h8, w8, 128, dtype=fdt, device=dev)
         self.inps = torch.zeros(buf, h8, w8, 128, dtype=fdt, device=dev)
 
@@ -46,7 +49,9 @@ class Video:
         """Add a keyframe at slot ``counter``.
 
         image [ht, wd, 3] uint8 (host) or None; pose [7] or None; disp a
-        scalar or [h8, w8] or None; fmap [1, h8, w8, 128]; net/inp [h8, w8, 128].
+        scalar or [h8, w8] or None; depth a full-resolution [ht, wd] depth
+        map or None; fmap [c, h8, w8, 128] (one camera or two); net/inp
+        [h8, w8, 128].
         """
         ix = self.counter
         self.set_slot(ix, tstamp, image, pose, disp, depth, intrinsics, fmap, net, inp)
@@ -54,9 +59,13 @@ class Video:
 
     def set_slot(self, ix, tstamp, image, pose, disp, depth, intrinsics, fmap, net=None,
                  inp=None):
-        """Write slot ix in place (reference depth_video.py:56-114)."""
-        if depth is not None:
-            raise NotImplementedError("RGB-D tracking is not part of this slice of the port")
+        """Write slot ix in place (reference depth_video.py:56-114).
+
+        A depth map is sampled at every 8th pixel from (3, 3), moved to the
+        device in one copy and stored as the disparity 1 / depth where the
+        depth is positive, else 0.  Mono features fill both cameras of a
+        stereo buffer; a mono buffer keeps the left camera of stereo ones.
+        """
         self.tstamp[ix] = tstamp
         if image is not None:
             self.images[ix] = np.asarray(image, dtype=np.uint8)
@@ -65,11 +74,14 @@ class Video:
             self.poses[ix] = torch.as_tensor(pose, dtype=torch.float32, device=self.device)
         if disp is not None:
             self.disps[ix] = torch.as_tensor(disp, dtype=torch.float32, device=self.device)
+        if depth is not None:
+            depth = torch.as_tensor(depth)[3::8, 3::8].to(self.device, torch.float32)
+            self.disps_sens[ix] = torch.where(depth > 0, 1.0 / depth.clamp_min(1e-8), 0.0)
         if intrinsics is not None:
             self.intrinsics[ix] = torch.as_tensor(intrinsics, dtype=torch.float32,
                                                   device=self.device)
         if fmap is not None:
-            self.fmaps[ix] = fmap
+            self.fmaps[ix] = fmap[: self.fmaps.shape[1]]   # a one-camera fmap broadcasts
         if net is not None:
             self.nets[ix] = net
         if inp is not None:
