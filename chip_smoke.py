@@ -40,8 +40,9 @@ Phases (one line each; any failure exits nonzero):
            counted and equal to the plain full lookup;
 4. card vs CPU  the oracle frontend and backend gates on the card (ATE <
            0.01), and the port's Droid.track + terminate_eva at 64x96 on the
-           card against the same run with device="cpu": mono, stereo and
-           RGB-D in fp32, mono and stereo in bf16;
+           card against the same run with device="cpu": mono, stereo,
+           RGB-D and mono with cfg.upsample (disps_up compared too) in fp32,
+           mono and stereo in bf16;
 5. main path    Droid.track with EUROC_CONFIG (mono, 320x512, full network
            widths, seeded random weights) over synthetic frames, then
            Droid.terminate_eva over the same frames (backend 7 + 12 steps,
@@ -56,6 +57,16 @@ Phases (one line each; any failure exits nonzero):
            stereo and RGB-D paths every kernel held against its plain version
            on the inputs of the engine's last call of it in the track and in
            the backend (`[engine-inputs]`);
+   cli     the port's CLI (cli.main, in process) on datasets written as
+           PNGs into a temporary directory: EuRoC (752x480 grey, 40 frames,
+           stereo), TUM fr1, ETH3D (RGB-D), TartanAir and a demo directory;
+           euroc mono with --upsample --out --gt --reconstruction_path in
+           fp32 and bf16, euroc --stereo, tum, eth3d --depth, tartanair and
+           demo in bf16; per command the counts are set to 0 before and read
+           after (K1-K5 of the dtype launch, no plain version), a finite ATE
+           where there is ground truth, finite disps_up, frames/s end to
+           end, the time split, peak memory, and the EuRoC readers' ms a
+           frame;
 6. profile-frontend  the frontend profiler (tools/profile_frontend.py) at
            bench.py's shape, E = 48 edges over a 24-frame window at 40x64,
            in fp32 and in bf16: every section on the card, with the counts
@@ -463,21 +474,40 @@ def k1_problem(torch, gen, N, MW, self_edges=0):
     return (target, weight, poses, disps, intr, ii, jj)
 
 
-def hold_k1(torch, args, what):
+def hold_k1(torch, args, what, exact=False):
     """K1 against its plain version on `args`, 2e-4 * max(1, |ref|) per
-    output; returns the largest error."""
+    output; returns the largest error.  exact: the plain version evaluated
+    in fp64 is the reference, and the fp32 plain version's distance to it
+    and the kernel's to the fp32 one are printed beside (the trajectory
+    filler's motion-only rounds converge to residuals far below the
+    coordinates they are taken from, where v's fp32 value moves with the
+    order of rounding by about the tolerance, in the plain version as in
+    the kernel)."""
     from droid_slam_reserch_tpu_torch.ops import cuda_ba
 
     out = cuda_ba.ba_system_blocks(*args)
-    ref = cuda_ba.build_system_blocks(*args)
+    if exact:
+        plain = cuda_ba.build_system_blocks(*args)
+        ref = cuda_ba.system_blocks(*[x.double() if x.is_floating_point() else x for x in args])
+    else:
+        ref = cuda_ba.build_system_blocks(*args)
     torch.cuda.synchronize()
-    err, ok = 0.0, True
+    err, worst, ok = 0.0, (0.0, ""), True
     for k in ref:
-        d = float((out[k] - ref[k]).abs().max())
+        d = float((out[k].to(ref[k].dtype) - ref[k]).abs().max())
+        tol = 2e-4 * max(1.0, float(ref[k].abs().max()))
         err = max(err, d)
-        ok &= d <= 2e-4 * max(1.0, float(ref[k].abs().max()))
-    say("kernels", f"K1 ba_blocks {what}: max_abs_err {err:.3e} (tol 2e-4*max(1,|ref|) per "
-                   f"output)")
+        worst = max(worst, (d / tol, k))
+        ok &= d <= tol
+    extra = ""
+    if exact:
+        extra = "; " + ", ".join(
+            f"{k}: fp32 plain to fp64 {float((plain[k].double() - ref[k]).abs().max()):.2e}, "
+            f"kernel to fp32 plain {float((out[k] - plain[k]).abs().max()):.2e}"
+            for k in ("vi", "vj"))
+    say("kernels", f"K1 ba_blocks {what}: max_abs_err {err:.3e} against the plain version"
+                   f"{' in fp64' if exact else ''} (tol 2e-4*max(1,|ref|) per output; nearest "
+                   f"its tol: {worst[1]} at {worst[0]:.2f} of it){extra}")
     if not ok:
         fail(f"K1 disagrees with its plain version ({what})")
     return err
@@ -1399,7 +1429,7 @@ def small_frames(mode, n=10):
     """The 64x96 card-vs-CPU frames: tests/test_engine.py's sequences, as
     (image, depth) pairs; stereo pairs the frame with itself rolled 2 px,
     RGB-D draws a depth of 2 to 2.5 before each frame."""
-    rng = np.random.RandomState({"mono": 0, "stereo": 1, "rgbd": 2}[mode])
+    rng = np.random.RandomState({"mono": 0, "upsample": 0, "stereo": 1, "rgbd": 2}[mode])
     out = []
     for t in range(n):
         depth = (2.0 + 0.5 * rng.rand(64, 96).astype(np.float32)) if mode == "rgbd" else None
@@ -1412,7 +1442,9 @@ def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
     """The oracle frontend and backend gates on the card, and the port's
     Droid.track + terminate_eva at 64x96 on the card against the same run on
     the CPU, in the compute dtype, for each sensor mode of `modes` (mono,
-    stereo, rgbd).  Tolerance on poses and the trajectory:
+    stereo, rgbd, and upsample: mono with cfg.upsample, whose disps_up after
+    terminate_eva is compared too).  Tolerance on poses, the trajectory and
+    disps_up:
     fp32 1e-3; bf16 2e-2: bf16 keeps 8 significant bits, and the card's
     cuDNN and the CPU's convolutions round at other places (as the JAX
     package and the port do on the CPU, where 8 frames differ by 2.6e-3 in
@@ -1462,7 +1494,7 @@ def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
     for mode in modes:
         frames = small_frames(mode)
         cfg = small_config(DroidConfig).replace(compute_dtype=dtype, stereo=mode == "stereo",
-                                                rgbd=mode == "rgbd")
+                                                rgbd=mode == "rgbd", upsample=mode == "upsample")
         runs = {}
         for device in ("cuda", "cpu"):
             d = Droid(cfg, params=params, device=device)
@@ -1475,8 +1507,9 @@ def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
             poses = d.video.poses[:d.video.counter].cpu().numpy().copy()
             traj = d.terminate_eva(iter([(float(t), img, intr)
                                          for t, (img, _) in enumerate(frames)]))
-            runs[device] = (hist, poses, traj)
-        (h_gpu, p_gpu, tr_gpu), (h_cpu, p_cpu, tr_cpu) = runs["cuda"], runs["cpu"]
+            up = None if d.video.disps_up is None else d.video.disps_up[:d.video.counter].cpu()
+            runs[device] = (hist, poses, traj, up)
+        (h_gpu, p_gpu, tr_gpu, up_gpu), (h_cpu, p_cpu, tr_cpu, up_cpu) = runs["cuda"], runs["cpu"]
         same_graph = all(a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
                          for a, b in zip(h_gpu, h_cpu))
         dp = float(np.abs(p_gpu - p_cpu).max()) if p_gpu.shape == p_cpu.shape else float("inf")
@@ -1494,6 +1527,14 @@ def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
             fail("the stereo card-vs-CPU graph has no self-edges")
         if not (tr_gpu.shape == (10, 7) and np.isfinite(tr_gpu).all() and dt <= tol):
             fail(f"the card run and the CPU run of Droid.terminate_eva disagree ({dtype} {mode})")
+        if mode == "upsample":
+            same = up_gpu is not None and up_cpu is not None and up_gpu.shape == up_cpu.shape
+            du = float((up_gpu - up_cpu).abs().max()) if same else float("inf")
+            say("card-vs-cpu", f"{dtype} upsample: disps_up {tuple(up_gpu.shape) if same else None} "
+                               f"of the kept keyframes after terminate_eva, max |diff| {du:.3e} "
+                               f"(tol {tol:.0e})")
+            if not (same and bool(torch.isfinite(up_gpu).all()) and du <= tol):
+                fail(f"the card run and the CPU run disagree on disps_up ({dtype})")
 
 
 def check_counts(counts, what, kernels=MAIN_KERNELS, absent=()):
@@ -1581,8 +1622,10 @@ def hold_engine_inputs(torch, cap, what, stereo):
     captured inputs: K1 (2e-4 * max(1, |ref|) per output); K4's bases
     exactly and windows, K5 on the last round's coords, K2's levels and K3
     on K2's levels (fp32: 1e-5 * max(1, |ref|); bf16 windows, K5 and bf16
-    levels: one rounding step, BF16 * |ref|).  A stereo capture must hold
-    self-edges in each K1 batch."""
+    levels: one rounding step, BF16 * |ref|).  The filler's K1 is held
+    against the plain version in fp64 (hold_k1).  A stereo capture must
+    hold self-edges in each K1 batch but the filler's (whose edges join a
+    keyframe to a new frame)."""
     from droid_slam_reserch_tpu_torch.ops import cuda_corr
 
     for (phase, key), rec in sorted(cap.seen.items()):
@@ -1591,8 +1634,8 @@ def hold_engine_inputs(torch, cap, what, stereo):
             ii, jj = rec[5], rec[6]
             n_self = int((ii == jj).sum())
             hold_k1(torch, rec, f"on the {at}'s last BA: N={ii.numel()}, {n_self} edges with "
-                                f"ii == jj (self-edges and padding)")
-            if stereo and n_self <= int(((ii == 0) & (jj == 0)).sum()):
+                                f"ii == jj (self-edges and padding)", exact=phase == "filler")
+            if stereo and phase != "filler" and n_self <= int(((ii == 0) & (jj == 0)).sum()):
                 fail(f"K1 on the {at} saw no stereo self-edge")
             continue
         f1, f2, args, _, coords = rec
@@ -1617,6 +1660,9 @@ def hold_engine_inputs(torch, cap, what, stereo):
         torch.cuda.synchronize()
         errs = []
         for name, a, b in pairs:
+            if b.numel() == 0:                     # a level coarser than the image
+                errs.append((name, 0.0 if a.shape == b.shape else float("inf"), 0.0))
+                continue
             scale = float(b.float().abs().max())
             tol = BF16 * scale if b.dtype == torch.bfloat16 else 1e-5 * max(1.0, scale)
             errs.append((name, float((a.float() - b.float()).abs().max()), tol))
@@ -1908,6 +1954,277 @@ def phase_profile(torch, droid, frames, t_base, intr=INTR_EUROC, tag=""):
     return [(t_base + k, img) for k, img in enumerate(frames)]
 
 
+def png_filter(rows, bpp, kinds):
+    """PNG row filtering: rows [H, N] bytes, kinds [H] each row's filter
+    (0 none, 1 sub, 2 up, 3 average, 4 paeth) -> the filtered bytes."""
+    x = rows.astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, bpp:], b[1:], c[1:, bpp:] = x[:, :-bpp], x[:-1], x[:-1, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    pred = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])[kinds, np.arange(len(x))]
+    return ((x - pred) & 255).astype(np.uint8)
+
+
+def write_png(path, img, mixed=False):
+    """A PNG of every row filtered with filter 0 (none), or with mixed row
+    r with filter r % 5 (as libpng's adaptive filtering mixes them), zlib
+    level 1: img [H, W] uint8 or uint16 grey, or [H, W, 3] uint8 BGR
+    (stored as RGB)."""
+    import struct
+    import zlib
+
+    img = np.asarray(img)
+    depth = 16 if img.dtype == np.uint16 else 8
+    ctype = 2 if img.ndim == 3 else 0
+    rows = (img[..., ::-1] if ctype == 2 else img).astype(">u2" if depth == 16 else np.uint8)
+    rows = rows.reshape(img.shape[0], -1).view(np.uint8)
+    kinds = np.arange(img.shape[0]) % 5 if mixed else np.zeros(img.shape[0], np.int64)
+    if mixed:
+        rows = png_filter(rows, (3 if ctype == 2 else 1) * depth // 8, kinds)
+    raw = np.concatenate([kinds.astype(np.uint8)[:, None], rows], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", img.shape[1], img.shape[0], depth, ctype, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+N_CLI = 16          # frames of the tum, tartanair and demo runs
+N_CLI_ETH3D = 24    # ETH3D_CONFIG's warmup is 20
+
+
+def make_cli_datasets(root):
+    """The datasets' on-disk layouts at their raw sizes, of euroc_frames'
+    panning texture (and depth_frames' depth): EuRoC (752x480 8-bit grey
+    cam0 and cam1, the right view 6 px along, data.csv ground truth, and
+    the same frames with mixed row filters in a second sequence), TUM fr1 (640x480 RGB and 16-bit depth, stride 2), ETH3D (739x458 RGB,
+    16-bit depth, calibration.txt, groundtruth.txt), TartanAir (640x480
+    RGB, NED pose_left.txt) and a demo directory (640x480 with a
+    5-coefficient calibration).  Returns the paths."""
+    j = os.path.join
+    paths = {}
+
+    mav0 = paths["euroc"] = j(root, "MH_synth", "mav0")
+    mixed = paths["euroc_mixed"] = j(root, "MH_synth_mixed", "mav0")
+    for d in ("cam0/data", "cam1/data", "state_groundtruth_estimate0"):
+        os.makedirs(j(mav0, d))
+    for d in ("cam0/data", "cam1/data"):
+        os.makedirs(j(mixed, d))
+    t0, dt = 1403636579763555584, 50_000_000
+    with open(j(mav0, "state_groundtruth_estimate0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],p_x,p_y,p_z,q_w,q_x,q_y,q_z\n")
+        for t, pair in enumerate(euroc_frames(N_MAIN, seed=3, H=480, W=752, shift=STEREO_SHIFT)):
+            ts = t0 + t * dt
+            for seq, filtered in ((mav0, False), (mixed, True)):
+                write_png(j(seq, "cam0/data", f"{ts}.png"), pair[0][..., 0], filtered)
+                write_png(j(seq, "cam1/data", f"{ts}.png"), pair[1][..., 0], filtered)
+            f.write(f"{ts},{0.05 * t},{0.01 * t},0.0,1.0,0.0,0.0,0.0\n")
+
+    def rgbd_sequence(name, n, H, W, scale, calib=None, fmt="{:.6f}"):
+        seq = paths[name] = j(root, name)
+        os.makedirs(j(seq, "rgb"))
+        os.makedirs(j(seq, "depth"))
+        rows = []
+        imgs, depths = euroc_frames(n, seed=4, H=H, W=W), depth_frames(n, seed=4, H=H, W=W)
+        for t, (img, depth) in enumerate(zip(imgs, depths)):
+            ts = 1305031102.175 + 0.033 * t
+            write_png(j(seq, "rgb", fmt.format(ts) + ".png"), img)
+            write_png(j(seq, "depth", fmt.format(ts) + ".png"), (depth * scale).astype(np.uint16))
+            rows.append([ts, 0.02 * t, 0.0, 0.01 * t, 0.0, 0.0, 0.0, 1.0])
+        np.savetxt(j(seq, "groundtruth.txt"), np.asarray(rows), fmt="%.6f")
+        if calib is not None:
+            np.savetxt(j(seq, "calibration.txt"), np.asarray(calib)[None])
+
+    rgbd_sequence("tum", 2 * N_CLI, 480, 640, 5000.0)
+    rgbd_sequence("eth3d", N_CLI_ETH3D, 458, 739, 1000.0, [726.28, 726.28, 354.65, 186.47])
+
+    scene = paths["tartanair"] = j(root, "tartanair", "P001")
+    os.makedirs(j(scene, "image_left"))
+    for t, img in enumerate(euroc_frames(N_CLI, seed=5, H=480, W=640)):
+        write_png(j(scene, "image_left", f"{t:06d}_left.png"), img)
+    np.savetxt(j(scene, "pose_left.txt"),
+               np.asarray([[0.0, 0.1 * t, 0.0, 0.0, 0.0, 0.0, 1.0] for t in range(N_CLI)]))
+
+    demo = paths["demo"] = j(root, "demo")
+    os.makedirs(j(demo, "imgs"))
+    for t, img in enumerate(euroc_frames(N_CLI, seed=6, H=480, W=640)):
+        write_png(j(demo, "imgs", f"{t:04d}.png"), img)
+    with open(j(demo, "calib.txt"), "w") as f:
+        f.write("520.0 520.0 319.5 239.5 -0.05 0.02 0.0005 -0.0003 0.0\n")
+    return paths
+
+
+def phase_cli(torch, ops):
+    """The port's CLI, in process (cli.main), on datasets written into a
+    temporary directory outside the repository: euroc mono with --upsample,
+    --out, --gt and --reconstruction_path in fp32 and in bf16, euroc
+    --stereo in bf16, then tum, eth3d --depth, tartanair and demo in bf16,
+    each with --filter_thresh -1 --keyframe_thresh 0 (random weights).
+    Around each command the counts are set to 0 and read: K1-K5 of the
+    dtype launch, no plain version runs, none of K6-K8.  Each command's
+    last K1, K4 + K5 and K2 + K3 inputs of its track, backend and filler
+    are captured (EngineInputs) and each kernel is held against its plain
+    version on them.  Each must print a finite ATE where there is ground
+    truth; the upsampled runs keep finite disps_up on every keyframe.
+    Prints each command's frames/s end to end and its seconds split into
+    Droid.track, the backend (Droid.terminate), the filler with its
+    stream's reads (terminate_eva_second), save_reconstruction and the rest
+    (the tracked frames' reads, the keyframe export, the ATE), each call
+    synchronised; the engine's sections and host syncs (utils/timing); its
+    peak memory; and the EuRoC readers' ms a frame alone, on filter-0 PNGs
+    and on PNGs of mixed row filters (whose frames must be the same bytes).
+    Returns the counts by path."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from droid_slam_reserch_tpu_torch import cli
+    from droid_slam_reserch_tpu_torch.data import euroc_stream
+    from droid_slam_reserch_tpu_torch.engine import Droid
+    from droid_slam_reserch_tpu_torch.utils import timing
+
+    spent = {}
+    parts = ("track", "terminate", "terminate_eva_second", "save_reconstruction")
+    originals = {name: getattr(Droid, name) for name in parts}
+    phases = {"track": "track", "terminate": "backend", "terminate_eva_second": "filler"}
+
+    def timed(name, cap):
+        fn = cap.during(phases[name], originals[name]) if name in phases else originals[name]
+
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.time() - t0
+            return out
+        return call
+
+    root = tempfile.mkdtemp(prefix="droid_cli_")
+    try:
+        t0 = time.time()
+        paths = make_cli_datasets(root)
+        say("cli", f"datasets written in {time.time() - t0:.1f} s under a temporary directory")
+        for stereo in (False, True):
+            frames = {}
+            for kind in ("euroc", "euroc_mixed"):
+                t0 = time.time()
+                frames[kind] = [img for _, img, _ in euroc_stream(paths[kind], stereo=stereo)]
+                n = len(frames[kind])
+                say("cli", f"readers: euroc_stream {'stereo' if stereo else 'mono'} 752x480 grey "
+                           f"-> 320x512, {'mixed row filters 0-4' if kind == 'euroc_mixed' else 'filter 0'}: "
+                           f"{1e3 * (time.time() - t0) / n:.2f} ms a frame over {n} frames")
+            if not all(np.array_equal(a, b) for a, b in zip(*frames.values())):
+                fail("euroc_stream gives other frames from the PNGs of mixed row filters")
+            del frames
+        out = os.path.join(root, "out")
+        random_weights = ["--filter_thresh", "-1", "--keyframe_thresh", "0"]
+        runs = [
+            ("euroc", "float32", N_MAIN, "ate",
+             ["euroc", "--datapath", paths["euroc"], "--upsample", "--out", out + "/euroc.txt",
+              "--gt", paths["euroc"] + "/state_groundtruth_estimate0/data.csv",
+              "--reconstruction_path", out + "/recon"]),
+            ("euroc", "bfloat16", N_MAIN, "ate",
+             ["euroc", "--datapath", paths["euroc"], "--upsample", "--out", out + "/euroc16.txt",
+              "--gt", paths["euroc"] + "/state_groundtruth_estimate0/data.csv",
+              "--reconstruction_path", out + "/recon16"]),
+            ("euroc_stereo", "bfloat16", N_MAIN, "ate",
+             ["euroc", "--datapath", paths["euroc"], "--stereo", "--out", out + "/stereo.txt",
+              "--gt", paths["euroc"] + "/state_groundtruth_estimate0/data.csv"]),
+            ("tum", "bfloat16", N_CLI, "ate",
+             ["tum", "--datapath", paths["tum"], "--gt", paths["tum"] + "/groundtruth.txt"]),
+            ("eth3d", "bfloat16", N_CLI_ETH3D, "ate", ["eth3d", "--datapath", paths["eth3d"], "--depth"]),
+            ("tartanair", "bfloat16", N_CLI, "ate_score",
+             ["tartanair", "--datapath", paths["tartanair"],
+              "--gt", paths["tartanair"] + "/pose_left.txt"]),
+            ("demo", "bfloat16", N_CLI, None,
+             ["demo", "--imagedir", paths["demo"] + "/imgs", "--calib", paths["demo"] + "/calib.txt"]),
+        ]
+        by_path, summary = {}, []
+        for name, dtype, n_frames, key, argv in runs:
+            argv = argv + random_weights + (["--bf16"] if dtype == "bfloat16" else [])
+            kernels = MAIN_KERNELS if dtype == "float32" else MAIN_KERNELS_BF16
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_counts()
+            printed = io.StringIO()
+            spent.clear()
+            timing.GLOBAL_TIMINGS.totals.clear()
+            timing.GLOBAL_TIMINGS.counts.clear()
+            timing.SYNC_COUNT[0] = 0
+            cap = EngineInputs()
+            for part in parts:
+                setattr(Droid, part, timed(part, cap))
+            t0 = time.time()
+            try:
+                with contextlib.redirect_stdout(printed):
+                    droid = cli.main(argv)
+                torch.cuda.synchronize()
+            finally:
+                for part in parts:
+                    setattr(Droid, part, originals[part])
+                cap.restore()
+            secs = time.time() - t0
+            split = ", ".join(f"{part} {spent.get(part, 0.0):.2f}" for part in parts)
+            counts = ops.counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith(("{", "tracked"))]
+            res = [json.loads(ln) for ln in lines if ln.startswith("{")]
+            v = droid.video
+            shape = f"{droid.cfg.image_size[0]}x{droid.cfg.image_size[1]}"
+            say("cli", f"{name} {dtype} {shape}: {n_frames} frames, {v.counter} keyframes in {secs:.2f} s, "
+                       f"{n_frames / secs:.2f} frames/s end to end; s: {split}, rest "
+                       f"{secs - sum(spent.values()):.2f}; peak memory {peak:.2f} GiB; "
+                       f"printed {lines}")
+            say("cli", f"{name} {dtype}: counts (kernel launches, plain calls): {counts}")
+            sections = timing.GLOBAL_TIMINGS
+            say("cli", f"{name} {dtype}: {timing.SYNC_COUNT[0]} host syncs "
+                       f"({timing.SYNC_COUNT[0] / n_frames:.2f} a frame); sections (s, calls): "
+                       + ", ".join(f"{k} {sections.totals[k]:.2f} {sections.counts[k]}"
+                                   for k in sorted(sections.totals)))
+            if key is not None:
+                vals = [r[key]["rmse"] if key == "ate" else r[key] for r in res if key in r]
+                if not (vals and np.isfinite(vals[-1])):
+                    fail(f"cli {name} {dtype} printed no finite {key}")
+            up = None
+            if "--upsample" in argv:
+                up = v.disps_up
+                if up is None or not bool(torch.isfinite(up[:v.counter]).all()):
+                    fail(f"cli {name} {dtype}: disps_up not finite on the kept keyframes")
+                say("cli", f"{name} {dtype}: disps_up {tuple(up.shape)} ({up.numel() * 4 / 2**30:.2f} "
+                           f"GiB), finite on the {v.counter} kept keyframes, in "
+                           f"[{float(up[:v.counter].min()):.4f}, {float(up[:v.counter].max()):.4f}]")
+            if "--out" in argv:
+                traj = np.loadtxt(argv[argv.index("--out") + 1])
+                if not (traj.shape == (n_frames, 8) and np.isfinite(traj).all()):
+                    fail(f"cli {name} {dtype}: trajectory file {traj.shape}")
+            if "--reconstruction_path" in argv:
+                kf = os.listdir(os.path.join(argv[argv.index("--reconstruction_path") + 1],
+                                             "keyframes_cam0"))
+                if len(kf) != v.counter:
+                    fail(f"cli {name} {dtype}: {len(kf)} keyframe images for {v.counter} keyframes")
+            check_counts(counts, f"the cli's {name} ({dtype})", kernels, OFF_ENGINE)
+            by_path[f"cli_{name}" + ("" if dtype == "float32" else "_bf16")] = counts
+            summary.append(f"{name} {dtype} {n_frames / secs:.2f} frames/s, {peak:.2f} GiB")
+            del droid, v, up
+            torch.cuda.empty_cache()
+            say("engine-inputs", f"cli {name} {dtype}: {cap.retained_mib():.1f} MiB of kernel "
+                                 f"inputs retained by the capture")
+            hold_engine_inputs(torch, cap, f"cli {name} {dtype}", name == "euroc_stereo")
+            del cap
+        say("cli", "end to end: " + "; ".join(summary))
+        return by_path
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -1936,7 +2253,7 @@ def main():
     rows = phase_kernels(torch)
     rows.update(phase_kernels_bf16(torch))
     by_path = {"drift": phase_drift(torch, ops), "drift_bf16": phase_drift(torch, ops, "bfloat16")}
-    phase_card_vs_cpu(torch, ops, "float32", ("mono", "stereo", "rgbd"))
+    phase_card_vs_cpu(torch, ops, "float32", ("mono", "stereo", "rgbd", "upsample"))
     phase_card_vs_cpu(torch, ops, "bfloat16", ("mono", "stereo"))
     frames = {"mono": (euroc_frames(N_MAIN + (12 if profiling else 0)), None),
               "stereo": (euroc_frames(N_MAIN, shift=STEREO_SHIFT), None),
@@ -1978,6 +2295,7 @@ def main():
         say("main-path", f"{mode}: bf16 against fp32 in this run: {f16:.2f} against {f32:.2f} "
                          f"frames/s after initialisation, terminate_eva {s16:.2f} against "
                          f"{s32:.2f} s")
+    by_path.update(phase_cli(torch, ops))
     by_path["profile_frontend"] = phase_profile_frontend(torch, ops)
     by_path["profile_frontend_bf16"] = phase_profile_frontend(torch, ops, "bfloat16")
 

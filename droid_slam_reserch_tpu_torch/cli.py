@@ -1,0 +1,365 @@
+"""Command-line entry points of the port (mirror of the JAX package's cli.py):
+the tracking commands, with the same flags, outputs and printed JSON.
+
+Usage:
+  python -m droid_slam_reserch_tpu_torch.cli demo --imagedir DIR --calib FILE
+  python -m droid_slam_reserch_tpu_torch.cli euroc --datapath .../MH_01/mav0 --gt gt.txt [--stereo]
+  python -m droid_slam_reserch_tpu_torch.cli tum --datapath .../rgbd_dataset_freiburg1_xyz
+  python -m droid_slam_reserch_tpu_torch.cli eth3d --datapath DIR [--depth]
+  python -m droid_slam_reserch_tpu_torch.cli tartanair --datapath SCENE [--stereo]
+
+Every command runs on the CUDA card; ``--device cpu`` runs the plain
+PyTorch versions of the kernels on the CPU instead.  ``view``, the
+multisession commands and ``train`` are not ported yet.
+"""
+import argparse
+import json
+import os
+
+import numpy as np
+
+from .engine import Droid
+
+def _add_slam_flags(p):
+    """Shared SLAM flags (reference demo.py:103-128), and the port's --device."""
+    p.add_argument("--weights", default=None, help="droid.pth-style checkpoint")
+    p.add_argument("--buffer", type=int, default=None)
+    p.add_argument("--stride", type=int, default=1)
+    p.add_argument("--disable_backend", action="store_true")
+    p.add_argument("--upsample", action="store_true")
+    p.add_argument("--reconstruction_path", default=None)
+    p.add_argument("--vis_path", default=None,
+                   help="stream a live, incrementally-updated PLY here (not ported yet)")
+    p.add_argument("--bf16", action="store_true", help="bfloat16 network compute")
+    p.add_argument("--image_size", type=int, nargs=2, default=None,
+                   help="engine H W (streams resize to match)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the engine: cuda (the default) or cpu")
+    for name, typ in [
+        ("filter_thresh", float), ("warmup", int), ("keyframe_thresh", float),
+        ("frontend_thresh", float), ("frontend_window", int),
+        ("frontend_radius", int), ("frontend_nms", int), ("beta", float),
+        ("backend_thresh", float), ("backend_radius", int), ("backend_nms", int),
+        ("quality_mean_thresh", float), ("quality_min_thresh", float),
+    ]:
+        p.add_argument(f"--{name}", type=typ, default=None)
+
+
+def _config_from_args(base, args):
+    over = {}
+    for f in ("weights", "buffer", "vis_path", "filter_thresh", "warmup", "keyframe_thresh",
+              "frontend_thresh", "frontend_window", "frontend_radius",
+              "frontend_nms", "beta", "backend_thresh", "backend_radius",
+              "backend_nms", "upsample", "quality_mean_thresh",
+              "quality_min_thresh"):
+        v = getattr(args, f, None)
+        if v is not None and v is not False:
+            over[f] = v
+    if getattr(args, "image_size", None) is not None:
+        over["image_size"] = tuple(args.image_size)
+    if getattr(args, "bf16", False):
+        over["compute_dtype"] = "bfloat16"
+    return base.replace(**over)
+
+
+def _track_stream(droid, stream, use_depth=False, progress=True):
+    n = 0
+    for item in stream:
+        if use_depth and len(item) == 4:
+            t, image, depth, intrinsics = item
+            droid.track(t, image, depth=depth, intrinsics=intrinsics)
+        else:
+            t, image, intrinsics = item[0], item[1], item[-1]
+            droid.track(t, image, intrinsics=intrinsics)
+        n += 1
+        if progress and n % 25 == 0:
+            print(f"  frame {n}, keyframes {droid.video.counter}", flush=True)
+    return n
+
+
+def _save_trajectory(path, tstamps, traj):
+    """TUM-format trajectory file (t tx ty tz qx qy qz qw)."""
+    with open(path, "w") as f:
+        for t, p in zip(tstamps, traj):
+            f.write(f"{t} " + " ".join(f"{x:.9f}" for x in p) + "\n")
+
+
+def cmd_demo(args):
+    from .data import generic_image_stream
+    from .utils import DroidConfig
+
+    cfg = _config_from_args(DroidConfig(image_size=(240, 320)), args)
+    # probe first frame for actual stream resolution
+    probe = next(iter(generic_image_stream(args.imagedir, args.calib, args.stride,
+                                           target_area=args.target_area)))
+    h, w = probe[1].shape[:2]
+    cfg = cfg.replace(image_size=(h, w))
+
+    droid = Droid(cfg, device=args.device)
+    stream = generic_image_stream(args.imagedir, args.calib, args.stride,
+                                  target_area=args.target_area)
+    _track_stream(droid, stream)
+    if args.reconstruction_path:
+        droid.save_reconstruction(args.reconstruction_path)
+    if not args.disable_backend:
+        droid.terminate()
+    t = droid.video.counter
+    print(f"tracked {t} keyframes")
+    if args.reconstruction_path:
+        droid.save_reconstruction(args.reconstruction_path)
+    return droid
+
+
+def cmd_euroc(args):
+    from .data import euroc_stream, euroc_timestamps
+    from .eval import evaluate_ate
+    from .utils import EUROC_CONFIG
+
+    cfg = _config_from_args(EUROC_CONFIG.replace(stereo=args.stereo), args)
+    droid = Droid(cfg, device=args.device)
+    stream = euroc_stream(args.datapath, image_size=cfg.image_size,
+                          stereo=args.stereo, stride=args.stride)
+    _track_stream(droid, stream)
+
+    if args.reconstruction_path:
+        # multisession stage 1: session checkpoint + keyframe image export
+        # (reference Euroc_Multisession_Stereo/KeyFramesAndRawData.py)
+        droid.save_reconstruction(args.reconstruction_path)
+        from .multisession.pipeline import extract_images_by_timestamp
+
+        extract_images_by_timestamp(
+            os.path.join(args.datapath, "cam0/data"),
+            droid.video.tstamp[: droid.video.counter],
+            os.path.join(args.reconstruction_path, "keyframes_cam0"),
+        )
+
+    fill_stream = (
+        (t, im, intr)
+        for (t, im, intr) in euroc_stream(
+            args.datapath, image_size=cfg.image_size, stereo=args.stereo, stride=args.stride
+        )
+    )
+    traj = droid.terminate_eva(fill_stream)
+
+    tstamps = euroc_timestamps(args.datapath, stride=args.stride)[: len(traj)]
+    if args.out:
+        _save_trajectory(args.out, tstamps, traj)
+
+    if args.gt:
+        # EuRoC ships state_groundtruth_estimate0/data.csv (comma, ns
+        # stamps); processed TUM-style files are space-separated
+        with open(args.gt) as f:
+            head = f.readline()
+        delim = "," if head.count(",") > head.count(" ") else None
+        gt = np.loadtxt(args.gt, delimiter=delim, comments="#")[:, :8]
+        est = np.concatenate(
+            [np.asarray(tstamps)[:, None] * 1e-9, traj[:, :3], traj[:, 3:]], axis=1
+        )
+        if not args.stereo:
+            est[:, 1:4] *= 1.10  # mono scale fudge (reference test_euroc.py:134)
+        res = evaluate_ate(
+            est, gt, align=True, correct_scale=not args.stereo, max_dt=0.1
+        )
+        print(json.dumps({"ate": res}))
+        if args.out:
+            with open(args.out + ".ate.json", "w") as f:
+                json.dump(res, f)
+    return droid
+
+
+def cmd_tum(args):
+    from .data import tum_stream, tum_timestamps
+    from .eval import evaluate_ate
+    from .utils import TUM_CONFIG
+
+    cfg = _config_from_args(
+        TUM_CONFIG.replace(
+            filter_thresh=1.75, warmup=12, keyframe_thresh=2.25,
+            frontend_thresh=12.0, beta=0.6, backend_thresh=15.0,
+            image_size=(240, 320),  # the stream's post-crop size
+        ),
+        args,
+    )
+    droid = Droid(cfg, device=args.device)
+    _track_stream(droid, tum_stream(args.datapath, stride=2,
+                                    image_size=cfg.image_size))
+    traj = droid.terminate_eva(
+        iter(list(tum_stream(args.datapath, stride=2,
+                             image_size=cfg.image_size))))
+    print(f"tracked {len(traj)} frames")
+    if args.gt:
+        gt = np.loadtxt(args.gt)
+        # associate by the frames' epoch timestamps (filenames), as the
+        # reference's evo protocol does — index association drifts whenever
+        # frames were dropped from either stream
+        ts = tum_timestamps(args.datapath, stride=2)[: len(traj)]
+        if len(ts) < len(traj):
+            ts = np.concatenate([ts, np.arange(len(ts), len(traj), dtype=np.float64)])
+        est = np.concatenate([ts[:, None], traj[:, :3], traj[:, 3:]], axis=1)
+        res = evaluate_ate(est, gt, align=True, correct_scale=True)
+        print(json.dumps({"ate": res}))
+    return droid
+
+
+def cmd_eth3d(args):
+    from .data import eth3d_stream, eth3d_timestamps
+    from .eval import evaluate_ate
+    from .utils import ETH3D_CONFIG
+
+    cfg = _config_from_args(ETH3D_CONFIG, args)
+    # resize_to_area keeps aspect, so probe the stream for the actual size
+    ta = cfg.image_size[0] * cfg.image_size[1]
+    probe = next(iter(eth3d_stream(args.datapath, use_depth=args.depth,
+                                   target_area=ta)))
+    h, w = probe[1].shape[:2]
+    cfg = cfg.replace(image_size=(h, w))
+    droid = Droid(cfg, device=args.device)
+    _track_stream(
+        droid, eth3d_stream(args.datapath, use_depth=args.depth,
+                            stride=args.stride, target_area=ta),
+        use_depth=args.depth,
+    )
+    traj = droid.terminate_eva(
+        iter([(x[0], x[1], x[-1])
+              for x in eth3d_stream(args.datapath, stride=args.stride,
+                                    target_area=ta)])
+    )
+    print(f"tracked {len(traj)} frames")
+
+    # ATE vs groundtruth.txt when present (the reference ships the eval
+    # commented out, test_eth3d.py:112-118; a new framework should report it)
+    gt_file = os.path.join(args.datapath, "groundtruth.txt")
+    if os.path.exists(gt_file):
+        stamps = np.asarray(eth3d_timestamps(args.datapath, stride=args.stride))
+        n = min(len(stamps), len(traj))
+        est = np.concatenate(
+            [stamps[:n, None], traj[:n, :3], traj[:n, 3:]], axis=1
+        )
+        gt = np.loadtxt(gt_file, comments="#")
+        try:
+            res = evaluate_ate(est, gt, max_dt=0.1)
+            print(json.dumps({"ate": res}))
+        except ValueError as e:
+            print(json.dumps({"ate_error": str(e)}))
+    return droid
+
+
+def _tartanair_one(cfg, args, scenedir, gt_file):
+    from .data import tartan_stream
+    from .eval.metrics import evaluate_tartanair
+
+    stereo, stride = args.stereo, args.stride
+    droid = Droid(cfg, device=args.device)
+    _track_stream(droid, tartan_stream(scenedir, stereo=stereo, stride=stride,
+                                       image_size=cfg.image_size))
+    traj = droid.terminate_eva(
+        iter([(x[0], x[1][0] if stereo else x[1], x[2])
+              for x in tartan_stream(scenedir, stereo=stereo, stride=stride,
+                                     image_size=cfg.image_size)])
+    )
+    res = None
+    if gt_file and os.path.exists(gt_file):
+        gt = np.loadtxt(gt_file)[:, [1, 2, 0]]  # NED -> xyz translation part
+        res = evaluate_tartanair(traj[: len(gt), :3], gt[: len(traj)])
+    return droid, res
+
+
+def cmd_tartanair(args):
+    """Single scene, or (--split) the full TartanAir test-split sweep with a
+    success-rate curve (reference validate_tartanair.py:77-114)."""
+    from .utils import TARTANAIR_CONFIG
+
+    cfg = _config_from_args(TARTANAIR_CONFIG.replace(stereo=args.stereo), args)
+    if not args.split:
+        droid, res = _tartanair_one(cfg, args, args.datapath, args.gt)
+        if res is not None:
+            print(json.dumps(res))
+        return droid
+
+    from .data import TARTAN_TEST_SPLIT
+
+    scenes = [s for s in TARTAN_TEST_SPLIT
+              if os.path.isdir(os.path.join(args.datapath, s))]
+    if args.id >= 0:
+        scenes = [TARTAN_TEST_SPLIT[args.id]]
+    ates = []
+    for scene in scenes:
+        scenedir = os.path.join(args.datapath, scene)
+        gt_file = os.path.join(scenedir, "pose_left.txt")
+        print(f"evaluating {scene}", flush=True)
+        _, res = _tartanair_one(cfg, args, scenedir, gt_file)
+        ate = res["ate_score"] if res else float("nan")
+        ates.append(ate)
+        print(json.dumps({"scene": scene, "ate": ate}))
+
+    # success-rate curve: fraction of runs under each ATE threshold
+    # (reference validate_tartanair.py:106-114 plot, emitted as JSON here)
+    ate_arr = np.asarray([a for a in ates if np.isfinite(a)])
+    xs = np.linspace(0.0, 1.0, 512)
+    curve = [float(np.count_nonzero(ate_arr < t)) / max(len(ate_arr), 1) for t in xs]
+    summary = {
+        "scenes": len(scenes),
+        "mean_ate": float(np.nanmean(ates)) if ates else None,
+        "success_rate_curve": {"thresholds": xs.tolist()[::32],
+                               "fraction": curve[::32]},
+    }
+    print(json.dumps(summary))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"per_scene": dict(zip(scenes, ates)), **summary}, f)
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(prog="droid_slam_reserch_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("demo")
+    p.add_argument("--imagedir", required=True)
+    p.add_argument("--calib", required=True)
+    p.add_argument("--target_area", type=int, default=384 * 512,
+                   help="resize frames so h*w ~= this (reference demo.py:66)")
+    _add_slam_flags(p)
+    p.set_defaults(fn=cmd_demo)
+
+    p = sub.add_parser("euroc")
+    p.add_argument("--datapath", required=True)
+    p.add_argument("--gt", default=None)
+    p.add_argument("--out", default=None)
+    p.add_argument("--stereo", action="store_true")
+    _add_slam_flags(p)
+    p.set_defaults(fn=cmd_euroc)
+
+    p = sub.add_parser("tum")
+    p.add_argument("--datapath", required=True)
+    p.add_argument("--gt", default=None)
+    _add_slam_flags(p)
+    p.set_defaults(fn=cmd_tum)
+
+    p = sub.add_parser("eth3d")
+    p.add_argument("--datapath", required=True)
+    p.add_argument("--depth", action="store_true")
+    _add_slam_flags(p)
+    p.set_defaults(fn=cmd_eth3d)
+
+    p = sub.add_parser("tartanair")
+    p.add_argument("--datapath", required=True)
+    p.add_argument("--gt", default=None)
+    p.add_argument("--stereo", action="store_true")
+    p.add_argument("--split", action="store_true",
+                   help="sweep the TartanAir test split + success-rate curve")
+    p.add_argument("--id", type=int, default=-1, help="single split scene index")
+    p.add_argument("--out", default=None, help="JSON results path (--split)")
+    _add_slam_flags(p)
+    p.set_defaults(fn=cmd_tartanair)
+    return parser
+
+
+def main(argv=None):
+    """Run one command; returns the command's Droid (None for a --split
+    sweep), which ``python -m`` does not use."""
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,65 @@
+"""TartanAir evaluation stream (mirror of data/tartan.py's tartan_stream and
+test split; reference evaluation_scripts/validate_tartanair.py:18-37)."""
+import glob
+import os.path as osp
+
+import numpy as np
+
+from .imageio import imread, resize
+
+# TartanAir test-split environments (reference data_readers/tartan_test.txt)
+TARTAN_TEST_SPLIT = [
+    "abandonedfactory/abandonedfactory/Easy/P011",
+    "abandonedfactory/abandonedfactory/Hard/P011",
+    "abandonedfactory_night/abandonedfactory_night/Easy/P013",
+    "abandonedfactory_night/abandonedfactory_night/Hard/P014",
+    "amusement/amusement/Easy/P008",
+    "amusement/amusement/Hard/P007",
+    "carwelding/carwelding/Easy/P007",
+    "endofworld/endofworld/Easy/P009",
+    "gascola/gascola/Easy/P008",
+    "gascola/gascola/Hard/P009",
+    "hospital/hospital/Easy/P036",
+    "hospital/hospital/Hard/P049",
+    "japanesealley/japanesealley/Easy/P007",
+    "japanesealley/japanesealley/Hard/P005",
+    "neighborhood/neighborhood/Easy/P021",
+    "neighborhood/neighborhood/Hard/P017",
+    "ocean/ocean/Easy/P013",
+    "ocean/ocean/Hard/P009",
+    "office2/office2/Easy/P011",
+    "office2/office2/Hard/P010",
+    "office/office/Hard/P007",
+    "oldtown/oldtown/Easy/P007",
+    "oldtown/oldtown/Hard/P008",
+    "seasidetown/seasidetown/Easy/P009",
+    "seasonsforest/seasonsforest/Easy/P011",
+    "seasonsforest/seasonsforest/Hard/P006",
+    "seasonsforest_winter/seasonsforest_winter/Easy/P009",
+    "seasonsforest_winter/seasonsforest_winter/Hard/P018",
+    "soulcity/soulcity/Easy/P012",
+    "soulcity/soulcity/Hard/P009",
+    "westerndesert/westerndesert/Easy/P013",
+    "westerndesert/westerndesert/Hard/P007",
+]
+
+# the fixed TartanAir camera at 640x480 (reference data_readers/tartan.py calib_read)
+TARTAN_INTRINSICS = np.array([320.0, 320.0, 320.0, 240.0])
+
+
+def tartan_stream(scene_path, stereo=False, stride=1, image_size=(384, 512)):
+    """Evaluation stream over a TartanAir trajectory: frames are resized
+    from the raw 480x640 to image_size and the fixed calibration is scaled
+    accordingly (the reference's 0.8 factor for 384x512)."""
+    images_left = sorted(glob.glob(osp.join(scene_path, "image_left/*.png")))[::stride]
+    images_right = [x.replace("_left", "_right") for x in images_left]
+    ht1, wd1 = image_size
+    sx, sy = wd1 / 640.0, ht1 / 480.0
+    intr = (TARTAN_INTRINSICS * np.array([sx, sy, sx, sy])).astype(np.float32)
+
+    for t, (imgL, imgR) in enumerate(zip(images_left, images_right)):
+        frames = [resize(imread(imgL), (wd1, ht1))]
+        if stereo:
+            frames.append(resize(imread(imgR), (wd1, ht1)))
+        image = np.stack(frames) if stereo else frames[0]
+        yield t, image, intr

@@ -1,4 +1,5 @@
 """Global BA backend (mirror of engine/backend.py; reference droid_backend.py:9-41)."""
+from ..utils.timing import section
 from .factor_graph import FactorGraph
 
 
@@ -11,6 +12,10 @@ class Backend:
         self.runs = []   # per call: edges, chunks and edges per chunk (EB) of its graph
 
     def __call__(self, steps=12):
+        with section("backend"):
+            self._run(steps)
+
+    def _run(self, steps):
         v, cfg = self.video, self.cfg
         t = v.counter
         if t < 2:
@@ -20,7 +25,8 @@ class Backend:
         if not v.stereo and not bool((v.disps_sens[:t] > 0).any()):
             v.normalize()
 
-        graph = FactorGraph(v, self.update_apply, self.params, max_factors=16 * t)
+        graph = FactorGraph(v, self.update_apply, self.params, max_factors=16 * t,
+                            upsample=cfg.upsample)
         graph.add_proximity_factors(rad=cfg.backend_radius, nms=cfg.backend_nms,
                                     thresh=cfg.backend_thresh, beta=cfg.beta)
         # update_lowmem's default BA iterations, as the JAX backend runs them

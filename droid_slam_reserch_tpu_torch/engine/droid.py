@@ -4,7 +4,9 @@ backend -> trajectory filler.
 The port runs mono, stereo (``config.stereo``: [2, H, W, 3] frames, left
 and right) and RGB-D (``config.rgbd``: a depth map with each frame)
 tracking and the global refinement that ends it, in fp32 or bf16
-(``compute_dtype``); upsampling and the viewer raise ``NotImplementedError``.
+(``compute_dtype``); with ``config.upsample`` the frontend and the backend
+keep full-resolution disparities in ``video.disps_up``.  The live viewer
+(``config.vis_path``) raises ``NotImplementedError``.
 """
 import os
 
@@ -13,6 +15,7 @@ import torch
 
 from ..lie import se3_inv
 from ..models import DroidNet, init_params, load_weights
+from ..utils.timing import maybe_report
 from .backend import Backend
 from .frontend import Frontend
 from .motion_filter import MotionFilter
@@ -31,9 +34,8 @@ def resolve_device(device):
 
 class Droid:
     def __init__(self, config, params=None, device="cuda"):
-        for flag, what in ((config.upsample, "upsample"), (config.vis_path, "the live viewer")):
-            if flag:
-                raise NotImplementedError(f"{what} is not part of the port yet")
+        if config.vis_path:
+            raise NotImplementedError("the live viewer is not part of the port yet")
         self.cfg = config
         self.dtype = compute_dtype(config.compute_dtype)
         self.device = resolve_device(device)
@@ -61,10 +63,12 @@ class Droid:
 
     @torch.no_grad()
     def terminate(self, stream=None):
-        """Global refinement (reference droid.py:114-126): two backend runs."""
+        """Global refinement (reference droid.py:114-126): two backend runs,
+        then the timing summary when DROID_TIMING is set."""
         del self.frontend
         self.backend(self.cfg.backend_steps_first)
         self.backend(self.cfg.backend_steps_second)
+        maybe_report()
 
     def terminate_eva(self, stream):
         """Backend, then the trajectory filler over ``stream`` (tstamp, image,

@@ -9,7 +9,10 @@ every pixel's per-level correlation window around the first round's coords
 (K4), and each round looks the windows up (K5) while the drift rule holds,
 else takes the exact full lookup (K2, built at most once per call, then
 K3).  ``update_lowmem`` (backend) refreshes every edge chunk by chunk with
-K2 + K3 and runs one global BA per step.  Each BA iteration builds its
+K2 + K3 and runs one global BA per step.  With ``upsample`` each call
+writes the full-resolution disparities of the frames it updated into
+``video.disps_up``: update_fused from its last round's upsampling mask,
+update_lowmem from each chunk's.  Each BA iteration builds its
 blocks once (K1).  Edge counts and BA windows are padded to buckets as in
 the JAX package; padded edges add nothing.  In a stereo video a
 self-edge (i, i) correlates frame i's left features with its right ones
@@ -20,6 +23,8 @@ Features and the update operator's state are in the compute dtype
 levels and lookups; the backend's levels are fp32.  Delta, weight and eta
 are cast to fp32 before the BA, which runs in fp32.
 """
+import os
+
 import numpy as np
 import torch
 
@@ -28,6 +33,8 @@ from ..ba.solver import ba_iterations
 from ..geom import coords_grid, frame_distance, neighbourhood_graph, projective_transform
 from ..ops.corr import level_sizes, window_drift_ok
 from ..ops.cuda_corr import corr_build, corr_build_windows, corr_lookup, corr_lookup_windows
+from ..utils.log import log_once
+from ..utils.timing import count_sync, section
 
 # Rounds of update_fused that read the window cache (K5) and rounds that
 # fell back to the full lookup (K2 + K3), since the last reset_corr_rounds().
@@ -136,8 +143,9 @@ def fused_rounds(update_apply, params, poses, disps, disps_sens, damping, intr, 
 
 
 class FactorGraph:
-    def __init__(self, video, update_apply, params, max_factors=-1):
+    def __init__(self, video, update_apply, params, max_factors=-1, upsample=False):
         self.video = video
+        self.upsample = upsample
         self.update_apply = update_apply  # update_apply(params, net, inp, corr, motn, kk, M, emask)
         self.params = params
         self.max_factors = max_factors
@@ -328,27 +336,34 @@ class FactorGraph:
 
         pad = n_pad - n
         win = slice(m0, m0 + MW)
-        poses, disps, damping, nets, target_a, weight_a, _, d_cull = fused_rounds(
-            self.update_apply, self.params, video.poses[win], video.disps[win],
-            video.disps_sens[win], video.damping[win], video.intrinsics[0],
-            video.fmaps[ii_pt, 0], video.fmaps[jj_pt, self._cams(ii_pt, jj_pt)],
-            torch.cat([self.net, self.net.new_zeros(pad, h8, w8, 128)], 0),
-            video.inps[ii_pt],
-            torch.cat([self.target, torch.zeros(pad, h8, w8, 2, device=dev)], 0),
-            ii_at, jj_at, ii_at.clamp(0, MW - 1), active,
-            torch.as_tensor(has_edge, device=dev), self._t(ii_all), self._t(jj_all),
-            tgt_i, wgt_i, torch.as_tensor(free, device=dev), self._t(be),
-            torch.as_tensor(bm, device=dev), cij, rounds=rounds, ba_iters=itrs,
-            lm=cfg.frontend_lm, ep=cfg.frontend_ep, damping_eps=cfg.damping_eps,
-            min_depth=cfg.min_depth, beta=cfg.beta, motion_only=motion_only,
-            alpha=cfg.rgbd_alpha)
+        with section("update_fused.device"):
+            poses, disps, damping, nets, target_a, weight_a, upmask, d_cull = fused_rounds(
+                self.update_apply, self.params, video.poses[win], video.disps[win],
+                video.disps_sens[win], video.damping[win], video.intrinsics[0],
+                video.fmaps[ii_pt, 0], video.fmaps[jj_pt, self._cams(ii_pt, jj_pt)],
+                torch.cat([self.net, self.net.new_zeros(pad, h8, w8, 128)], 0),
+                video.inps[ii_pt],
+                torch.cat([self.target, torch.zeros(pad, h8, w8, 2, device=dev)], 0),
+                ii_at, jj_at, ii_at.clamp(0, MW - 1), active,
+                torch.as_tensor(has_edge, device=dev), self._t(ii_all), self._t(jj_all),
+                tgt_i, wgt_i, torch.as_tensor(free, device=dev), self._t(be),
+                torch.as_tensor(bm, device=dev), cij, rounds=rounds, ba_iters=itrs,
+                lm=cfg.frontend_lm, ep=cfg.frontend_ep, damping_eps=cfg.damping_eps,
+                min_depth=cfg.min_depth, beta=cfg.beta, motion_only=motion_only,
+                alpha=cfg.rgbd_alpha)
 
+        if os.environ.get("DROID_TIMING"):
+            with section("update_fused.sync"):
+                float(poses.reshape(-1)[0])  # attribute the queued device time
         video.poses[win] = poses
         video.disps[win] = disps
         video.damping[win] = damping
         self.net = nets[:n]
         self.target = target_a[:n]
         self.weight = weight_a[:n]
+        if self.upsample:
+            ux = np.unique(self.ii)
+            video.upsample(self._t(ux), upmask[self._t(ux - m0)])
         self.age += rounds
         return None if d_cull is None else float(d_cull)   # the per-keyframe host sync
 
@@ -403,10 +418,17 @@ class FactorGraph:
         s = 8
         if len(self.ii) == 0:
             return
+        if cfg.refresh_shards > 1:
+            log_once("refresh_shards", f"sharded edge refresh declined: refresh_shards="
+                                       f"{cfg.refresh_shards} is not part of the port; the "
+                                       f"chunks run on one device")
         h8, w8 = video.h8, video.w8
         nC, EB, ii_ck, jj_ck, emask_ck, pos_ck, kk_ck, frame_ck, take_back = \
             self._chunk_tables(s)
         self.chunks = (nC, EB)
+        # per chunk with upsampling: its slots that hold a frame, and those frames
+        up_slots = ([(self._t(np.nonzero(f < t)[0]), self._t(f[f < t])) for f in frame_ck]
+                    if self.upsample else None)
         ii_ck, jj_ck, kk_ck = self._t(ii_ck), self._t(jj_ck), self._t(kk_ck)
         frame_ck, flat_src = self._t(frame_ck), self._t(pos_ck.reshape(-1))
         take_back = self._t(take_back)
@@ -428,10 +450,13 @@ class FactorGraph:
                                     torch.float32)
                 corr = corr_lookup(levels, coords1.reshape(EB, h8 * w8, 2).contiguous())
                 del levels
-                nets, delta, weight, eta, _ = self.update_apply(
+                nets, delta, weight, eta, upmask = self.update_apply(
                     self.params, nets_ck[c][None], video.inps[ii][None],
                     corr.reshape(1, EB, h8, w8, -1), motn[None], kk_ck[c], s, emask)
                 damping_ext[frame_ck[c]] = eta[0].float()   # slots without edges land in row t
+                if self.upsample:   # from the disparities before this step's BA
+                    slot, frame = up_slots[c]
+                    video.upsample(frame, upmask[0][slot])
                 nets_out.append(nets[0])
                 target_out.append(coords1 + delta[0].float())
                 weight_out.append(weight[0].float() * emask[:, None, None, None])
@@ -460,6 +485,7 @@ class FactorGraph:
         t = self.video.counter
         if t - t0 <= 0 or t - t1 <= 0:
             return
+        count_sync()  # blocking edge-selection sync (the port has no prefetch)
         d = self.video.distance_matrix(t0, t1, t, beta=beta)
         ii, jj = native.proximity_select(
             d, t0, t1, t, rad, nms, thresh, self.max_factors,

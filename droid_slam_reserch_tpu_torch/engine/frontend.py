@@ -1,6 +1,7 @@
 """Local tracking frontend (mirror of engine/frontend.py, ``Frontend`` only)."""
 import torch
 
+from ..utils.timing import count_sync, section
 from .factor_graph import FactorGraph
 
 
@@ -8,7 +9,8 @@ class Frontend:
     def __init__(self, update_apply, params, video, config):
         self.video = video
         self.cfg = config
-        self.graph = FactorGraph(video, update_apply, params, max_factors=config.max_factors)
+        self.graph = FactorGraph(video, update_apply, params, max_factors=config.max_factors,
+                                 upsample=config.upsample)
         self.t0 = 0
         self.t1 = 0
         self.is_initialized = False
@@ -37,6 +39,7 @@ class Frontend:
         d_cull = self._run_updates(cfg.iters1, cull_pair=(self.t1 - 3, self.t1 - 2))
         if d_cull is None:  # empty graph: no update ran
             d_cull = v.distance([self.t1 - 3], [self.t1 - 2], beta=cfg.beta)[0]
+        count_sync()  # the culling decision reads the update's distance on the host
         if d_cull < cfg.keyframe_thresh:
             g.rm_keyframe(self.t1 - 2)
             v.counter -= 1
@@ -69,6 +72,10 @@ class Frontend:
         g.rm_factors(g.ii < cfg.warmup - 4, store=True)
 
     def __call__(self):
+        with section("frontend"):
+            self._step()
+
+    def _step(self):
         if not self.is_initialized and self.video.counter == self.cfg.warmup:
             self._initialize()
         elif self.is_initialized and self.t1 < self.video.counter:

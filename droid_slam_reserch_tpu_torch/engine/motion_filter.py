@@ -15,6 +15,7 @@ import torch
 from ..geom import coords_grid
 from ..lie import se3_identity
 from ..ops.cuda_corr import corr_build, corr_lookup
+from ..utils.timing import count_sync, section
 from .net_ops import cnet_apply, fnet_apply
 
 
@@ -43,6 +44,10 @@ class MotionFilter:
     def track(self, tstamp, image, depth=None, intrinsics=None):
         """Process one frame: image [H, W, 3] uint8 BGR (host), or [2, H, W, 3]
         for stereo (left, right); depth an optional [H, W] depth map."""
+        with section("motion_filter.track"):
+            return self._track(tstamp, image, depth, intrinsics)
+
+    def _track(self, tstamp, image, depth, intrinsics):
         video = self.video
         dev = video.device
         image = np.asarray(image)
@@ -59,7 +64,8 @@ class MotionFilter:
                          gmap, net[0], inp[0])
             return
 
-        if float(self.delta_norm(gmap)) > self.thresh:  # the per-frame host sync
+        count_sync()  # admission decision: the per-frame blocking sync
+        if float(self.delta_norm(gmap)) > self.thresh:
             self.count = 0
             net, inp = cnet_apply(self.net, imgs[:1])
             self.hidden, self.inp, self.fmap = net[0], inp[0], gmap

@@ -1,7 +1,9 @@
 """Keyframe buffer (mirror of engine/video.py): fixed-capacity tensors on
 the engine's device, updated in place; images stay on the host.  A stereo
 buffer keeps both cameras' features (``fmaps`` [buf, 2, h8, w8, 128]); an
-RGB-D frame's depth becomes its sensor disparity ``disps_sens``."""
+RGB-D frame's depth becomes its sensor disparity ``disps_sens``.  With
+``config.upsample`` the factor graphs fill ``disps_up``, the disparities at
+full resolution."""
 import numpy as np
 import torch
 
@@ -9,6 +11,9 @@ from .. import native
 from ..ba.solver import ba_iterations
 from ..geom import frame_distance, projective_transform
 from ..lie import se3_identity
+from ..models.update import cvx_upsample
+from ..utils.log import log_once
+from ..utils.timing import section
 from .net_ops import compute_dtype
 
 
@@ -34,6 +39,7 @@ class Video:
         self.poses = se3_identity((buf,), device=dev)
         self.disps = torch.ones(buf, h8, w8, device=dev)
         self.disps_sens = torch.zeros(buf, h8, w8, device=dev)
+        self.disps_up = None        # [buf, ht, wd], allocated by the first upsample
         self.intrinsics = torch.zeros(buf, 4, device=dev)
         self.damping = torch.full((buf, h8, w8), 1e-6, device=dev)
 
@@ -135,8 +141,16 @@ class Video:
         target/weight [N, h8, w8, 2] on the device (N = the edge count);
         ii/jj global edge indices (host); damping 0.2 * damping + eps.  The
         window, edge count and Schur degree are padded to buckets as in the
-        JAX package.
+        JAX package.  The port has no sharded BA: ``ba_shards`` > 1 is
+        declined with a notice, once.
         """
+        if self.cfg.ba_shards > 1:
+            log_once("ba_shards", f"BA sharding declined: ba_shards={self.cfg.ba_shards} is not "
+                                  f"part of the port; BA runs on one device")
+        with section("video.ba"):
+            self._ba(target, weight, ii, jj, t0, t1, iterations, lm, ep)
+
+    def _ba(self, target, weight, ii, jj, t0, t1, iterations, lm, ep):
         cfg = self.cfg
         ii, jj = np.asarray(ii, np.int64), np.asarray(jj, np.int64)
         n = len(ii)
@@ -168,6 +182,14 @@ class Video:
             alpha=cfg.rgbd_alpha, min_depth=cfg.min_depth)
         self.poses[sl] = poses
         self.disps[sl] = disps.clamp_min(0.001)   # reference depth_video.py:204
+
+    def upsample(self, ix, mask):
+        """8x upsample the disparities of slots ix [n] (long tensor) with the
+        masks [n, h8, w8, 576] into disps_up, allocated on first use
+        (reference depth_video.py:134-138)."""
+        if self.disps_up is None:
+            self.disps_up = torch.zeros(self.cfg.buffer, self.ht, self.wd, device=self.device)
+        self.disps_up[ix] = cvx_upsample(self.disps[ix][..., None], mask.float())[..., 0]
 
     def state_dict(self):
         t = self.counter

@@ -1,4 +1,5 @@
-"""Recurrent update operator + graph aggregation (mirror of models/update.py).
+"""Recurrent update operator, graph aggregation and convex upsampling
+(mirror of models/update.py).
 
 Tensors are NHWC at the module boundary: net/inp [B, N, H, W, 128],
 corr [B, N, H, W, 196], flow [B, N, H, W, 4].  Edges are flattened into the
@@ -11,6 +12,29 @@ from torch import nn
 
 from .gru import ConvGRU
 from .layers import GradientClip, tconv, to_nchw, to_nhwc
+
+
+def cvx_upsample(data, mask):
+    """Mask-weighted 8x convex upsampling (reference droid_net.py:21-35).
+
+    data: [B, H, W, C]; mask: [B, H, W, 576] (channel order k * 64 + sy * 8
+    + sx, k the 3x3 tap).  Each output pixel is the softmax-weighted mix of
+    its 3x3 neighbourhood in data, zero-padded.  Returns [B, 8H, 8W, C].
+    """
+    B, H, W, C = data.shape
+    mask = torch.softmax(mask.reshape(B, H, W, 9, 8, 8), dim=3)
+    padded = F.pad(data, (0, 0, 1, 1, 1, 1))
+    patches = torch.stack([padded[:, 1 + dy: 1 + dy + H, 1 + dx: 1 + dx + W]
+                           for dy in (-1, 0, 1) for dx in (-1, 0, 1)], dim=3)  # [B,H,W,9,C]
+    up = torch.einsum("bhwkyx,bhwkc->bhwyxc", mask, patches)
+    return up.permute(0, 1, 3, 2, 4, 5).reshape(B, 8 * H, 8 * W, C)
+
+
+def upsample_disp(disp, mask):
+    """disp: [B, N, H, W]; mask: [B, N, H, W, 576] -> [B, N, 8H, 8W]."""
+    B, N, H, W = disp.shape
+    up = cvx_upsample(disp.reshape(B * N, H, W, 1), mask.reshape(B * N, H, W, -1))
+    return up.reshape(B, N, 8 * H, 8 * W)
 
 
 class GraphAgg(nn.Module):

@@ -5,5 +5,6 @@ from .config import (
     TARTANAIR_CONFIG,
     ETH3D_CONFIG,
 )
+from .timing import Timings
 
 __all__ = [k for k in dir() if not k.startswith("_")]

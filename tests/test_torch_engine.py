@@ -238,7 +238,7 @@ def test_save_reconstruction(runs, tmp_path):
     assert np.isfinite(data["poses"]).all()
 
 
-OUT_OF_SLICE = {"upsample": True, "vis_path": "viz"}
+OUT_OF_SLICE = {"vis_path": "viz"}
 
 
 @pytest.mark.parametrize("flag", sorted(OUT_OF_SLICE))

@@ -1,5 +1,6 @@
-"""The port and chip_smoke.py never import JAX, Flax or the JAX package:
-walk the AST of every module (imports inside functions included)."""
+"""The port and chip_smoke.py never import JAX, Flax or the JAX package,
+nor OpenCV or PIL (the card's machine has neither): walk the AST of every
+module (imports inside functions included)."""
 import ast
 import pathlib
 
@@ -8,6 +9,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "droid_slam_reserch_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "droid_slam_reserch_tpu")
+ABSENT_ON_THE_CARD = ("cv2", "PIL")
 
 
 def _imports(path):
@@ -24,7 +26,13 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_cv2_or_pil_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in ABSENT_ON_THE_CARD]
+    assert not bad, f"{path.name} imports {bad}"
+
+
 def test_walk_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "cuda_corr.py", "cuda_ba.py", "factor_graph.py",
-            "profile_frontend.py"} <= names
+            "profile_frontend.py", "cli.py", "imageio.py"} <= names
