@@ -60,13 +60,26 @@ Phases (one line each; any failure exits nonzero):
    cli     the port's CLI (cli.main, in process) on datasets written as
            PNGs into a temporary directory: EuRoC (752x480 grey, 40 frames,
            stereo), TUM fr1, ETH3D (RGB-D), TartanAir and a demo directory;
-           euroc mono with --upsample --out --gt --reconstruction_path in
-           fp32 and bf16, euroc --stereo, tum, eth3d --depth, tartanair and
-           demo in bf16; per command the counts are set to 0 before and read
-           after (K1-K5 of the dtype launch, no plain version), a finite ATE
-           where there is ground truth, finite disps_up, frames/s end to
-           end, the time split, peak memory, and the EuRoC readers' ms a
-           frame;
+           euroc mono with --upsample --out --gt in fp32 and bf16 (the
+           multisession phase runs --reconstruction_path), euroc --stereo,
+           tum, eth3d --depth, tartanair and demo in bf16; per command the
+           counts are set to 0 before and read after (K1-K5 of the dtype
+           launch, no plain version), a finite ATE where there is ground
+           truth, finite disps_up, frames/s end to end, the time split, peak
+           memory, and the EuRoC readers' ms a frame;
+   multisession  the multisession commands and view through the CLI on the
+           EuRoC sequence, stereo 320x512, in fp32 and then bf16 (see
+           phase_multisession): session A with --vis_path, B = T_known * A,
+           multisession-align (T_known recovered) with the joint backend,
+           --improve behind a shut gate (rejected) and an open one
+           (stitched), multisession --subsample 2, multisession-evaluate and
+           view --color_by_session; per stage the counts are set to 0 and
+           read (the probe's K2 and K3 in the compute dtype launch in
+           --improve), each kernel held on the stage's inputs, seconds and
+           peak memory; Droid.track frames/s of the cli's 40-frame euroc
+           --stereo bf16 against the same command with --vis_path;
+           the probe's bf16 summed confidence against fp32's on one state;
+           joint_backend and fuse_maps at 64x96 on the card against the CPU;
 6. profile-frontend  the frontend profiler (tools/profile_frontend.py) at
            bench.py's shape, E = 48 edges over a 24-frame window at 40x64,
            in fp32 and in bf16: every section on the card, with the counts
@@ -90,8 +103,10 @@ profile_main_path_bf16.txt and profile_terminate_bf16.txt).
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1425,7 +1440,10 @@ OFF_ENGINE = tuple(k + sfx for k in ("corr_lookup_pmajor", "corr_extract_windows
                                      "corr_build_windows_levels") for sfx in ("", "_bf16"))
 
 
-def small_frames(mode, n=10):
+N_SMALL = 10       # frames of the 64x96 card-vs-CPU runs: 5 of warmup, then 5 updates
+
+
+def small_frames(mode, n=N_SMALL):
     """The 64x96 card-vs-CPU frames: tests/test_engine.py's sequences, as
     (image, depth) pairs; stereo pairs the frame with itself rolled 2 px,
     RGB-D draws a depth of 2 to 2.5 before each frame."""
@@ -1515,7 +1533,7 @@ def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
         dp = float(np.abs(p_gpu - p_cpu).max()) if p_gpu.shape == p_cpu.shape else float("inf")
         dt = float(np.abs(tr_gpu - tr_cpu).max()) if tr_gpu.shape == tr_cpu.shape else float("inf")
         n_self = int((h_gpu[-1][1] == h_gpu[-1][2]).sum())
-        say("card-vs-cpu", f"{dtype} {mode} Droid.track 64x96, 10 frames: keyframes "
+        say("card-vs-cpu", f"{dtype} {mode} Droid.track 64x96, {N_SMALL} frames: keyframes "
                            f"{h_gpu[-1][0]} vs {h_cpu[-1][0]}, edges equal every frame: "
                            f"{same_graph} ({n_self} self-edges at the end), max |pose diff| "
                            f"{dp:.3e} (tol {tol:.0e}); terminate_eva (backend 2 + 3 steps, "
@@ -1525,7 +1543,7 @@ def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
             fail(f"the card run and the CPU run of Droid.track disagree ({dtype} {mode})")
         if mode == "stereo" and n_self == 0:
             fail("the stereo card-vs-CPU graph has no self-edges")
-        if not (tr_gpu.shape == (10, 7) and np.isfinite(tr_gpu).all() and dt <= tol):
+        if not (tr_gpu.shape == (N_SMALL, 7) and np.isfinite(tr_gpu).all() and dt <= tol):
             fail(f"the card run and the CPU run of Droid.terminate_eva disagree ({dtype} {mode})")
         if mode == "upsample":
             same = up_gpu is not None and up_cpu is not None and up_gpu.shape == up_cpu.shape
@@ -1599,12 +1617,14 @@ class EngineInputs:
         patch(fg, "corr_lookup", lambda fn: lookup(fn, "K2"))
 
     def during(self, phase, fn):
+        """fn, with `phase` set while it runs (and the enclosing phase
+        restored after it: the gated frontend's probe runs inside track)."""
         def f(*args, **kw):
-            self.phase = phase
+            outer, self.phase = self.phase, phase
             try:
                 return fn(*args, **kw)
             finally:
-                self.phase = None
+                self.phase = outer
         return f
 
     def restore(self):
@@ -2059,11 +2079,65 @@ def make_cli_datasets(root):
     return paths
 
 
-def phase_cli(torch, ops):
-    """The port's CLI, in process (cli.main), on datasets written into a
-    temporary directory outside the repository: euroc mono with --upsample,
-    --out, --gt and --reconstruction_path in fp32 and in bf16, euroc
-    --stereo in bf16, then tum, eth3d --depth, tartanair and demo in bf16,
+TIMED_PARTS = ("track", "terminate", "terminate_eva_second", "save_reconstruction")
+
+
+def run_command(torch, argv, cap):
+    """cli.main(argv) in process with its stdout captured.  The engine's
+    track, backend (terminate, which SDroid inherits), filler
+    (terminate_eva_second) and the gated frontend's probe run under `cap`'s
+    phases (EngineInputs), and every call of TIMED_PARTS is timed,
+    synchronised on both sides.
+    Returns (what cli.main returned, the printed text, seconds, seconds by
+    part)."""
+    import contextlib
+    import io
+
+    from droid_slam_reserch_tpu_torch import cli
+    from droid_slam_reserch_tpu_torch.engine import Droid, FactorGraph
+
+    spent = {}
+    patches = ((Droid, "track", "track"), (Droid, "terminate", "backend"),
+               (Droid, "terminate_eva_second", "filler"),
+               (Droid, "save_reconstruction", None), (FactorGraph, "probe_quality", "probe"))
+    originals = [(cls, attr, cls.__dict__[attr]) for cls, attr, _ in patches]
+
+    def wrap(attr, phase, fn):
+        fn = fn if phase is None else cap.during(phase, fn)
+        if attr not in TIMED_PARTS:
+            return fn
+
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[attr] = spent.get(attr, 0.0) + time.time() - t0
+            return out
+        return call
+
+    for (cls, attr, phase), (_, _, fn) in zip(patches, originals):
+        setattr(cls, attr, wrap(attr, phase, fn))
+    printed = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(printed):
+            out = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for cls, attr, fn in originals:
+            setattr(cls, attr, fn)
+        cap.restore()
+    return out, printed.getvalue(), time.time() - t0, spent
+
+
+def phase_cli(torch, ops, paths, root):
+    """The port's CLI, in process (cli.main), on the datasets that
+    make_cli_datasets wrote into `root`, a temporary directory outside the
+    repository (`paths`), writing its outputs there too: euroc mono with
+    --upsample, --out and --gt in fp32 and in bf16
+    (--reconstruction_path runs in the multisession phase), euroc --stereo
+    in bf16, then tum, eth3d --depth, tartanair and demo in bf16,
     each with --filter_thresh -1 --keyframe_thresh 0 (random weights).
     Around each command the counts are set to 0 and read: K1-K5 of the
     dtype launch, no plain version runs, none of K6-K8.  Each command's
@@ -2078,151 +2152,417 @@ def phase_cli(torch, ops):
     synchronised; the engine's sections and host syncs (utils/timing); its
     peak memory; and the EuRoC readers' ms a frame alone, on filter-0 PNGs
     and on PNGs of mixed row filters (whose frames must be the same bytes).
-    Returns the counts by path."""
-    import contextlib
-    import io
-    import shutil
-    import tempfile
-
-    from droid_slam_reserch_tpu_torch import cli
+    Returns the counts by path and each command's seconds in Droid.track."""
     from droid_slam_reserch_tpu_torch.data import euroc_stream
-    from droid_slam_reserch_tpu_torch.engine import Droid
     from droid_slam_reserch_tpu_torch.utils import timing
 
-    spent = {}
-    parts = ("track", "terminate", "terminate_eva_second", "save_reconstruction")
-    originals = {name: getattr(Droid, name) for name in parts}
-    phases = {"track": "track", "terminate": "backend", "terminate_eva_second": "filler"}
-
-    def timed(name, cap):
-        fn = cap.during(phases[name], originals[name]) if name in phases else originals[name]
-
-        def call(*args, **kw):
-            torch.cuda.synchronize()
+    for stereo in (False, True):
+        frames = {}
+        for kind in ("euroc", "euroc_mixed"):
             t0 = time.time()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            spent[name] = spent.get(name, 0.0) + time.time() - t0
-            return out
-        return call
+            frames[kind] = [img for _, img, _ in euroc_stream(paths[kind], stereo=stereo)]
+            n = len(frames[kind])
+            say("cli", f"readers: euroc_stream {'stereo' if stereo else 'mono'} 752x480 grey "
+                       f"-> 320x512, {'mixed row filters 0-4' if kind == 'euroc_mixed' else 'filter 0'}: "
+                       f"{1e3 * (time.time() - t0) / n:.2f} ms a frame over {n} frames")
+        if not all(np.array_equal(a, b) for a, b in zip(*frames.values())):
+            fail("euroc_stream gives other frames from the PNGs of mixed row filters")
+        del frames
+    out = os.path.join(root, "out")
+    os.makedirs(out)
+    random_weights = ["--filter_thresh", "-1", "--keyframe_thresh", "0"]
+    runs = [
+        ("euroc", "float32", N_MAIN, "ate",
+         ["euroc", "--datapath", paths["euroc"], "--upsample",
+          "--out", out + "/euroc.txt",
+          "--gt", paths["euroc"] + "/state_groundtruth_estimate0/data.csv"]),
+        ("euroc", "bfloat16", N_MAIN, "ate",
+         ["euroc", "--datapath", paths["euroc"], "--upsample", "--out", out + "/euroc16.txt",
+          "--gt", paths["euroc"] + "/state_groundtruth_estimate0/data.csv"]),
+        ("euroc_stereo", "bfloat16", N_MAIN, "ate",
+         ["euroc", "--datapath", paths["euroc"], "--stereo", "--out", out + "/stereo.txt",
+          "--gt", paths["euroc"] + "/state_groundtruth_estimate0/data.csv"]),
+        ("tum", "bfloat16", N_CLI, "ate",
+         ["tum", "--datapath", paths["tum"], "--gt", paths["tum"] + "/groundtruth.txt"]),
+        ("eth3d", "bfloat16", N_CLI_ETH3D, "ate", ["eth3d", "--datapath", paths["eth3d"], "--depth"]),
+        ("tartanair", "bfloat16", N_CLI, "ate_score",
+         ["tartanair", "--datapath", paths["tartanair"],
+          "--gt", paths["tartanair"] + "/pose_left.txt"]),
+        ("demo", "bfloat16", N_CLI, None,
+         ["demo", "--imagedir", paths["demo"] + "/imgs", "--calib", paths["demo"] + "/calib.txt"]),
+    ]
+    by_path, track_s, summary = {}, {}, []
+    for name, dtype, n_frames, key, argv in runs:
+        argv = argv + random_weights + (["--bf16"] if dtype == "bfloat16" else [])
+        kernels = MAIN_KERNELS if dtype == "float32" else MAIN_KERNELS_BF16
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        timing.GLOBAL_TIMINGS.totals.clear()
+        timing.GLOBAL_TIMINGS.counts.clear()
+        timing.SYNC_COUNT[0] = 0
+        cap = EngineInputs()
+        droid, printed, secs, spent = run_command(torch, argv, cap)
+        split = ", ".join(f"{part} {spent.get(part, 0.0):.2f}" for part in TIMED_PARTS)
+        counts = ops.counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        lines = [ln for ln in printed.splitlines() if ln.startswith(("{", "tracked"))]
+        res = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        v = droid.video
+        shape = f"{droid.cfg.image_size[0]}x{droid.cfg.image_size[1]}"
+        say("cli", f"{name} {dtype} {shape}: {n_frames} frames, {v.counter} keyframes in {secs:.2f} s, "
+                   f"{n_frames / secs:.2f} frames/s end to end; s: {split}, rest "
+                   f"{secs - sum(spent.values()):.2f}; peak memory {peak:.2f} GiB; "
+                   f"printed {lines}")
+        say("cli", f"{name} {dtype}: counts (kernel launches, plain calls): {counts}")
+        sections = timing.GLOBAL_TIMINGS
+        say("cli", f"{name} {dtype}: {timing.SYNC_COUNT[0]} host syncs "
+                   f"({timing.SYNC_COUNT[0] / n_frames:.2f} a frame); sections (s, calls): "
+                   + ", ".join(f"{k} {sections.totals[k]:.2f} {sections.counts[k]}"
+                               for k in sorted(sections.totals)))
+        if key is not None:
+            vals = [r[key]["rmse"] if key == "ate" else r[key] for r in res if key in r]
+            if not (vals and np.isfinite(vals[-1])):
+                fail(f"cli {name} {dtype} printed no finite {key}")
+        up = None
+        if "--upsample" in argv:
+            up = v.disps_up
+            if up is None or not bool(torch.isfinite(up[:v.counter]).all()):
+                fail(f"cli {name} {dtype}: disps_up not finite on the kept keyframes")
+            say("cli", f"{name} {dtype}: disps_up {tuple(up.shape)} ({up.numel() * 4 / 2**30:.2f} "
+                       f"GiB), finite on the {v.counter} kept keyframes, in "
+                       f"[{float(up[:v.counter].min()):.4f}, {float(up[:v.counter].max()):.4f}]")
+        if "--out" in argv:
+            traj = np.loadtxt(argv[argv.index("--out") + 1])
+            if not (traj.shape == (n_frames, 8) and np.isfinite(traj).all()):
+                fail(f"cli {name} {dtype}: trajectory file {traj.shape}")
+        check_counts(counts, f"the cli's {name} ({dtype})", kernels, OFF_ENGINE)
+        by_path[f"cli_{name}" + ("" if dtype == "float32" else "_bf16")] = counts
+        track_s[f"cli_{name}" + ("" if dtype == "float32" else "_bf16")] = spent.get("track", 0.0)
+        summary.append(f"{name} {dtype} {n_frames / secs:.2f} frames/s, {peak:.2f} GiB")
+        del droid, v, up
+        torch.cuda.empty_cache()
+        say("engine-inputs", f"cli {name} {dtype}: {cap.retained_mib():.1f} MiB of kernel "
+                             f"inputs retained by the capture")
+        hold_engine_inputs(torch, cap, f"cli {name} {dtype}", name == "euroc_stereo")
+        del cap
+    say("cli", "end to end: " + "; ".join(summary))
+    return by_path, track_s
 
-    root = tempfile.mkdtemp(prefix="droid_cli_")
-    try:
-        t0 = time.time()
-        paths = make_cli_datasets(root)
-        say("cli", f"datasets written in {time.time() - t0:.1f} s under a temporary directory")
-        for stereo in (False, True):
-            frames = {}
-            for kind in ("euroc", "euroc_mixed"):
-                t0 = time.time()
-                frames[kind] = [img for _, img, _ in euroc_stream(paths[kind], stereo=stereo)]
-                n = len(frames[kind])
-                say("cli", f"readers: euroc_stream {'stereo' if stereo else 'mono'} 752x480 grey "
-                           f"-> 320x512, {'mixed row filters 0-4' if kind == 'euroc_mixed' else 'filter 0'}: "
-                           f"{1e3 * (time.time() - t0) / n:.2f} ms a frame over {n} frames")
-            if not all(np.array_equal(a, b) for a, b in zip(*frames.values())):
-                fail("euroc_stream gives other frames from the PNGs of mixed row filters")
-            del frames
-        out = os.path.join(root, "out")
-        random_weights = ["--filter_thresh", "-1", "--keyframe_thresh", "0"]
-        runs = [
-            ("euroc", "float32", N_MAIN, "ate",
-             ["euroc", "--datapath", paths["euroc"], "--upsample", "--out", out + "/euroc.txt",
-              "--gt", paths["euroc"] + "/state_groundtruth_estimate0/data.csv",
-              "--reconstruction_path", out + "/recon"]),
-            ("euroc", "bfloat16", N_MAIN, "ate",
-             ["euroc", "--datapath", paths["euroc"], "--upsample", "--out", out + "/euroc16.txt",
-              "--gt", paths["euroc"] + "/state_groundtruth_estimate0/data.csv",
-              "--reconstruction_path", out + "/recon16"]),
-            ("euroc_stereo", "bfloat16", N_MAIN, "ate",
-             ["euroc", "--datapath", paths["euroc"], "--stereo", "--out", out + "/stereo.txt",
-              "--gt", paths["euroc"] + "/state_groundtruth_estimate0/data.csv"]),
-            ("tum", "bfloat16", N_CLI, "ate",
-             ["tum", "--datapath", paths["tum"], "--gt", paths["tum"] + "/groundtruth.txt"]),
-            ("eth3d", "bfloat16", N_CLI_ETH3D, "ate", ["eth3d", "--datapath", paths["eth3d"], "--depth"]),
-            ("tartanair", "bfloat16", N_CLI, "ate_score",
-             ["tartanair", "--datapath", paths["tartanair"],
-              "--gt", paths["tartanair"] + "/pose_left.txt"]),
-            ("demo", "bfloat16", N_CLI, None,
-             ["demo", "--imagedir", paths["demo"] + "/imgs", "--calib", paths["demo"] + "/calib.txt"]),
-        ]
-        by_path, summary = {}, []
-        for name, dtype, n_frames, key, argv in runs:
-            argv = argv + random_weights + (["--bf16"] if dtype == "bfloat16" else [])
-            kernels = MAIN_KERNELS if dtype == "float32" else MAIN_KERNELS_BF16
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            ops.reset_counts()
-            printed = io.StringIO()
-            spent.clear()
-            timing.GLOBAL_TIMINGS.totals.clear()
-            timing.GLOBAL_TIMINGS.counts.clear()
-            timing.SYNC_COUNT[0] = 0
-            cap = EngineInputs()
-            for part in parts:
-                setattr(Droid, part, timed(part, cap))
-            t0 = time.time()
-            try:
-                with contextlib.redirect_stdout(printed):
-                    droid = cli.main(argv)
-                torch.cuda.synchronize()
-            finally:
-                for part in parts:
-                    setattr(Droid, part, originals[part])
-                cap.restore()
-            secs = time.time() - t0
-            split = ", ".join(f"{part} {spent.get(part, 0.0):.2f}" for part in parts)
-            counts = ops.counts()
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            lines = [ln for ln in printed.getvalue().splitlines() if ln.startswith(("{", "tracked"))]
-            res = [json.loads(ln) for ln in lines if ln.startswith("{")]
-            v = droid.video
-            shape = f"{droid.cfg.image_size[0]}x{droid.cfg.image_size[1]}"
-            say("cli", f"{name} {dtype} {shape}: {n_frames} frames, {v.counter} keyframes in {secs:.2f} s, "
-                       f"{n_frames / secs:.2f} frames/s end to end; s: {split}, rest "
-                       f"{secs - sum(spent.values()):.2f}; peak memory {peak:.2f} GiB; "
-                       f"printed {lines}")
-            say("cli", f"{name} {dtype}: counts (kernel launches, plain calls): {counts}")
-            sections = timing.GLOBAL_TIMINGS
-            say("cli", f"{name} {dtype}: {timing.SYNC_COUNT[0]} host syncs "
-                       f"({timing.SYNC_COUNT[0] / n_frames:.2f} a frame); sections (s, calls): "
-                       + ", ".join(f"{k} {sections.totals[k]:.2f} {sections.counts[k]}"
-                                   for k in sorted(sections.totals)))
-            if key is not None:
-                vals = [r[key]["rmse"] if key == "ate" else r[key] for r in res if key in r]
-                if not (vals and np.isfinite(vals[-1])):
-                    fail(f"cli {name} {dtype} printed no finite {key}")
-            up = None
-            if "--upsample" in argv:
-                up = v.disps_up
-                if up is None or not bool(torch.isfinite(up[:v.counter]).all()):
-                    fail(f"cli {name} {dtype}: disps_up not finite on the kept keyframes")
-                say("cli", f"{name} {dtype}: disps_up {tuple(up.shape)} ({up.numel() * 4 / 2**30:.2f} "
-                           f"GiB), finite on the {v.counter} kept keyframes, in "
-                           f"[{float(up[:v.counter].min()):.4f}, {float(up[:v.counter].max()):.4f}]")
-            if "--out" in argv:
-                traj = np.loadtxt(argv[argv.index("--out") + 1])
-                if not (traj.shape == (n_frames, 8) and np.isfinite(traj).all()):
-                    fail(f"cli {name} {dtype}: trajectory file {traj.shape}")
-            if "--reconstruction_path" in argv:
-                kf = os.listdir(os.path.join(argv[argv.index("--reconstruction_path") + 1],
-                                             "keyframes_cam0"))
-                if len(kf) != v.counter:
-                    fail(f"cli {name} {dtype}: {len(kf)} keyframe images for {v.counter} keyframes")
-            check_counts(counts, f"the cli's {name} ({dtype})", kernels, OFF_ENGINE)
-            by_path[f"cli_{name}" + ("" if dtype == "float32" else "_bf16")] = counts
-            summary.append(f"{name} {dtype} {n_frames / secs:.2f} frames/s, {peak:.2f} GiB")
-            del droid, v, up
-            torch.cuda.empty_cache()
-            say("engine-inputs", f"cli {name} {dtype}: {cap.retained_mib():.1f} MiB of kernel "
-                                 f"inputs retained by the capture")
-            hold_engine_inputs(torch, cap, f"cli {name} {dtype}", name == "euroc_stereo")
-            del cap
-        say("cli", "end to end: " + "; ".join(summary))
-        return by_path
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+
+# the multisession sessions: every 4th frame of the cli's 40-frame EuRoC sequence, 10
+# frames, initialised after 8 (EUROC_CONFIG's warmup of 15 exceeds them)
+MS_STRIDE, MS_WARMUP = 4, 8
+N_LOOP = 10        # session A's keyframes a loop group replays: 5 seeds, then 5 tracked
+STATE_KEYS = ("tstamps", "images", "poses", "disps", "disps_sens", "intrinsics", "fmaps", "nets",
+              "inps")      # reconstruction.npz, as the JAX package writes it
+T_KNOWN_XI = [2.0, -1.0, 0.5, 0.05, -0.1, 0.08]   # B = T_known * A, as the JAX package's test
+
+
+def write_imagedir(path, images, intr):
+    """images as PNGs `path`/0000.png ...; returns the calibration file
+    (fx fy cx cy at the images' size) written beside the directory."""
+    os.makedirs(path)
+    for t, img in enumerate(images):
+        write_png(os.path.join(path, f"{t:04d}.png"), img)
+    calib = path + ".txt"
+    with open(calib, "w") as f:
+        f.write(" ".join(f"{x:.6f}" for x in intr) + "\n")
+    return calib
+
+
+def ms_kernels(stage, dtype):
+    """The kernels a multisession stage must launch: the main path's for
+    tracking stages, the gated frontend's probe (K2 and K3 in the compute
+    dtype) for --improve, the backend's for fusion, the filler's for the
+    evaluation, none for view."""
+    bf16 = dtype == "bfloat16"
+    front = FRONTEND_KERNELS_BF16 if bf16 else FRONTEND_KERNELS
+    back = BACKEND_KERNELS_BF16 if bf16 else BACKEND_KERNELS
+    probe = ("corr_build_bf16", "corr_lookup_bf16") if bf16 else ("corr_build", "corr_lookup")
+    return {"euroc": front + back, "euroc_viewer": front + back, "align": front + back,
+            "improve_shut": front + back + probe, "improve": front + back + probe,
+            "fuse": back, "evaluate": front, "view": ()}[stage]
+
+
+def phase_multisession(torch, ops, paths, root, dtype, cli_track=None):
+    """The multisession path and the viewer through the port's CLI (cli.main,
+    in process), EUROC_CONFIG stereo at 320x512, in the compute dtype:
+    1. euroc --stereo --stride 4 --warmup 8 --reconstruction_path A
+       --vis_path (session A: 10 frames of the cli's EuRoC sequence); with
+       `cli_track`, the seconds in Droid.track of the cli phase's 40-frame
+       euroc --stereo (bf16), also that command with --vis_path (and
+       without its outputs), for track frames/s with and without the viewer;
+    2. session B = A displaced by a known SE3 T_known (chip_smoke writes it);
+    3. multisession-align A B, one loop group replaying A's first 10
+       keyframes (5 seeds), then the joint backend: T must recover T_known
+       at the JAX package's test tolerances;
+    4. multisession-align --improve behind a shut gate (one group, rejected),
+       then with the gate open over a reverse and a forward group
+       (recovered, stitched);
+    5. multisession --subsample 2 over A and the aligned B;
+    6. multisession-evaluate of the fused map, one sequence per session,
+       with a ground truth (a finite ATE);
+    7. view --color_by_session over A, B and the fused map.
+    Around each stage the counts are set to 0 and read: the stage's kernels
+    launch, no plain version runs, none of K6-K8; each kernel is held
+    against its plain version on the stage's last track, probe, backend and
+    filler inputs (EngineInputs).  Prints each stage's seconds and peak
+    memory, the fused keyframe count, track frames/s with and without the
+    viewer, and the viewer's refreshes (refresh_once and _write driven here:
+    the PLY must exist).  Returns the counts by path and session A."""
+    from droid_slam_reserch_tpu_torch.lie import se3_exp, se3_mul
+
+    bf16 = dtype == "bfloat16"
+    sfx = "_bf16" if bf16 else ""
+    d = os.path.join(root, "ms" + sfx)
+    os.makedirs(d)
+    flags = ["--stereo", "--filter_thresh", "-1", "--keyframe_thresh", "0"] + (
+        ["--bf16"] if bf16 else [])
+    by_path, track_s = {}, {}
+
+    def stage(name, argv):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        cap = EngineInputs()
+        out, printed, secs, spent = run_command(torch, argv, cap)
+        counts = ops.counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        lines = printed.splitlines()
+        res = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        track_s[name] = spent.get("track", 0.0)
+        split = ", ".join(f"{part} {spent.get(part, 0.0):.2f}" for part in TIMED_PARTS)
+        say("multisession", f"{name} {dtype}: {secs:.2f} s (s: {split}, rest "
+                            f"{secs - sum(spent.values()):.2f}), peak memory {peak:.2f} GiB; "
+                            f"printed {res or lines[-2:]}")
+        say("multisession", f"{name} {dtype}: counts (kernel launches, plain calls): {counts}")
+        check_counts(counts, f"the multisession {name} ({dtype})", ms_kernels(name, dtype),
+                     OFF_ENGINE)
+        by_path[f"multisession_{name}{sfx}"] = counts
+        viewer = getattr(out, "viewer", None)        # euroc returns its Droid
+        del out
+        torch.cuda.empty_cache()
+        if cap.seen:
+            hold_engine_inputs(torch, cap, f"multisession {name} {dtype}", True)
+        return res, lines, viewer
+
+    # 1. session A with the live viewer
+    a_dir, live = os.path.join(d, "a"), os.path.join(d, "live.ply")
+    euroc = ["euroc", "--datapath", paths["euroc"]] + flags
+    *_, v = stage("euroc", euroc + ["--stride", str(MS_STRIDE), "--warmup", str(MS_WARMUP),
+                                    "--reconstruction_path", a_dir, "--vis_path", live])
+    A = dict(np.load(os.path.join(a_dir, "reconstruction.npz")))
+    K = len(A["poses"])
+    kf = os.listdir(os.path.join(a_dir, "keyframes_cam0"))
+    if not (K == len(kf) and sorted(A) == sorted(STATE_KEYS)):
+        fail(f"session A: {sorted(A)}, {len(kf)} keyframe images for {K} keyframes ({dtype})")
+    before = v.refreshes
+    v.refresh_once()
+    v._write()
+    with open(live) as f:
+        head = f.read(200)
+    n_pts = len(v.cloud()[0])
+    say("multisession", f"viewer {dtype}: {before} refreshes while the command ran (the last "
+                        f"one in terminate), {len(v.points)} keyframes and {n_pts} points in "
+                        f"{os.path.basename(live)} ({os.path.getsize(live)} bytes)")
+    if not (before >= 1 and head.startswith("ply")):
+        fail(f"the live viewer wrote no point cloud ({dtype})")
+    del v
+    if cli_track is not None:
+        live40 = os.path.join(d, "live40.ply")
+        *_, v = stage("euroc_viewer", euroc + ["--vis_path", live40])
+        with_v, without = N_MAIN / track_s["euroc_viewer"], N_MAIN / cli_track
+        say("multisession", f"euroc --stereo {dtype}, {N_MAIN} frames: Droid.track frames/s with "
+                            f"--vis_path {with_v:.2f} ({v.refreshes} refreshes), without (the cli "
+                            f"phase's euroc_stereo) {without:.2f}: the viewer costs "
+                            f"{100 * (1 - with_v / without):.1f} %")
+        if not (v.refreshes >= 1 and os.path.exists(live40)):
+            fail(f"the live viewer of the 40-frame run wrote no point cloud ({dtype})")
+        del v
+
+    # 2. session B: A in a world frame displaced by T_known
+    T_known = se3_exp(torch.tensor(T_KNOWN_XI, dtype=torch.float32))
+    B = dict(A, poses=se3_mul(T_known[None], torch.from_numpy(A["poses"])).numpy())
+    T_known = T_known.numpy()
+    os.makedirs(os.path.join(d, "b"))
+    np.savez(os.path.join(d, "b", "reconstruction.npz"), **B)
+    intr = A["intrinsics"][0] * 8.0
+    write_imagedir(os.path.join(d, "loop"), A["images"][:N_LOOP], intr)
+    write_imagedir(os.path.join(d, "loop_rev"), A["images"][5::-1], intr)
+    write_imagedir(os.path.join(d, "loop_fwd"), A["images"][:6], intr)
+    write_imagedir(os.path.join(d, "all"), A["images"], intr)
+
+    def spec(name, groups, key="groups"):
+        path = os.path.join(d, name + ".json")
+        with open(path, "w") as f:
+            json.dump({key: groups}, f)
+        return path
+
+    def group(imagedir, frame_idx, **kw):
+        return dict(imagedir=os.path.join(d, imagedir), calib=os.path.join(d, imagedir + ".txt"),
+                    seed_idx=list(range(5)), frame_idx=frame_idx, **kw)
+
+    # 3. alignment and the joint backend
+    loop = list(range(5, N_LOOP))
+    res, *_ = stage("align", ["multisession-align", "--first", os.path.join(a_dir, "reconstruction.npz"),
+                             "--second", os.path.join(d, "b", "reconstruction.npz"),
+                             "--spec", spec("align", [group("loop", loop, old_idx=loop)]),
+                             "--out", os.path.join(d, "align")] + flags)
+    aligned = np.load(os.path.join(d, "align", "aligned.npz"))
+    T = aligned["T"]
+    dot = abs(float(np.dot(T[3:7], T_known[3:7])))
+    err = float(np.linalg.norm(aligned["poses"][:, :3] - A["poses"][:, :3], axis=1).mean())
+    joint = np.load(os.path.join(d, "align", "aligned_joint.npz"))
+    say("multisession", f"align {dtype}: T {np.round(T, 4).tolist()} against T_known "
+                        f"{np.round(T_known, 4).tolist()}: |dt| {np.abs(T[:3] - T_known[:3]).max():.4f} "
+                        f"(tol 1.0), |q.q_known| {dot:.6f} (> 0.9); aligned B's mean distance to A "
+                        f"{err:.4f} (< 1.2, unaligned {np.linalg.norm(B['poses'][:, :3] - A['poses'][:, :3], axis=1).mean():.4f}); "
+                        f"joint backend over {2 * K} keyframes: finite "
+                        f"{bool(np.isfinite(joint['poses_first']).all() and np.isfinite(joint['poses_second']).all())}")
+    if not (res and res[-1].get("joint") and np.abs(T[:3] - T_known[:3]).max() < 1.0
+            and dot > 0.9 and err < 1.2 and np.isfinite(joint["poses_second"]).all()):
+        fail(f"multisession-align did not recover T_known ({dtype})")
+
+    # 4. the gated ImproveAdjust recovery: a shut gate rejects, an open one stitches
+    shut = ["--quality_mean_thresh", "1e9", "--quality_min_thresh", "1e9"]
+    res, *_ = stage("improve_shut", ["multisession-align", "--improve", "--first",
+                                    os.path.join(a_dir, "reconstruction.npz"),
+                                    "--spec", spec("shut", [group("loop", list(range(N_LOOP)))]),
+                                    "--out", os.path.join(d, "shut")] + shut + flags)
+    if not (res and res[-1]["recovered"] is False and not res[-1]["report"][0]["accepted"]
+            and res[-1]["report"][0]["bad"] == N_LOOP - 5):
+        fail(f"the shut gate did not reject the group ({dtype}): {res}")
+    open_gate = ["--quality_mean_thresh", "-1", "--quality_min_thresh", "-1"]
+    res, *_ = stage("improve", ["multisession-align", "--improve", "--first",
+                               os.path.join(a_dir, "reconstruction.npz"),
+                               "--spec", spec("open", [group("loop_rev", [5, 4, 3, 2, 1, 0], name="rev"),
+                                                       group("loop_fwd", list(range(6)), name="fwd")]),
+                               "--out", os.path.join(d, "open")] + open_gate + flags)
+    rec = os.path.join(d, "open", "recovered.npz")
+    if not (res and res[-1]["recovered"] and os.path.exists(rec)
+            and [r["forward"] for r in res[-1]["report"]] == [False, True]
+            and np.isfinite(np.load(rec)["poses"]).all()):
+        fail(f"the open gate did not recover a stitched map ({dtype}): {res}")
+
+    # 5. fusion of A and the aligned B
+    sessions = os.path.join(d, "sessions")
+    os.makedirs(os.path.join(sessions, "b"))
+    os.symlink(a_dir, os.path.join(sessions, "a"))
+    np.savez(os.path.join(sessions, "b", "reconstruction.npz"), **dict(B, poses=aligned["poses"]))
+    stage("fuse", ["multisession", "--sessions", sessions, "--subsample", "2",
+                   "--out", os.path.join(d, "fused")] + flags)
+    fused_path = os.path.join(d, "fused", "fused.npz")
+    fused = np.load(fused_path)
+    n_fused = len(fused["poses"])
+    say("multisession", f"fuse {dtype}: the fused map holds {n_fused} keyframes "
+                        f"({K} + {K} subsampled by 2), finite {bool(np.isfinite(fused['poses']).all())}")
+    if not (n_fused == 2 * ((K + 1) // 2) and np.isfinite(fused["poses"]).all()):
+        fail(f"multisession fused {n_fused} keyframes ({dtype})")
+
+    # 6. evaluation: one sequence per session, against a ground truth
+    gt = os.path.join(d, "gt.txt")
+    np.savetxt(gt, np.array([[t, 0.05 * t, 0.01 * t, 0, 0, 0, 0, 1] for t in range(K)], float))
+    half = n_fused // 2
+    seqs = [dict(imagedir=os.path.join(d, "all"), calib=os.path.join(d, "all.txt"), gt=gt,
+                 start=a, stop=b) for a, b in ((0, half), (half, n_fused))]
+    res, *_ = stage("evaluate", ["multisession-evaluate", "--fused", fused_path,
+                                "--spec", spec("eval", seqs, "sequences"),
+                                "--out", os.path.join(d, "trajs")] + flags)
+    trajs = [np.load(os.path.join(d, "trajs", f"traj_{i}.npy")) for i in range(2)]
+    if not (res and res[-1]["sequences"] == 2 and np.isfinite(res[-1]["ate"]["rmse"])
+            and all(tr.shape == (K, 7) and np.isfinite(tr).all() for tr in trajs)):
+        fail(f"multisession-evaluate gave no finite ATE or trajectories ({dtype}): {res}")
+
+    # 7. the point cloud of the three maps, one hue each
+    cloud = os.path.join(d, "cloud.ply")
+    _, lines, _ = stage("view", ["view", "--reconstruction", os.path.join(a_dir, "reconstruction.npz"),
+                              os.path.join(d, "b", "reconstruction.npz"), fused_path,
+                              "--color_by_session", "--out", cloud])
+    with open(cloud) as f:
+        head = f.read(300)
+    if not (head.startswith("ply") and len(lines) == 4 and "property uchar red" in head):
+        fail(f"view wrote no colored cloud ({dtype}): {lines}")
+    return by_path, A
+
+
+def phase_probe_spread(torch, A):
+    """The gated frontend's probe in bf16 against fp32 on one state at full
+    width: a bf16 loop session (A's first N_LOOP keyframes, 5 seeds) leaves
+    its frontend graph; an fp32 SDroid loads the same video (the bf16
+    features, exactly) and the graph's edges, hidden states and targets;
+    both probe.  Prints the spread of the summed confidences and whether
+    the default gate (mean > 200, each > 10) decides alike on the newest
+    keyframe's edges.  The decision is not held: 8 significant bits move a
+    sum near a threshold."""
+    from droid_slam_reserch_tpu_torch.engine import SDroid
+    from droid_slam_reserch_tpu_torch.multisession import run_loop_session
+    from droid_slam_reserch_tpu_torch.utils import EUROC_CONFIG
+
+    cfg = EUROC_CONFIG.replace(stereo=True, compute_dtype="bfloat16")
+    intr = A["intrinsics"][0] * 8.0
+    stream = [(float(t), img, intr) for t, img in enumerate(A["images"][:N_LOOP])]
+    d16 = run_loop_session(cfg, None, A["poses"][:5], A["disps"][:5], stream, device="cuda")
+    g16 = d16.frontend.graph
+    d32 = SDroid(cfg.replace(compute_dtype="float32"), device="cuda")
+    d32.video.load_state_dict(d16.video.state_dict())
+    g32 = d32.frontend.graph
+    g32.ii, g32.jj, g32.age = g16.ii.copy(), g16.jj.copy(), g16.age.copy()
+    g32.net, g32.target, g32.weight = g16.net.float(), g16.target.clone(), g16.weight.clone()
+    s16, s32 = g16.probe_quality(), g32.probe_quality()
+    rel = np.abs(s16 - s32) / np.maximum(np.abs(s32), 1e-6)
+    newest = d16.video.counter - 1
+    sel = [k for k, (i, j) in enumerate(zip(g16.ii, g16.jj))
+           if (i == newest and newest - 3 < j != i) or (j == newest and newest - 3 < i != j)]
+
+    def gate(s):
+        v = s[sel]
+        return bool(len(v) and v.mean() > cfg.quality_mean_thresh
+                    and (v > cfg.quality_min_thresh).all())
+    say("multisession", f"probe bf16 against fp32 on one state ({cfg.image_size[0]}x"
+                        f"{cfg.image_size[1]} stereo, {len(s32)} edges): "
+                        f"summed in [{s32.min():.2f}, {s32.max():.2f}] (fp32), |bf16 - fp32| max "
+                        f"{np.abs(s16 - s32).max():.4f}, relative max {rel.max():.3e}, median "
+                        f"{np.median(rel):.3e}; the default gate on the newest keyframe's "
+                        f"{len(sel)} edges: bf16 {gate(s16)}, fp32 {gate(s32)}")
+    if not (np.isfinite(s16).all() and np.isfinite(s32).all() and len(s32) > 0):
+        fail("the probe's summed confidence is not finite")
+
+
+def phase_multisession_card_vs_cpu(torch, dtype):
+    """joint_backend and fuse_maps at 64x96 (stereo, small_config) on the card
+    against the port's CPU run from the same states: an N_SMALL-frame stereo
+    session tracked on the card, and the same session displaced by an SE3
+    and aligned back.  Poses within 1e-3 in fp32, 2e-2 in bf16 (as the
+    card-vs-CPU phase)."""
+    from droid_slam_reserch_tpu_torch.engine import Droid
+    from droid_slam_reserch_tpu_torch.lie import se3_exp, se3_mul
+    from droid_slam_reserch_tpu_torch.models import init_params
+    from droid_slam_reserch_tpu_torch.multisession import fuse_maps, joint_backend, transform_poses
+    from droid_slam_reserch_tpu_torch.utils import DroidConfig
+
+    params = init_params(seed=0)
+    intr = np.array([60.0, 60.0, 48.0, 32.0], np.float32)
+    cfg = small_config(DroidConfig).replace(compute_dtype=dtype, stereo=True)
+    droid = Droid(cfg, params=params, device="cuda")
+    for t, (img, _) in enumerate(small_frames("stereo")):
+        droid.track(float(t), img, intrinsics=intr)
+    A = droid.video.state_dict()
+    del droid
+    T = se3_exp(torch.tensor([0.5, -0.2, 0.1, 0.05, -0.1, 0.08]))
+    B = dict(A, poses=transform_poses(T.numpy(), se3_mul(T[None], torch.from_numpy(A["poses"])).numpy()))
+    tol = 2e-2 if dtype == "bfloat16" else 1e-3
+    for name, fn in (("joint_backend", lambda dev: np.concatenate(joint_backend(cfg, params, [A, B], device=dev))),
+                     ("fuse_maps", lambda dev: fuse_maps(cfg, params, [A, B], device=dev)["poses"])):
+        gpu, cpu = fn("cuda"), fn("cpu")
+        diff = float(np.abs(gpu - cpu).max()) if gpu.shape == cpu.shape else float("inf")
+        say("card-vs-cpu", f"{dtype} multisession {name} 64x96 stereo over {len(A['poses'])} + "
+                           f"{len(B['poses'])} keyframes: poses {gpu.shape}, max |diff| "
+                           f"{diff:.3e} (tol {tol:.0e})")
+        if not (np.isfinite(gpu).all() and diff <= tol):
+            fail(f"the card's {name} and the CPU's disagree ({dtype})")
 
 
 def main():
@@ -2240,6 +2580,12 @@ def main():
     from droid_slam_reserch_tpu_torch import ops
     from droid_slam_reserch_tpu_torch.ops import build
 
+    laps = [time.time()]
+
+    def lap(phase):
+        laps.append(time.time())
+        say("time", f"{phase}: {laps[-1] - laps[-2]:.1f} s, {laps[-1] - laps[0]:.1f} s in all")
+
     t0 = time.time()
     build.build(ptxas_verbose=True)
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
@@ -2248,13 +2594,18 @@ def main():
     say("build", f"nvcc sm_90a, {n_src} sources in parallel: "
                  f"{time.time() - t0:.1f} s ({build.LIB_PATH})")
     build.library()
+    lap("build")
 
     profiling = "--profile" in sys.argv[1:]
     rows = phase_kernels(torch)
+    lap("kernels")
     rows.update(phase_kernels_bf16(torch))
+    lap("kernels-bf16")
     by_path = {"drift": phase_drift(torch, ops), "drift_bf16": phase_drift(torch, ops, "bfloat16")}
+    lap("drift")
     phase_card_vs_cpu(torch, ops, "float32", ("mono", "stereo", "rgbd", "upsample"))
     phase_card_vs_cpu(torch, ops, "bfloat16", ("mono", "stereo"))
+    lap("card-vs-cpu")
     frames = {"mono": (euroc_frames(N_MAIN + (12 if profiling else 0)), None),
               "stereo": (euroc_frames(N_MAIN, shift=STEREO_SHIFT), None),
               "rgbd": (euroc_frames(N_RGBD, seed=1, H=480, W=640),
@@ -2295,9 +2646,31 @@ def main():
         say("main-path", f"{mode}: bf16 against fp32 in this run: {f16:.2f} against {f32:.2f} "
                          f"frames/s after initialisation, terminate_eva {s16:.2f} against "
                          f"{s32:.2f} s")
-    by_path.update(phase_cli(torch, ops))
+    lap("main-path")
+    root = tempfile.mkdtemp(prefix="droid_cli_")
+    try:
+        t0 = time.time()
+        paths = make_cli_datasets(root)
+        say("cli", f"datasets written in {time.time() - t0:.1f} s under a temporary directory")
+        counts, cli_track = phase_cli(torch, ops, paths, root)
+        by_path.update(counts)
+        lap("cli")
+        for dtype in ("float32", "bfloat16"):
+            counts, A = phase_multisession(
+                torch, ops, paths, root, dtype,
+                cli_track["cli_euroc_stereo_bf16"] if dtype == "bfloat16" else None)
+            by_path.update(counts)
+            lap(f"multisession {dtype}")
+        phase_probe_spread(torch, A)
+        del A
+        for dtype in ("float32", "bfloat16"):
+            phase_multisession_card_vs_cpu(torch, dtype)
+        lap("multisession probe spread, card vs CPU")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     by_path["profile_frontend"] = phase_profile_frontend(torch, ops)
     by_path["profile_frontend_bf16"] = phase_profile_frontend(torch, ops, "bfloat16")
+    lap("profile-frontend")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)

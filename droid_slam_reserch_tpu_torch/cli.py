@@ -7,10 +7,15 @@ Usage:
   python -m droid_slam_reserch_tpu_torch.cli tum --datapath .../rgbd_dataset_freiburg1_xyz
   python -m droid_slam_reserch_tpu_torch.cli eth3d --datapath DIR [--depth]
   python -m droid_slam_reserch_tpu_torch.cli tartanair --datapath SCENE [--stereo]
+  python -m droid_slam_reserch_tpu_torch.cli view --reconstruction A.npz [B.npz ...] --out cloud.ply
+  python -m droid_slam_reserch_tpu_torch.cli multisession-align --first A.npz --second B.npz --spec spec.json --out DIR
+  python -m droid_slam_reserch_tpu_torch.cli multisession --sessions DIR --out DIR
+  python -m droid_slam_reserch_tpu_torch.cli multisession-evaluate --fused fused.npz --spec spec.json
 
 Every command runs on the CUDA card; ``--device cpu`` runs the plain
-PyTorch versions of the kernels on the CPU instead.  ``view``, the
-multisession commands and ``train`` are not ported yet.
+PyTorch versions of the kernels on the CPU instead.  ``--vis_path`` streams
+the live point cloud into a PLY file while tracking runs.  ``train`` is not
+ported yet.
 """
 import argparse
 import json
@@ -19,6 +24,9 @@ import os
 import numpy as np
 
 from .engine import Droid
+from .engine.droid import default_params
+from .utils.npz import savez_compressed
+
 
 def _add_slam_flags(p):
     """Shared SLAM flags (reference demo.py:103-128), and the port's --device."""
@@ -29,7 +37,7 @@ def _add_slam_flags(p):
     p.add_argument("--upsample", action="store_true")
     p.add_argument("--reconstruction_path", default=None)
     p.add_argument("--vis_path", default=None,
-                   help="stream a live, incrementally-updated PLY here (not ported yet)")
+                   help="stream a live, incrementally-updated PLY here")
     p.add_argument("--bf16", action="store_true", help="bfloat16 network compute")
     p.add_argument("--image_size", type=int, nargs=2, default=None,
                    help="engine H W (streams resize to match)")
@@ -309,6 +317,145 @@ def cmd_tartanair(args):
             json.dump({"per_scene": dict(zip(scenes, ates)), **summary}, f)
 
 
+def cmd_view(args):
+    """Export saved reconstruction(s) as a PLY point cloud, computed on
+    ``--device``.
+
+    Multiple --reconstruction paths produce one fused cloud; with
+    --color_by_session each map's points are tinted a distinct hue, the
+    multi-map viewer behavior of the reference (vis_two.py:1-122,
+    s_visualization.py:42-65 hsv session colors)."""
+    import colorsys
+
+    from .viz import export_ply, reconstruction_pointcloud
+
+    paths = args.reconstruction
+    all_pts, all_cols = [], []
+    for i, path in enumerate(paths):
+        state = dict(np.load(path, allow_pickle=True))
+        pts, cols = reconstruction_pointcloud(state, device=args.device)
+        if args.color_by_session and len(paths) > 1:
+            tint = np.asarray(colorsys.hsv_to_rgb(i / max(len(paths), 1), 1.0, 1.0))
+            cols = 0.4 * cols + 0.6 * tint[None]
+        all_pts.append(pts)
+        all_cols.append(cols)
+        print(f"{path}: {len(pts)} points")
+    pts = np.concatenate(all_pts, axis=0)
+    cols = np.concatenate(all_cols, axis=0)
+    export_ply(args.out, pts, cols)
+    print(f"wrote {len(pts)} points to {args.out}")
+
+
+def cmd_multisession(args):
+    """Stages 2+3 of the multisession pipeline over saved session npz files
+    (reference Euroc_Multisession_Stereo/{AdjustCoordinates,BackendAllMaps}.py)."""
+    import glob
+
+    from .multisession import fuse_maps
+    from .utils import EUROC_CONFIG
+
+    cfg = _config_from_args(EUROC_CONFIG.replace(stereo=args.stereo), args)
+    params = default_params(cfg)
+    states = []
+    for p in sorted(glob.glob(os.path.join(args.sessions, "*", "reconstruction.npz"))):
+        states.append(dict(np.load(p, allow_pickle=True)))
+        print(f"loaded {p}: {len(states[-1]['poses'])} keyframes")
+    fused = fuse_maps(cfg, params, states, subsample=args.subsample, device=args.device)
+    os.makedirs(args.out, exist_ok=True)
+    savez_compressed(os.path.join(args.out, "fused.npz"), **fused)
+    print(f"fused map: {len(fused['poses'])} keyframes -> {args.out}/fused.npz")
+
+
+def cmd_multisession_align(args):
+    """Stage 2 / 2v2: align map B into map A's frame via warm-started loop
+    replay (reference AdjustCoordinates.py:107-236), optionally through the
+    quality-gated ImproveAdjust recovery (reference ImproveAdjust.py:204-337).
+
+    --spec is a JSON file:
+      {"groups": [{"seed_idx": [...], "frame_idx": [...], "old_idx": [...],
+                   "imagedir": "path", "calib": "calib.txt"}, ...]}
+    seed_idx indexes map A's keyframes; frame_idx is the group's matched
+    frame ordering (increasing = forward); old_idx indexes map B's keyframes
+    (plain align mode).
+    """
+    from .data import generic_image_stream
+    from .multisession import align_pair, joint_backend
+    from .multisession.pipeline import improve_adjust
+    from .utils import EUROC_CONFIG
+
+    cfg = _config_from_args(EUROC_CONFIG.replace(stereo=args.stereo), args)
+    params = default_params(cfg)
+    first = dict(np.load(args.first, allow_pickle=True))
+    with open(args.spec) as f:
+        spec = json.load(f)
+    ta = cfg.image_size[0] * cfg.image_size[1]
+
+    def factory(g):
+        return lambda: generic_image_stream(g["imagedir"], g["calib"], 1, target_area=ta)
+
+    os.makedirs(args.out, exist_ok=True)
+    if args.improve:
+        groups = [dict(seed_idx=g["seed_idx"], frame_idx=g["frame_idx"],
+                       stream_factory=factory(g), name=g.get("name", i))
+                  for i, g in enumerate(spec["groups"])]
+        state, report = improve_adjust(cfg, params, first, groups, bad_limit=args.bad_limit,
+                                       device=args.device)
+        print(json.dumps({"report": report, "recovered": state is not None}))
+        if state is not None:
+            savez_compressed(os.path.join(args.out, "recovered.npz"), **state)
+        return
+    if args.second is None:
+        raise SystemExit("multisession-align: --second is required unless --improve")
+    second = dict(np.load(args.second, allow_pickle=True))
+    runs = [(np.asarray(g["seed_idx"]), np.asarray(g["old_idx"]), factory(g))
+            for g in spec["groups"]]
+    T, new_poses, rows = align_pair(cfg, params, first, second, runs, device=args.device)
+    savez_compressed(os.path.join(args.out, "aligned.npz"), T=T, poses=new_poses, rows=rows)
+    out = {"T": np.asarray(T).tolist(), "rows": len(rows)}
+    if not args.no_joint:
+        # stage 2 ends with a joint global backend over the concatenated
+        # pair (reference AdjustCoordinates.py:219-229)
+        second_t = dict(second)
+        second_t["poses"] = np.asarray(new_poses)
+        refined = joint_backend(cfg, params, [first, second_t], device=args.device)
+        savez_compressed(os.path.join(args.out, "aligned_joint.npz"),
+                            poses_first=refined[0], poses_second=refined[1], T=T)
+        out["joint"] = "aligned_joint.npz"
+    print(json.dumps(out))
+
+
+def cmd_multisession_evaluate(args):
+    """Stage 4 (reference Whole_Evaluate.py:142-225): per-sequence pose fill
+    from the fused map, concatenated ATE vs concatenated groundtruth.
+
+    --spec JSON: {"sequences": [{"start": a, "stop": b, "imagedir": ...,
+                                 "calib": ..., "gt": "file.txt"}, ...]}
+    """
+    from .data import generic_image_stream
+    from .multisession import evaluate_fused_map
+    from .utils import EUROC_CONFIG
+
+    cfg = _config_from_args(EUROC_CONFIG.replace(stereo=args.stereo), args)
+    params = default_params(cfg)
+    fused = dict(np.load(args.fused, allow_pickle=True))
+    with open(args.spec) as f:
+        spec = json.load(f)
+    slices = [(s["start"], s["stop"]) for s in spec["sequences"]]
+    ta = cfg.image_size[0] * cfg.image_size[1]
+    streams = [(lambda s=s: generic_image_stream(s["imagedir"], s["calib"], 1, target_area=ta))
+               for s in spec["sequences"]]
+    gts = None
+    if all("gt" in s for s in spec["sequences"]):
+        gts = [np.loadtxt(s["gt"]) for s in spec["sequences"]]
+    trajs, res = evaluate_fused_map(cfg, params, fused, slices, streams, gts=gts,
+                                    correct_scale=not args.stereo, device=args.device)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        for i, tr in enumerate(trajs):
+            np.save(os.path.join(args.out, f"traj_{i}.npy"), tr)
+    print(json.dumps({"ate": res, "sequences": len(trajs)}))
+
+
 def build_parser():
     parser = argparse.ArgumentParser(prog="droid_slam_reserch_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -351,12 +498,54 @@ def build_parser():
     p.add_argument("--out", default=None, help="JSON results path (--split)")
     _add_slam_flags(p)
     p.set_defaults(fn=cmd_tartanair)
+
+    p = sub.add_parser("view")
+    p.add_argument("--reconstruction", required=True, nargs="+",
+                   help="one or more reconstruction.npz (multi-map fusion)")
+    p.add_argument("--out", default="cloud.ply")
+    p.add_argument("--color_by_session", action="store_true",
+                   help="tint each map a distinct hue (reference vis_two.py)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the point cloud: cuda (the default) or cpu")
+    p.set_defaults(fn=cmd_view)
+
+    p = sub.add_parser("multisession")
+    p.add_argument("--sessions", required=True, help="dir of session subdirs")
+    p.add_argument("--out", required=True)
+    p.add_argument("--stereo", action="store_true")
+    p.add_argument("--subsample", type=int, default=2)
+    _add_slam_flags(p)
+    p.set_defaults(fn=cmd_multisession)
+
+    p = sub.add_parser("multisession-align")
+    p.add_argument("--first", required=True, help="map A reconstruction.npz")
+    p.add_argument("--second", default=None, help="map B reconstruction.npz")
+    p.add_argument("--spec", required=True, help="loop-group JSON spec")
+    p.add_argument("--out", required=True)
+    p.add_argument("--stereo", action="store_true")
+    p.add_argument("--improve", action="store_true",
+                   help="quality-gated ImproveAdjust recovery")
+    p.add_argument("--bad_limit", type=int, default=4)
+    p.add_argument("--no_joint", action="store_true",
+                   help="skip the joint global backend over the aligned pair "
+                        "(reference AdjustCoordinates.py:219-229)")
+    _add_slam_flags(p)
+    p.set_defaults(fn=cmd_multisession_align)
+
+    p = sub.add_parser("multisession-evaluate")
+    p.add_argument("--fused", required=True, help="fused.npz")
+    p.add_argument("--spec", required=True, help="sequence JSON spec")
+    p.add_argument("--out", default=None)
+    p.add_argument("--stereo", action="store_true")
+    _add_slam_flags(p)
+    p.set_defaults(fn=cmd_multisession_evaluate)
     return parser
 
 
 def main(argv=None):
-    """Run one command; returns the command's Droid (None for a --split
-    sweep), which ``python -m`` does not use."""
+    """Run one command; returns the tracking command's Droid (None for a
+    --split sweep and for the view and multisession commands), which
+    ``python -m`` does not use."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -8,7 +8,9 @@ as a Python loop, on the JAX package's default TPU path: each call caches
 every pixel's per-level correlation window around the first round's coords
 (K4), and each round looks the windows up (K5) while the drift rule holds,
 else takes the exact full lookup (K2, built at most once per call, then
-K3).  ``update_lowmem`` (backend) refreshes every edge chunk by chunk with
+K3).  ``probe_quality`` (the multisession frontend's gate) runs one
+update-operator step on the exact route, K2 + K3.  ``update_lowmem``
+(backend) refreshes every edge chunk by chunk with
 K2 + K3 and runs one global BA per step.  With ``upsample`` each call
 writes the full-resolution disparities of the frames it updated into
 ``video.disps_up``: update_fused from its last round's upsampling mask,
@@ -366,6 +368,40 @@ class FactorGraph:
             video.upsample(self._t(ux), upmask[self._t(ux - m0)])
         self.age += rounds
         return None if d_cull is None else float(d_cull)   # the per-keyframe host sync
+
+    def probe_quality(self):
+        """One update-operator step over the active edges, with no BA: the
+        multisession match-quality signal (reference
+        s_droid_frontend.py:116-146).  Returns each edge's summed confidence
+        weight [n] (numpy) and changes only the edges' hidden state.  The
+        correlation takes the exact route, K2 in the compute dtype then K3,
+        as the JAX package's _build_corr_lookup does; GraphAgg's segments
+        are the frames of the window that ends at the last referenced frame."""
+        if len(self.ii) == 0:
+            return np.zeros(0)
+        video, dev = self.video, self.device
+        h8, w8 = video.h8, video.w8
+        n, n_pad, ii_p, jj_p = self._padded_edges()
+        t1 = int(max(self.ii.max(), self.jj.max())) + 1
+        MW = _round_up(t1 - int(self.ii.min()), self.cfg.window_bucket)
+        m0 = max(0, t1 - MW)
+        kk = self._t(np.clip(ii_p - m0, 0, MW - 1))
+        emask = torch.as_tensor(np.arange(n_pad) < n, device=dev).float()
+        ii, jj = self._t(ii_p), self._t(jj_p)
+
+        coords1 = projective_transform(video.poses[None], video.disps[None],
+                                       video.intrinsics[None], ii, jj)[0][0]
+        target = torch.cat([self.target, torch.zeros(n_pad - n, h8, w8, 2, device=dev)], 0)
+        coords0 = coords_grid(h8, w8, device=dev)
+        motn = torch.cat([coords1 - coords0, target - coords1], -1).clamp(-64.0, 64.0)
+        levels = corr_build(video.fmaps[ii, 0], video.fmaps[jj, self._cams(ii, jj)])
+        corr = corr_lookup(levels, coords1.reshape(n_pad, h8 * w8, 2).contiguous())
+        net = torch.cat([self.net, self.net.new_zeros(n_pad - n, h8, w8, 128)], 0)
+        net, _, weight, _, _ = self.update_apply(
+            self.params, net[None], video.inps[ii][None], corr.reshape(1, n_pad, h8, w8, -1),
+            motn[None], kk, MW, emask)
+        self.net = net[0, :n]
+        return weight[0, :n].float().sum(dim=(1, 2, 3)).cpu().numpy()
 
     def _chunk_tables(self, s):
         """Host tables of update_lowmem: edges sorted by source frame, one

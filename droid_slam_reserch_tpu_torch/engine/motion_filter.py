@@ -41,6 +41,10 @@ class MotionFilter:
                                       corr.to(self.hidden.dtype))
         return delta[0, 0].float().norm(dim=-1).mean()
 
+    def _first_pose_disp(self, device):
+        """The pose and disparity frame 0 is appended with."""
+        return se3_identity(device=device), 1.0
+
     def track(self, tstamp, image, depth=None, intrinsics=None):
         """Process one frame: image [H, W, 3] uint8 BGR (host), or [2, H, W, 3]
         for stereo (left, right); depth an optional [H, W] depth map."""
@@ -60,7 +64,7 @@ class MotionFilter:
         if video.counter == 0:
             net, inp = cnet_apply(self.net, imgs[:1])
             self.hidden, self.inp, self.fmap = net[0], inp[0], gmap
-            video.append(tstamp, image[0], se3_identity(device=dev), 1.0, depth, intr,
+            video.append(tstamp, image[0], *self._first_pose_disp(dev), depth, intr,
                          gmap, net[0], inp[0])
             return
 
@@ -72,3 +76,12 @@ class MotionFilter:
             video.append(tstamp, image[0], None, None, depth, intr, gmap, net[0], inp[0])
         else:
             self.count += 1
+
+
+class SessionMotionFilter(MotionFilter):
+    """Multisession variant (reference s_motion_filter.py:78-80): frame 0 is
+    appended with pose=None and disp=None, so that poses and disparities
+    written into the buffer before tracking (a loop session's seeds) stay."""
+
+    def _first_pose_disp(self, device):
+        return None, None

@@ -192,6 +192,7 @@ class Video:
         self.disps_up[ix] = cvx_upsample(self.disps[ix][..., None], mask.float())[..., 0]
 
     def state_dict(self):
+        """The keyframes [0, counter) as fp32 numpy (reference droid.py:92-106)."""
         t = self.counter
         return {
             "tstamps": self.tstamp[:t].copy(),
@@ -199,3 +200,25 @@ class Video:
             **{k: getattr(self, k)[:t].float().cpu().numpy()      # fp32, as the JAX package
                for k in ("poses", "disps", "disps_sens", "intrinsics", "fmaps", "nets", "inps")},
         }
+
+    def load_state_dict(self, state, offset=0):
+        """Write a saved session (``state_dict``'s keys, as either engine's
+        reconstruction.npz holds them) into slots [offset, offset + t)
+        (reference loop_detect.py:226-240 Give_Data).  The features are cast
+        to the buffer's compute dtype (round to nearest even for bf16); a
+        one-camera fmaps fills camera 0 only; ``disps_sens`` is optional."""
+        t = len(state["tstamps"])
+        sl = slice(offset, offset + t)
+        self.tstamp[sl] = state["tstamps"]
+        self.images[sl] = state["images"]
+        for k in ("poses", "disps", "disps_sens", "intrinsics", "fmaps", "nets", "inps"):
+            if k == "disps_sens" and k not in state:
+                continue
+            buf = getattr(self, k)
+            val = torch.tensor(np.asarray(state[k], np.float32), device=self.device)
+            val = val.to(buf.dtype)
+            if k == "fmaps":
+                buf[sl, :val.shape[1]] = val
+            else:
+                buf[sl] = val
+        self.counter = max(self.counter, offset + t)

@@ -1,8 +1,9 @@
 """One typed, central configuration (copy of the JAX package's DroidConfig).
 
 Every tunable lives in one dataclass, with the per-dataset presets of the
-reference's evaluation scripts.  The port runs only part of what the fields
-describe; the engine raises ``NotImplementedError`` for the rest.
+reference's evaluation scripts.  The port runs what every field describes
+but the sharded BA and edge refresh (``ba_shards``, ``refresh_shards``
+above 1), which it declines with a notice and runs on one device.
 """
 import dataclasses
 from typing import Optional, Tuple

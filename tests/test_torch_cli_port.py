@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from droid_slam_reserch_tpu_torch.cli import build_parser, main
+from droid_slam_reserch_tpu_torch.cli import _config_from_args, build_parser, main
+from droid_slam_reserch_tpu_torch.utils import TUM_CONFIG
 from synth_scenes import (FAST_SLAM_FLAGS, make_eth3d_sequence, make_euroc_sequence,
                           make_tartanair_scene, make_tum_sequence, textured_image)
 
@@ -99,11 +100,15 @@ def test_demo(tmp_path, capsys):
 
 
 def test_commands_and_refusals():
-    """The ported commands only; the live viewer is refused, and the card is
-    the default device."""
+    """The ported commands only (``train`` is refused), the card as the
+    default device, and --vis_path reaching the engine's configuration."""
     sub = next(a for a in build_parser()._actions if a.dest == "cmd")
-    assert sorted(sub.choices) == ["demo", "eth3d", "euroc", "tartanair", "tum"]
+    assert sorted(sub.choices) == ["demo", "eth3d", "euroc", "multisession", "multisession-align",
+                                   "multisession-evaluate", "tartanair", "tum", "view"]
     args = build_parser().parse_args(["tum", "--datapath", "x"])
     assert args.device == "cuda"
-    with pytest.raises(NotImplementedError, match="viewer"):
-        main(["tum", "--datapath", "x", "--vis_path", "cloud.ply", *CPU])
+    assert build_parser().parse_args(["view", "--reconstruction", "a.npz"]).device == "cuda"
+    args = build_parser().parse_args(["tum", "--datapath", "x", "--vis_path", "cloud.ply"])
+    assert _config_from_args(TUM_CONFIG, args).vis_path == "cloud.ply"
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["train", "--datapath", "x"])

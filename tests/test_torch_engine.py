@@ -238,13 +238,22 @@ def test_save_reconstruction(runs, tmp_path):
     assert np.isfinite(data["poses"]).all()
 
 
-OUT_OF_SLICE = {"vis_path": "viz"}
+def test_save_reconstruction_archive_matches_numpy(runs, tmp_path):
+    """reconstruction.npz (zlib level 1) holds the members that
+    np.savez_compressed writes for the same state, with equal values."""
+    import zipfile
 
-
-@pytest.mark.parametrize("flag", sorted(OUT_OF_SLICE))
-def test_out_of_slice_options_raise(flag):
-    with pytest.raises(NotImplementedError):
-        TDroid(torch_config(**{flag: OUT_OF_SLICE[flag]}), device="cpu")
+    _, td, _ = runs
+    td.save_reconstruction(str(tmp_path))
+    state = td.video.state_dict()
+    np.savez_compressed(tmp_path / "numpy.npz", **state)
+    with zipfile.ZipFile(tmp_path / "reconstruction.npz") as a, \
+            zipfile.ZipFile(tmp_path / "numpy.npz") as b:
+        assert a.namelist() == b.namelist()
+    ours, ref = np.load(tmp_path / "reconstruction.npz"), np.load(tmp_path / "numpy.npz")
+    for k in state:
+        assert ours[k].dtype == ref[k].dtype and ours[k].shape == ref[k].shape, k
+        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
 
 
 def test_unknown_compute_dtype_raises():

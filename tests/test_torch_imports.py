@@ -35,4 +35,5 @@ def test_no_cv2_or_pil_imports(path):
 def test_walk_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "cuda_corr.py", "cuda_ba.py", "factor_graph.py",
-            "profile_frontend.py", "cli.py", "imageio.py"} <= names
+            "profile_frontend.py", "cli.py", "imageio.py", "alignment.py",
+            "group_sequence.py", "pipeline.py", "live.py", "pointcloud.py"} <= names
