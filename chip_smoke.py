@@ -85,7 +85,17 @@ Phases (one line each; any failure exits nonzero):
            in fp32 and in bf16: every section on the card, with the counts
            set to 0 before and read after; every kernel of the dtype must
            launch (K6-K8 only here: none of them may launch on the main
-           path) and no plain version run.
+           path) and no plain version run;
+7. train   the training path (plain PyTorch under autograd, no kernel):
+           (a) one dynamic step at 64x64 on the card against the CPU;
+           (b) TrainConfig's full shape (384x512, 7 frames, 15 iterations,
+           28 edges) in fp32 with and without remat and in bf16: seconds
+           per step split into forward, backward and optimizer, peak
+           memory, a profiled step (idle share, top kernels) and the
+           training lookup's plain time; (c) an overfit whose loss falls;
+           (d) cli train at the full crop, a resume, and tartanair with the
+           trained weights; around (b)-(d) every count must stay 0
+           (train.json in chiprun_out/ holds the numbers).
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as its last line the device JSON.  The script needs only
 torch, numpy and scipy, and the CUDA toolkit for nvcc.
@@ -100,6 +110,7 @@ terminate_eva under torch.profiler too; the full tables go to
 chiprun_out/profile_main_path.txt and profile_terminate.txt (bf16:
 profile_main_path_bf16.txt and profile_terminate_bf16.txt).
 """
+import contextlib
 import ctypes
 import json
 import os
@@ -2565,6 +2576,496 @@ def phase_multisession_card_vs_cpu(torch, dtype):
             fail(f"the card's {name} and the CPU's disagree ({dtype})")
 
 
+# ------------------------------------------------------------------ training
+#
+# TrainConfig's defaults: a 384x512 crop, 7 frames, 15 unrolled iterations of
+# 2 BA steps, a graph of up to 24 covisibility edges (or the radius-2 temporal
+# graph) padded to 28 edges, batch 1, DroidNet at full width, seeded weights.
+TRAIN_H, TRAIN_W, TRAIN_P, TRAIN_IT, TRAIN_E_PAD = 384, 512, 7, 15, 28
+# the fnet's conv biases in front of an instance norm: their gradient is 0 in
+# exact arithmetic, so any two runs differ by rounding noise alone
+TRAIN_ZERO_GRAD = tuple(f"fnet.{n}.bias" for n in (
+    "conv1", "layer1.0.conv1", "layer1.0.conv2", "layer1.1.conv1", "layer1.1.conv2",
+    "layer2.0.conv1", "layer2.0.conv2", "layer2.0.downsample.0", "layer2.1.conv1",
+    "layer2.1.conv2", "layer3.0.conv1", "layer3.0.conv2", "layer3.0.downsample.0",
+    "layer3.1.conv1", "layer3.1.conv2"))
+
+
+def train_scene(rng, n_frames, H, W):
+    """A geometrically consistent synthetic training item (the JAX package's
+    tools/bench_train.py synth_scene): small forward steps and rotations over
+    a blocky depth field of 4 to 12 m, band-limited texture; poses
+    world-to-camera, disps inverse depth, intrinsics at full resolution."""
+    fx = fy = 0.6 * W
+    intrinsics = np.broadcast_to(np.array([fx, fy, W / 2.0, H / 2.0], np.float32), (n_frames, 4))
+    poses = np.zeros((n_frames, 7), np.float32)
+    poses[:, 6] = 1.0
+    for t in range(n_frames):
+        poses[t, 0] = 0.04 * t + 0.01 * rng.standard_normal()
+        poses[t, 2] = 0.10 * t
+        poses[t, 3:6] = 0.01 * rng.standard_normal(3)
+        q = np.concatenate([poses[t, 3:6], [1.0]])
+        poses[t, 3:] = q / np.linalg.norm(q)
+    base = rng.uniform(0.5, 1.0, (n_frames, H // 32, W // 32)).astype(np.float32)
+    depth = 4.0 + 8.0 * np.kron(base, np.ones((32, 32), np.float32))[:, :H, :W]
+    imgs = rng.uniform(0, 255, (n_frames, H // 8, W // 8, 3)).astype(np.float32)
+    images = np.kron(imgs, np.ones((8, 8, 1), np.float32))[:, :H, :W]
+    return images, poses, (1.0 / depth).astype(np.float32), np.ascontiguousarray(intrinsics)
+
+
+def train_batch(torch, item, graph, device):
+    """The dynamic step's batch from a numpy item (images, poses, disps,
+    intrinsics) and a sampled graph (ii, jj, emask), on `device`."""
+    from droid_slam_reserch_tpu_torch.lie import se3_inv
+    from droid_slam_reserch_tpu_torch.train.step import initial_poses
+
+    images, poses, disps, intr = (torch.from_numpy(np.ascontiguousarray(x[None])).to(device)
+                                  for x in item)
+    ii, jj, em = graph
+    return {"images": images, "poses": poses, "disps": disps, "intrinsics": intr,
+            "ii": torch.from_numpy(ii).long().to(device),
+            "jj": torch.from_numpy(jj).long().to(device),
+            "emask": torch.from_numpy(em).to(device), "Gs0": initial_poses(se3_inv(poses)),
+            "disp0": torch.ones_like(disps[:, :, 3::8, 3::8])}
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def relu_masks(torch):
+    """A torch function mode that records the sign mask of every ReLU input
+    (F.relu, torch.relu) of a run in order, or, given a run's masks, replays
+    them: each ReLU passes its input where the recorded run's input was
+    positive, so the forward moves by at most the flipped inputs and the
+    backward takes the recorded run's mask.  `flips` counts the entries whose
+    own sign differs from the recorded one, `near` their largest |input|."""
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    class ReluMasks(TorchFunctionMode):
+        def __init__(self, masks=None):
+            super().__init__()
+            self.replay, self.masks = masks is not None, [] if masks is None else masks
+            self.calls, self.flips, self.near = 0, 0, 0.0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func not in (F.relu, torch.relu, torch.Tensor.relu):
+                return func(*args, **kwargs)
+            x = args[0]
+            if not self.replay:
+                self.masks.append(x.detach() > 0)
+                return func(*args, **kwargs)
+            m = self.masks[self.calls].to(x.device)
+            self.calls += 1
+            d = (x.detach() > 0) != m
+            if d.any():
+                self.flips += int(d.sum())
+                self.near = max(self.near, float(x.detach()[d].abs().max()))
+            return torch.where(m, x, torch.zeros_like(x))
+
+    return ReluMasks
+
+
+def train_card_vs_cpu(torch):
+    """(a) One make_train_step_dynamic step at 64x64, P = 4, 2 iterations on
+    the card against device="cpu".
+
+    fp32: loss, metrics and carry within 1e-3 relative, every gradient
+    within 1e-3 relative L2, the fnet biases of TRAIN_ZERO_GRAD (zero in
+    exact arithmetic) under 1e-6, with the CPU's ReLU masks replayed on the
+    card (relu_masks).  The gradient is piecewise smooth: a ReLU input that
+    crosses 0 moves it by a fixed amount, and at this size, where the fnet's
+    last layers are 8x8 maps, one entry's flip moves a weight's gradient by
+    up to 1e-2 relative.  Here layer3.1.conv1's ReLU input at frame 0,
+    channel 53, (5, 2) lies 1.2e-6 from 0; the card's rounding, or any 3e-7
+    move of the weights, flips it, and that weight's gradient moves by
+    4.45e-3.  With the masks replayed the CPU's own gradient under such
+    moves stays within 4e-5 (1 to 7 flips of |input| up to 9e-6), so the
+    replay removes the flips and nothing else: the card's flips must lie
+    within 1e-4 of 0.  The card's gradients without the replay are printed
+    beside, unchecked.
+
+    Then two apply_steps on each device from the same gradients (the
+    CPU's, then the card's): the new parameters within 1e-6 relative (1e-9
+    absolute), far under the steps' own size, which depends on the
+    gradients' sizes from the second step on.
+
+    bf16 (no replay: the flips are many at bf16's rounding): loss within
+    1e-3 relative, metrics within 5e-3, carry within 2e-3, all gradients
+    together within 0.15 relative L2, the limits of
+    tests/test_torch_train_bf16.py, which holds the CPU's bf16 step against
+    the JAX package's."""
+    from droid_slam_reserch_tpu_torch.models import init_params
+    from droid_slam_reserch_tpu_torch.train import TrainConfig
+    from droid_slam_reserch_tpu_torch.train.step import (init_opt_state, make_schedule,
+                                                         make_train_step_dynamic,
+                                                         sample_frame_graph)
+
+    P, H, W = 4, 64, 64
+    cfg = TrainConfig(batch=1, n_frames=P, iters=2, steps=10)
+    item = train_scene(np.random.default_rng(1), P, H, W)
+    graph = sample_frame_graph(np.random.default_rng(0), *(x[None] for x in item[1:]), P, 16)
+    start = init_params(0)
+    apply_step = make_train_step_dynamic(cfg)[1]
+    ReluMasks = relu_masks(torch)
+
+    def step_on(dev, dtype=None, mode=None):
+        grad_step = make_train_step_dynamic(cfg, dtype=dtype)[0]
+        with mode or contextlib.nullcontext():
+            g, m, c = grad_step({k: v.to(dev) for k, v in start.items()},
+                                train_batch(torch, item, graph, dev))
+        return ({k: v.cpu() for k, v in g.items()}, {k: float(v) for k, v in m.items()},
+                [x.float().cpu() for x in c])
+
+    def worst_rel(a, b):
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in b)
+
+    record = ReluMasks()
+    g0, m0, c0 = step_on("cpu", mode=record)
+    replay = ReluMasks(record.masks)
+    g1, m1, c1 = step_on("cuda", mode=replay)
+    g_free = step_on("cuda")[0]
+    names = [k for k in g0 if k not in TRAIN_ZERO_GRAD]
+    worst_m = worst_rel(m1, m0)
+    worst_c = max(float((a - b).abs().max()) for a, b in zip(c1, c0))
+    rel = {k: _rel_l2(g1[k], g0[k]) for k in names}
+    worst_g = max(rel, key=rel.get)
+    free = {k: _rel_l2(g_free[k], g0[k]) for k in names}
+    worst_free = max(free, key=free.get)
+    noise = max(float(g1[k].norm()) + float(g0[k].norm()) for k in TRAIN_ZERO_GRAD)
+
+    new = {}
+    for dev in ("cuda", "cpu"):
+        params = {k: v.to(dev) for k, v in start.items()}
+        state = init_opt_state(params)
+        for g in (g0, g1):
+            params, state = apply_step(params, state, {k: v.to(dev) for k, v in g.items()})
+        new[dev] = {k: v.cpu() for k, v in params.items()}
+    p_ok = all(torch.allclose(new["cuda"][k], new["cpu"][k], rtol=1e-6, atol=1e-9) for k in start)
+    p_err = max(float((new["cuda"][k] - new["cpu"][k]).abs().max()) for k in start)
+    p_move = max(float((new["cpu"][k] - start[k]).abs().max()) for k in start)
+    lrs = [make_schedule(cfg)(i) for i in range(2)]
+
+    gb1, mb1, cb1 = step_on("cuda", torch.bfloat16)
+    gb0, mb0, cb0 = step_on("cpu", torch.bfloat16)
+    loss_b = abs(mb1["loss"] - mb0["loss"]) / abs(mb0["loss"])
+    worst_mb = worst_rel(mb1, mb0)
+    worst_cb = max(float((a - b).abs().max()) for a, b in zip(cb1, cb0))
+    rel_b = _rel_l2(torch.cat([gb1[k].ravel() for k in names]),
+                    torch.cat([gb0[k].ravel() for k in names]))
+    say("train", f"card vs CPU, one dynamic step at 64x64, P=4, 2 iterations, "
+                 f"{int(graph[2].sum())} of 16 edges; fp32 with the CPU's masks of "
+                 f"{len(record.masks)} ReLU calls replayed ({replay.flips} inputs flipped, "
+                 f"|input| up to {replay.near:.1e}, tol 1e-4): loss {m1['loss']:.6f} against "
+                 f"{m0['loss']:.6f}, metrics within {worst_m:.2e} relative (tol 1e-3), carry "
+                 f"{worst_c:.2e} (tol 1e-3), gradients worst {worst_g} {rel[worst_g]:.2e} "
+                 f"relative L2 (tol 1e-3); without the replay worst {worst_free} "
+                 f"{free[worst_free]:.2e}, {sum(r > 1e-3 for r in free.values())} of {len(names)} "
+                 f"over 1e-3 (unchecked); zero-in-exact-arithmetic biases {noise:.1e} (tol 1e-6); "
+                 f"params after two apply_steps from the same gradients within {p_err:.2e} (tol "
+                 f"1e-6 relative, 1e-9 absolute; the steps moved them by up to {p_move:.2e}, lr "
+                 f"{lrs[0]:.1e} then {lrs[1]:.1e})")
+    say("train", f"card vs CPU in bf16: loss {mb1['loss']:.6f} against {mb0['loss']:.6f} "
+                 f"({loss_b:.2e} relative, tol 1e-3), metrics within {worst_mb:.2e} (tol 5e-3), "
+                 f"carry {worst_cb:.2e} (tol 2e-3), all gradients {rel_b:.3f} relative L2 (tol "
+                 f"0.15); the card's bf16 loss against its fp32 one "
+                 f"{abs(mb1['loss'] - m1['loss']) / abs(m1['loss']):.2e} relative")
+    if replay.calls != len(record.masks) or replay.near >= 1e-4:
+        fail("the card's ReLU calls or signs differ from the CPU's beyond rounding")
+    if not (worst_m < 1e-3 and worst_c < 1e-3 and rel[worst_g] <= 1e-3 and noise < 1e-6
+            and p_ok):
+        fail("the card's training step and the CPU's disagree")
+    if not (loss_b < 1e-3 and worst_mb < 5e-3 and worst_cb < 2e-3 and rel_b < 0.15):
+        fail("the card's bf16 training step and the CPU's disagree")
+
+
+def train_lookup_time(torch, E, h, w):
+    """The training lookup (ops/corr.py corr_lookup_pyramid under autograd,
+    the plain gather, no kernel) at the full shape: forward alone and
+    forward + backward, CUDA events; and the bytes it must move at least
+    (the pyramid read once, the lookups written once; backward: the lookups'
+    gradient read once, the pyramid's gradient written once)."""
+    from droid_slam_reserch_tpu_torch.ops.corr import (build_pyramid, corr_lookup_pyramid,
+                                                       corr_volume)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    f1 = torch.randn(E, h, w, 128, device="cuda", generator=g)
+    f2 = torch.randn(E, h, w, 128, device="cuda", generator=g)
+    pyr = [v.detach().requires_grad_(True) for v in build_pyramid(corr_volume(f1, f2))]
+    coords = (torch.rand(E, h, w, 2, device="cuda", generator=g)
+              * torch.tensor([w, h], device="cuda", dtype=torch.float32))
+    gout = torch.randn(E, h, w, 196, device="cuda", generator=g)
+
+    def fwd():
+        return corr_lookup_pyramid(pyr, coords)
+
+    def fwd_bwd():
+        torch.autograd.grad(corr_lookup_pyramid(pyr, coords), pyr, gout)
+
+    ms_f, ms_fb = cuda_ms(torch, fwd, 10), cuda_ms(torch, fwd_bwd, 10)
+    vol_bytes = sum(v.numel() for v in pyr) * 4
+    out_bytes = E * h * w * 196 * 4 + E * h * w * 2 * 4
+    b_f = bound(0, vol_bytes + out_bytes)[0]
+    b_fb = bound(0, 2 * vol_bytes + 2 * out_bytes)[0]
+    say("train", f"training lookup (plain gather under autograd, {E} edges x {h}x{w}, 4 levels, "
+                 f"fp32 pyramid {vol_bytes / 2**30:.2f} GiB): forward {ms_f:.3f} ms (bound "
+                 f"{b_f:.3f} ms, bytes), forward + backward {ms_fb:.3f} ms (bound {b_fb:.3f} ms)")
+    return {"forward_ms": ms_f, "forward_backward_ms": ms_fb, "bound_forward_ms": b_f,
+            "bound_forward_backward_ms": b_fb}
+
+
+def train_profile(torch, step_fn):
+    """One full-width step under torch.profiler (device activity only, to
+    keep the trace of some 190,000 kernels cheap): the device's busy share,
+    from the union of its kernels' intervals (cuDNN runs some on streams of
+    its own, so their sum can exceed the wall), and the top device kernels;
+    the table goes to chiprun_out/profile_train.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -np.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    dev = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                 reverse=True)
+    if busy == 0:
+        fail("torch.profiler recorded no device time in the training step")
+    total = sum(us for us, _, _ in dev)
+    say("train", f"profiled fp32 step (no remat): wall {wall_us / 1e3:.1f} ms, device busy "
+                 f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f} %), idle "
+                 f"{100 * (1 - busy / wall_us):.1f} %; kernel time {total / 1e3:.1f} ms over "
+                 f"{len(spans)} kernels")
+    say("train", "top device kernels (ms, launches): " + "; ".join(
+        f"{name[:70]} {us / 1e3:.1f} {n}" for us, n, name in dev[:10]))
+    with open(os.path.join(OUT_DIR, "profile_train.txt"), "w") as f:
+        f.write(f"one training step: wall {wall_us:.0f} us, device busy {busy:.0f} us, "
+                f"kernel time {total:.0f} us\n\n")
+        for us, n, name in dev:
+            f.write(f"{us:12.1f} {n:7d}  {name[:160]}\n")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
+            "kernel_ms": total / 1e3, "kernels": len(spans),
+            "top": [(name, us / 1e3, n) for us, n, name in dev[:10]]}
+
+
+def train_full_shape(torch):
+    """(b) At TrainConfig's full shape, on a synthetic scene with a graph
+    from sample_frame_graph: 3 optimizer steps in fp32 with remat, 3
+    without, 3 in bf16 (the first of each mode warms up); each step's
+    seconds (host clock, synchronised) split into forward, backward and
+    optimizer, the peak memory, finite losses.  Then one fp32 step under
+    torch.profiler."""
+    from droid_slam_reserch_tpu_torch.train import TrainConfig
+    from droid_slam_reserch_tpu_torch.train.step import (init_train_state, make_optimizer,
+                                                         sample_frame_graph, sampled_graph_loss)
+
+    cfg = TrainConfig()
+    item = train_scene(np.random.default_rng(0), TRAIN_P, TRAIN_H, TRAIN_W)
+    graph = sample_frame_graph(np.random.default_rng(2), *(x[None] for x in item[1:]), TRAIN_P,
+                               TRAIN_E_PAD, device="cuda")
+    batch = train_batch(torch, item, graph, "cuda")
+    opt = make_optimizer(cfg)
+    say("train", f"full shape: {TRAIN_H}x{TRAIN_W}, {TRAIN_P} frames, {TRAIN_IT} iterations x 2 "
+                 f"BA steps, {int(graph[2].sum())} edges padded to {TRAIN_E_PAD}, batch 1")
+    results = {}
+    for mode, dtype, remat, n in (("fp32 remat", None, True, 3), ("fp32", None, False, 3),
+                                  ("bf16", torch.bfloat16, False, 3)):
+        loss_fn = sampled_graph_loss(cfg, dtype=dtype, remat=remat)
+        params, state = init_train_state(cfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rows, losses = [], []
+        for _ in range(n):
+            leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, (metrics, _) = loss_fn(leaves, batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            params, state = opt(params, state, grads)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            rows.append((t3 - t0, t1 - t0, t2 - t1, t3 - t2))
+            losses.append(float(loss.detach()))
+            del leaves, loss, grads
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = np.median(rows[1:], axis=0)
+        say("train", f"{mode}: s per step (total / forward / backward / optimizer) "
+                     + ", ".join("/".join(f"{x:.3f}" for x in r) for r in rows)
+                     + f"; median after the first {steady[0]:.3f} s; peak memory {peak:.2f} GiB; "
+                     f"losses {', '.join(f'{x:.4f}' for x in losses)}")
+        if not np.isfinite(losses).all() or not all(
+                bool(torch.isfinite(p).all()) for p in params.values()):
+            fail(f"training at the full shape ({mode}) gave a non-finite loss or parameter")
+        results[mode] = {"s_per_step": steady[0], "forward_s": steady[1], "backward_s": steady[2],
+                         "optimizer_s": steady[3], "steps": rows, "peak_gib": peak,
+                         "losses": losses}
+        if mode == "fp32":
+            def one_step():
+                leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+                loss, _ = loss_fn(leaves, batch)
+                torch.autograd.grad(loss, list(leaves.values()))
+
+            results["profile"] = train_profile(torch, one_step)
+        del params, state, loss_fn
+    say("train", f"full shape: remat costs {results['fp32 remat']['s_per_step'] / results['fp32']['s_per_step']:.2f}x "
+                 f"the time and saves {results['fp32']['peak_gib'] - results['fp32 remat']['peak_gib']:.2f} GiB; "
+                 f"bf16 takes {results['bf16']['s_per_step'] / results['fp32']['s_per_step']:.2f}x fp32's time")
+    E, h, w = TRAIN_E_PAD, TRAIN_H // 8, TRAIN_W // 8
+    results["lookup"] = train_lookup_time(torch, E, h, w)
+    return results
+
+
+def train_overfit(torch):
+    """(c) 8 make_train_step steps on one fixed scene at 192x256, 7 frames,
+    4 iterations, the temporal graph, fp32 (the OneCycle horizon of
+    TrainConfig's 250000 steps): the last loss must be below the first."""
+    from droid_slam_reserch_tpu_torch.train import TrainConfig
+    from droid_slam_reserch_tpu_torch.train.step import (init_train_state, make_train_step,
+                                                         temporal_graph)
+
+    H, W, IT = 192, 256, 4
+    cfg = TrainConfig(iters=IT, image_size=(H, W))
+    ii, jj = (torch.from_numpy(x).long().cuda() for x in temporal_graph(TRAIN_P))
+    item = train_scene(np.random.default_rng(0), TRAIN_P, H, W)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[None])).cuda()
+             for k, v in zip(("images", "poses", "disps", "intrinsics"), item)}
+    params, state = init_train_state(cfg, device="cuda")
+    step = make_train_step(cfg, ii, jj, num_steps=IT)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(8):
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+    say("train", f"overfit, 8 steps at {H}x{W}, {IT} iterations in {time.perf_counter() - t0:.1f} "
+                 f"s: losses {', '.join(f'{x:.4f}' for x in losses)}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail("the overfit loss did not fall")
+
+
+def write_tartan_training_scene(root, n=16, H=480, W=640):
+    """A TartanAir training scene, root/env/env/Easy/P001: n 480x640 PNGs of
+    euroc_frames' texture, depth_left .npy of 2 m plus a ripple, NED poses
+    0.1 m apart (0.02 after the dataset's depth scale: about 16 px of flow)."""
+    scene = os.path.join(root, "env", "env", "Easy", "P001")
+    os.makedirs(os.path.join(scene, "image_left"))
+    os.makedirs(os.path.join(scene, "depth_left"))
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    depth = (2.0 + 0.2 * np.sin(0.01 * xs) * np.cos(0.01 * ys)).astype(np.float32)
+    for t, img in enumerate(euroc_frames(n, seed=7, H=H, W=W)):
+        write_png(os.path.join(scene, "image_left", f"{t:06d}_left.png"), img)
+        np.save(os.path.join(scene, "depth_left", f"{t:06d}_left_depth.npy"), depth)
+    np.savetxt(os.path.join(scene, "pose_left.txt"),
+               np.asarray([[0.0, 0.1 * t, 0.0, 0.0, 0.0, 0.0, 1.0] for t in range(n)]))
+    return scene
+
+
+def train_cli(torch, ops, root):
+    """(d) cli.main(["train", ...]) at the full crop (TrainConfig's defaults,
+    restarts at 0.2) on a TartanAir scene of 480x640 PNGs: 2 steps with a
+    checkpoint each, then a resume to 3 (the optimizer state carried); then
+    the port's tartanair command with --weights at that checkpoint.  Returns
+    the training commands' counts; the tracking's are checked apart."""
+    import contextlib
+    import io
+
+    from droid_slam_reserch_tpu_torch import cli
+    from droid_slam_reserch_tpu_torch.train import load_ckpt
+
+    scene = write_tartan_training_scene(os.path.join(root, "tartan_train"))
+    cwd = os.getcwd()
+    os.chdir(root)                                   # checkpoints/ and runs/ land here
+    try:
+        argv = ["train", "--datapath", os.path.join(root, "tartan_train"), "--save_every", "1",
+                "--name", "smoke"]
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(argv + ["--steps", "2"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(argv + ["--steps", "3", "--ckpt", "checkpoints/smoke_000002.npz"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = ops.counts()
+        ck = os.path.join(root, "checkpoints", "smoke_000003.npz")
+        params, state, step = load_ckpt(ck)
+        if not (step == 3 and state is not None and state["count"] == 3
+                and all(bool(torch.isfinite(p).all()) for p in params.values())):
+            fail("cli train: the resumed checkpoint is not at step 3 with finite parameters")
+        say("train", f"cli train at {TRAIN_H}x{TRAIN_W}, 7 frames, 15 iterations: 2 steps in "
+                     f"{t1 - t0:.1f} s (the dataset's index included), resume to 3 in "
+                     f"{t2 - t1:.1f} s; checkpoint step {step}, Adam count {state['count']}")
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            droid = cli.main(["tartanair", "--datapath", scene, "--gt", scene + "/pose_left.txt",
+                              "--weights", ck, "--filter_thresh", "-1", "--keyframe_thresh", "0"])
+        torch.cuda.synchronize()
+        res = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+        ate = res[-1]["ate_score"] if res else float("nan")
+        say("train", f"tartanair with --weights {os.path.basename(ck)}: {droid.video.counter} "
+                     f"keyframes in {time.perf_counter() - t0:.1f} s, ate_score {ate:.4f}; "
+                     f"counts {ops.counts()}")
+        if not np.isfinite(ate):
+            fail("tartanair with the trained weights printed no finite ate_score")
+        check_counts(ops.counts(), "tartanair with the trained weights", MAIN_KERNELS, OFF_ENGINE)
+        del droid
+    finally:
+        os.chdir(cwd)
+    return counts
+
+
+def phase_train(torch, ops):
+    """The training path (see train_card_vs_cpu, train_full_shape,
+    train_overfit and train_cli).  Around (b) to (d) every kernel's launch
+    count and every plain version's call count is set to 0 and read back as
+    0: training runs plain PyTorch under autograd and calls no kernel
+    wrapper.  Returns the counts and the full shape's numbers."""
+    t0 = time.time()
+    train_card_vs_cpu(torch)
+    say("time", f"train (a) card vs CPU: {time.time() - t0:.1f} s")
+    ops.reset_counts()
+    t0 = time.time()
+    results = train_full_shape(torch)
+    say("time", f"train (b) full shape: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    train_overfit(torch)
+    say("time", f"train (c) overfit: {time.time() - t0:.1f} s")
+    counts = ops.counts()
+    root = tempfile.mkdtemp(prefix="droid_train_")
+    try:
+        t0 = time.time()
+        counts_cli = train_cli(torch, ops, root)
+        say("time", f"train (d) cli: {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for what, c in (("training at the full shape and the overfit", counts),
+                    ("the cli's train", counts_cli)):
+        if any(launches or plain for launches, plain in c.values()):
+            fail(f"{what} called a kernel or a plain version: {c}")
+    say("train", "no kernel and no plain version ran in (b)-(d)'s training")
+    torch.cuda.empty_cache()
+    return {k: (counts[k][0] + counts_cli[k][0], counts[k][1] + counts_cli[k][1])
+            for k in counts}, results
+
+
 def main():
     import torch
 
@@ -2671,6 +3172,10 @@ def main():
     by_path["profile_frontend"] = phase_profile_frontend(torch, ops)
     by_path["profile_frontend_bf16"] = phase_profile_frontend(torch, ops, "bfloat16")
     lap("profile-frontend")
+    by_path["train"], train_results = phase_train(torch, ops)
+    with open(os.path.join(OUT_DIR, "train.json"), "w") as f:
+        json.dump(train_results, f, indent=1)
+    lap("train")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)

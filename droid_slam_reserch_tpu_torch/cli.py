@@ -11,11 +11,13 @@ Usage:
   python -m droid_slam_reserch_tpu_torch.cli multisession-align --first A.npz --second B.npz --spec spec.json --out DIR
   python -m droid_slam_reserch_tpu_torch.cli multisession --sessions DIR --out DIR
   python -m droid_slam_reserch_tpu_torch.cli multisession-evaluate --fused fused.npz --spec spec.json
+  python -m droid_slam_reserch_tpu_torch.cli train --datapath TARTANAIR_ROOT [--ckpt CKPT.npz]
 
 Every command runs on the CUDA card; ``--device cpu`` runs the plain
 PyTorch versions of the kernels on the CPU instead.  ``--vis_path`` streams
-the live point cloud into a PLY file while tracking runs.  ``train`` is not
-ported yet.
+the live point cloud into a PLY file while tracking runs.  ``train`` runs
+on one device (plain PyTorch under autograd, no kernel of the engine) and
+writes checkpoints that ``--weights`` reads.
 """
 import argparse
 import json
@@ -456,6 +458,121 @@ def cmd_multisession_evaluate(args):
     print(json.dumps({"ate": res, "sequences": len(trajs)}))
 
 
+def cmd_train(args):
+    """The training loop (reference train.py:43-186) on one device: per item
+    a sampled graph (covisibility or temporal, 1/2 each), random pose
+    restarts whose gradients are summed before one optimizer step, and a
+    producer thread that prepares the items.  The numpy seeds are derived
+    from the step index, so a resumed run replays the data of an
+    uninterrupted one."""
+    import queue
+    import threading
+
+    import torch
+
+    from .data import dataset_factory
+    from .lie import se3_inv
+    from .train import Logger, TrainConfig, init_train_state, load_ckpt, save_ckpt
+    from .train.step import initial_poses, make_train_step_dynamic, sample_frame_graph
+
+    device = torch.device(args.device)
+    crop = tuple(args.image_size)
+    cfg = TrainConfig(name=args.name, lr=args.lr, steps=args.steps, batch=args.batch,
+                      n_frames=args.n_frames, iters=args.iters, image_size=crop)
+    os.makedirs("checkpoints", exist_ok=True)
+    # the scene-index cache lives under the dataset root, so different
+    # datasets never share a stale pickle
+    db = dataset_factory(["tartan"], datapath=args.datapath, n_frames=cfg.n_frames,
+                         fmin=cfg.fmin, fmax=cfg.fmax, crop_size=crop,
+                         cache_dir=os.path.join(args.datapath, ".droid_cache"), device=device)
+    grad_step, apply_step = make_train_step_dynamic(cfg)
+
+    params, opt_state = init_train_state(cfg, device=device)
+    start_step = 0
+    if args.ckpt:
+        params, opt2, start_step = load_ckpt(args.ckpt, device)
+        if opt2 is not None:
+            opt_state = opt2
+    logger = Logger(cfg.name)
+    # covers the r=2 temporal graph and the covisibility sampler's 24 edges
+    e_pad = max(4 * cfg.n_frames, 24)
+
+    q = queue.Queue(maxsize=4)
+    stop = threading.Event()
+
+    def producer():
+        t = start_step
+        try:
+            while not stop.is_set():
+                prng = np.random.default_rng((54321, 0, t))
+                grng = np.random.default_rng((98765, t))
+                items = [db[int(i)] for i in prng.integers(0, len(db), size=cfg.batch)]
+                images, poses, disps, intr = (np.stack([x[k] for x in items]) for k in range(4))
+                ii, jj, emask = sample_frame_graph(grng, poses, disps, intr, cfg.n_frames, e_pad,
+                                                   device=device)
+                t += 1
+                while not stop.is_set():
+                    try:
+                        q.put((images, poses, disps, intr, ii, jj, emask), timeout=5)
+                        break
+                    except queue.Full:
+                        continue
+        except BaseException as e:  # the main loop raises it
+            q.put(e)
+            raise
+
+    th = threading.Thread(target=producer, daemon=True)
+    th.start()
+
+    def next_item():
+        while True:
+            try:
+                item = q.get(timeout=10)
+            except queue.Empty:
+                if not th.is_alive():
+                    raise RuntimeError("data producer thread died")
+                continue
+            if isinstance(item, BaseException):
+                raise RuntimeError("data producer failed") from item
+            return item
+
+    def put(x, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(x)).to(device=device, dtype=dtype)
+
+    total = start_step
+    try:
+        while total < cfg.steps:
+            images, poses, disps, intr, ii, jj, emask = next_item()
+            rng = np.random.default_rng((12345, total))
+            poses, disps = put(poses), put(disps)
+            batch = {"images": put(images), "poses": poses, "disps": disps,
+                     "intrinsics": put(intr), "ii": put(ii, torch.long),
+                     "jj": put(jj, torch.long), "emask": put(emask),
+                     "Gs0": initial_poses(se3_inv(poses)),
+                     "disp0": torch.ones_like(disps[:, :, 3::8, 3::8])}
+
+            # restarts (reference train.py:102-118): at least one pass, the
+            # gradients summed, the next pass seeded with the last estimate
+            grads_acc = None
+            while True:
+                grads, metrics, (Gs_last, disp_last) = grad_step(params, batch)
+                grads_acc = grads if grads_acc is None else {
+                    k: grads_acc[k] + g for k, g in grads.items()}
+                batch = dict(batch, Gs0=Gs_last, disp0=disp_last)
+                if rng.random() >= args.restart_prob:
+                    break
+            params, opt_state = apply_step(params, opt_state, grads_acc)
+
+            values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=device)
+                                  for v in metrics.values()]).cpu().tolist()
+            logger.push(dict(zip(metrics, values)))
+            total += 1
+            if total % args.save_every == 0:
+                save_ckpt(f"checkpoints/{cfg.name}_{total:06d}.npz", params, opt_state, total)
+    finally:
+        stop.set()
+
+
 def build_parser():
     parser = argparse.ArgumentParser(prog="droid_slam_reserch_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -539,6 +656,25 @@ def build_parser():
     p.add_argument("--stereo", action="store_true")
     _add_slam_flags(p)
     p.set_defaults(fn=cmd_multisession_evaluate)
+
+    p = sub.add_parser("train")
+    p.add_argument("--datapath", required=True)
+    p.add_argument("--ckpt", default=None, help="npz checkpoint to resume from")
+    p.add_argument("--save_every", type=int, default=10000,
+                   help="checkpoint every N steps (params + optimizer state + step)")
+    p.add_argument("--name", default="droid")
+    p.add_argument("--lr", type=float, default=2.5e-4)
+    p.add_argument("--steps", type=int, default=250000)
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--n_frames", type=int, default=7)
+    p.add_argument("--iters", type=int, default=15)
+    p.add_argument("--image_size", type=int, nargs=2, default=[384, 512],
+                   help="training crop H W (reference augmentation crop)")
+    p.add_argument("--restart_prob", type=float, default=0.2,
+                   help="random pose-restart probability (reference train.py:102)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of training: cuda (the default) or cpu")
+    p.set_defaults(fn=cmd_train)
     return parser
 
 

@@ -1,10 +1,12 @@
-"""TartanAir evaluation stream (mirror of data/tartan.py's tartan_stream and
-test split; reference evaluation_scripts/validate_tartanair.py:18-37)."""
+"""TartanAir: the training dataset and the evaluation stream (mirror of
+the JAX package's data/tartan.py; reference data_readers/tartan.py and
+evaluation_scripts/validate_tartanair.py:18-37)."""
 import glob
 import os.path as osp
 
 import numpy as np
 
+from .base import RGBDDataset
 from .imageio import imread, resize
 
 # TartanAir test-split environments (reference data_readers/tartan_test.txt)
@@ -45,6 +47,48 @@ TARTAN_TEST_SPLIT = [
 
 # the fixed TartanAir camera at 640x480 (reference data_readers/tartan.py calib_read)
 TARTAN_INTRINSICS = np.array([320.0, 320.0, 320.0, 240.0])
+
+
+class TartanAir(RGBDDataset):
+    """Scenes under ``datapath/*/*/*/*`` with image_left/*.png,
+    depth_left/*.npy and pose_left.txt (NED [x y z qx qy qz qw])."""
+    DEPTH_SCALE = 5.0  # balances rotation against translation
+
+    def __init__(self, mode="training", **kwargs):
+        self.mode = mode
+        super().__init__(name="TartanAir", **kwargs)
+
+    @staticmethod
+    def is_test_scene(scene):
+        return any(x in scene for x in TARTAN_TEST_SPLIT)
+
+    def _build_dataset(self):
+        scene_info = {}
+        for scene in sorted(glob.glob(osp.join(self.root, "*/*/*/*"))):
+            images = sorted(glob.glob(osp.join(scene, "image_left/*.png")))
+            depths = sorted(glob.glob(osp.join(scene, "depth_left/*.npy")))
+            if not images or len(images) != len(depths):
+                continue
+            poses = np.loadtxt(osp.join(scene, "pose_left.txt"), delimiter=" ")
+            # NED -> the camera's xyz order
+            poses = poses[:, [1, 2, 0, 4, 5, 3, 6]]
+            poses[:, :3] /= TartanAir.DEPTH_SCALE
+            intrinsics = [TartanAir.calib_read()] * len(images)
+            graph = self.build_frame_graph(poses, depths, intrinsics)
+            scene_info[scene] = {"images": images, "depths": depths, "poses": poses,
+                                 "intrinsics": intrinsics, "graph": graph}
+        return scene_info
+
+    @staticmethod
+    def calib_read():
+        return TARTAN_INTRINSICS.copy()
+
+    @staticmethod
+    def depth_read(depth_file):
+        depth = np.load(depth_file) / TartanAir.DEPTH_SCALE
+        depth[np.isnan(depth)] = 1.0
+        depth[np.isinf(depth)] = 1.0
+        return depth
 
 
 def tartan_stream(scene_path, stereo=False, stride=1, image_size=(384, 512)):

@@ -7,7 +7,7 @@ correlation and motion inputs are cast to the dtype of its hidden state.
 import torch
 import torch.nn.functional as F
 
-from ..models.droidnet import IMAGE_MEAN, IMAGE_STD
+from ..models.droidnet import normalize_images
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -22,26 +22,18 @@ def compute_dtype(name):
                          f"got {name!r}") from None
 
 
-def normalize_image(images):
-    """[..., H, W, 3] BGR 0-255 -> normalized RGB (reference motion_filter.py:66-69)."""
-    x = images.flip(-1) / 255.0
-    mean = torch.tensor(IMAGE_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGE_STD, dtype=x.dtype, device=x.device)
-    return (x - mean) / std
-
-
 def _weights_dtype(encoder):
     return encoder.conv1.weight.dtype
 
 
 def fnet_apply(net, images):
     """images [B, H, W, 3] BGR 0-255 -> fmaps [B, H/8, W/8, 128]."""
-    return net.fnet(normalize_image(images).to(_weights_dtype(net.fnet)))
+    return net.fnet(normalize_images(images).to(_weights_dtype(net.fnet)))
 
 
 def cnet_apply(net, images):
     """images [B, H, W, 3] -> (net tanh, inp relu), each [B, H/8, W/8, 128]."""
-    ctx = net.cnet(normalize_image(images).to(_weights_dtype(net.cnet)))
+    ctx = net.cnet(normalize_images(images).to(_weights_dtype(net.cnet)))
     return torch.tanh(ctx[..., :128]), F.relu(ctx[..., 128:])
 
 

@@ -1,6 +1,7 @@
 """Pinhole projective geometry with analytic Jacobians on tensors.
 
-Mirror of the JAX package's geom/projective.py (SE3 only):
+Mirror of the JAX package's geom/projective.py (SE3, and Sim3 with
+``group="sim3"``):
 - the pixel grid is (x, y) with x = column index, y = row index;
 - homogeneous points are [X, Y, 1, d] with d the inverse depth;
 - stereo self-edges (ii == jj) use the fixed baseline [-0.1, 0, 0, identity];
@@ -8,10 +9,13 @@ Mirror of the JAX package's geom/projective.py (SE3 only):
 """
 import torch
 
-from ..lie import se3_act, se3_adjT, se3_inv, se3_mul
+from ..lie import se3_act, se3_adjT, se3_inv, se3_mul, sim3_act, sim3_adjT, sim3_inv, sim3_mul
 
 MIN_DEPTH = 0.2
 STEREO_SE3 = (-0.1, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0)
+# group -> (mul, inv, act, adjT, manifold dim)
+GROUPS = {"se3": (se3_mul, se3_inv, se3_act, se3_adjT, 6),
+          "sim3": (sim3_mul, sim3_inv, sim3_act, sim3_adjT, 7)}
 
 
 def coords_grid(ht, wd, dtype=torch.float32, device=None):
@@ -65,60 +69,85 @@ def proj(Xs, intrinsics, jacobian=False, return_depth=False, min_depth=MIN_DEPTH
     return coords, None
 
 
-def actp(Gij, X0, jacobian=False):
-    """SE3 action on homogeneous point clouds; Gij [..., 7], X0 [..., H, W, 4]."""
-    X1 = se3_act(Gij[..., None, None, :], X0)
+def actp(Gij, X0, jacobian=False, group="se3"):
+    """Group action on homogeneous point clouds; Gij [..., 7|8], X0 [..., H, W, 4]."""
+    X1 = GROUPS[group][2](Gij[..., None, None, :], X0)
     if not jacobian:
         return X1, None
     X, Y, Z, d = X1.unbind(-1)
     o = torch.zeros_like(d)
-    Ja = torch.stack(
-        [d, o, o, o, Z, -Y,
-         o, d, o, -Z, o, X,
-         o, o, d, Y, -X, o,
-         o, o, o, o, o, o],
-        dim=-1,
-    ).reshape(d.shape + (4, 6))
+    if group == "se3":
+        Ja = torch.stack(
+            [d, o, o, o, Z, -Y,
+             o, d, o, -Z, o, X,
+             o, o, d, Y, -X, o,
+             o, o, o, o, o, o],
+            dim=-1,
+        ).reshape(d.shape + (4, 6))
+    else:
+        Ja = torch.stack(
+            [d, o, o, o, Z, -Y, X,
+             o, d, o, -Z, o, X, Y,
+             o, o, d, Y, -X, o, Z,
+             o, o, o, o, o, o, o],
+            dim=-1,
+        ).reshape(d.shape + (4, 7))
     return X1, Ja
 
 
-def relative_poses(poses, ii, jj, stereo=True):
+def relative_poses(poses, ii, jj, stereo=True, group="se3"):
     """Gij = poses[jj] * poses[ii]^-1 with the stereo self-edge override.
 
-    poses: [B, P, 7]; ii/jj: [N] long tensors.  Returns [B, N, 7].
+    poses: [B, P, 7|8]; ii/jj: [N] long tensors.  Returns [B, N, 7|8].
     """
-    Gij = se3_mul(poses[:, jj], se3_inv(poses[:, ii]))
+    mul, inv = GROUPS[group][:2]
+    Gij = mul(poses[:, jj], inv(poses[:, ii]))
     if stereo:
         # fill_ passes the value in the launch; a host tensor or an item
         # assignment would copy from the host and wait for the stream
-        fixed = Gij.new_zeros(7)
+        fixed = Gij.new_zeros(Gij.shape[-1])
         fixed[0:1].fill_(STEREO_SE3[0])
-        fixed[6:7].fill_(STEREO_SE3[6])
+        fixed[6:].fill_(1.0)          # qw, and Sim3's scale
         Gij = torch.where((ii == jj)[None, :, None], fixed, Gij)
     return Gij
 
 
 def projective_transform(poses, depths, intrinsics, ii, jj, jacobian=False,
-                         return_depth=False, min_depth=MIN_DEPTH):
+                         return_depth=False, min_depth=MIN_DEPTH, group="se3"):
     """Map pixels of frames ii into frames jj.
 
-    poses [B, P, 7], depths [B, P, H, W] (inverse depth), intrinsics
-    [B, P, 4], ii/jj [N].  Returns (coords [B,N,H,W,2], valid [B,N,H,W,1])
-    and, with jacobian=True, also (Ji, Jj, Jz).
+    poses [B, P, 7|8], depths [B, P, H, W] (inverse depth), intrinsics
+    [B, P, 4], ii/jj [N].  Returns (coords [B,N,H,W,2(+1)], valid
+    [B,N,H,W,1]) and, with jacobian=True, also (Ji, Jj, Jz).
     """
     X0, Jz = iproj(depths[:, ii], intrinsics[:, ii], jacobian=jacobian)
-    Gij = relative_poses(poses, ii, jj)
-    X1, Ja = actp(Gij, X0, jacobian=jacobian)
+    Gij = relative_poses(poses, ii, jj, group=group)
+    X1, Ja = actp(Gij, X0, jacobian=jacobian, group=group)
     x1, Jp = proj(X1, intrinsics[:, jj], jacobian=jacobian,
                   return_depth=return_depth, min_depth=min_depth)
     valid = ((X1[..., 2] > min_depth) & (X0[..., 2] > min_depth)).to(x1.dtype)[..., None]
     if jacobian:
+        _, _, act, adjT, _ = GROUPS[group]
         Jj = torch.matmul(Jp, Ja)
-        Ji = -se3_adjT(Gij[..., None, None, None, :], Jj)
-        Jz_t = se3_act(Gij[..., None, None, :], Jz)
+        Ji = -adjT(Gij[..., None, None, None, :], Jj)
+        Jz_t = act(Gij[..., None, None, :], Jz)
         Jz_out = torch.matmul(Jp, Jz_t[..., None])
         return x1, valid, (Ji, Jj, Jz_out)
     return x1, valid
+
+
+def projmap(poses, disps, intrinsics, ii, jj, group="se3", min_depth=MIN_DEPTH):
+    """Dense reprojection coords with the depth channel, and validity, per edge."""
+    return projective_transform(poses, disps, intrinsics, ii, jj, return_depth=True,
+                                group=group, min_depth=min_depth)
+
+
+def induced_flow(poses, disps, intrinsics, ii, jj, group="se3"):
+    """Optical flow induced by camera motion, and validity."""
+    ht, wd = disps.shape[-2:]
+    coords0 = coords_grid(ht, wd, dtype=disps.dtype, device=disps.device)
+    coords1, valid = projective_transform(poses, disps, intrinsics, ii, jj, group=group)
+    return coords1[..., :2] - coords0, valid
 
 
 def frame_distance(poses, disps, intrinsics, ii, jj, beta=0.3, min_depth=0.25):

@@ -4,7 +4,8 @@ Tangent order [tau, phi]; retraction is left multiplication exp(xi) * X.
 """
 import torch
 
-from .so3 import _cross, quat_act, quat_inv, quat_mul, so3_exp, so3_log
+from .so3 import (_cross, matrix_to_quat, quat_act, quat_inv, quat_mul, quat_to_matrix, so3_exp,
+                  so3_log)
 
 
 def se3_identity(shape=(), dtype=torch.float32, device=None):
@@ -31,6 +32,18 @@ def se3_act(X, P):
     p, h = P[..., :3], P[..., 3:4]
     y = quat_act(X[..., 3:7], p) + h * X[..., :3]
     return torch.cat([y, h], dim=-1)
+
+
+def se3_act3(X, p):
+    """Act on 3D points: R p + t."""
+    return quat_act(X[..., 3:7], p) + X[..., :3]
+
+
+def hat(phi):
+    """Skew matrix [..., 3, 3] of (..., 3)."""
+    x, y, z = phi.unbind(-1)
+    o = torch.zeros_like(x)
+    return torch.stack([o, -z, y, z, o, -x, -y, x, o], dim=-1).reshape(phi.shape[:-1] + (3, 3))
 
 
 def _v_coeffs(theta_sq):
@@ -81,3 +94,30 @@ def se3_adjT(X, a):
     lin = quat_act(qi, a[..., :3])
     ang = quat_act(qi, a[..., 3:6]) + quat_act(qi, u)
     return torch.cat([lin, ang], dim=-1)
+
+
+def se3_adj(X, a):
+    """Adjoint Adj_X applied to a (..., 6) tangent vector [tau, phi]."""
+    q, t = X[..., 3:7], X[..., :3]
+    phi2 = quat_act(q, a[..., 3:6])
+    tau2 = quat_act(q, a[..., :3]) + _cross(t, phi2)
+    return torch.cat([tau2, phi2], dim=-1)
+
+
+def homogeneous(R, t):
+    """[..., 3, 3] block (rotation, or scaled rotation) and [..., 3]
+    translation -> [..., 4, 4]."""
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3].fill_(1.0)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_matrix(X):
+    """SE3 7-vector -> homogeneous 4x4 matrix."""
+    return homogeneous(quat_to_matrix(X[..., 3:7]), X[..., :3])
+
+
+def se3_from_matrix(T):
+    """4x4 homogeneous matrix -> SE3 7-vector."""
+    return torch.cat([T[..., :3, 3], matrix_to_quat(T[..., :3, :3])], dim=-1)

@@ -38,6 +38,10 @@ def quat_act(q, X):
     return X + qw * uv + _cross(qv, uv)
 
 
+def quat_normalize(q):
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
 def so3_exp(phi):
     """Axis-angle (..., 3) -> quaternion xyzw, with the reference's Taylor cutoffs."""
     theta_sq = torch.sum(phi * phi, dim=-1, keepdim=True)
@@ -84,3 +88,21 @@ def quat_to_matrix(q):
         dim=-1,
     )
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(R):
+    """3x3 rotation matrix -> quaternion xyzw (Shepperd's method, branchless:
+    the case with the largest of trace, m00, m11, m22)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    cases = torch.stack([
+        torch.stack([m21 - m12, m02 - m20, m10 - m01, 1.0 + tr], dim=-1),
+        torch.stack([1.0 + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12], dim=-1),
+        torch.stack([m01 + m10, 1.0 + m11 - m00 - m22, m12 + m21, m02 - m20], dim=-1),
+        torch.stack([m02 + m20, m12 + m21, 1.0 + m22 - m00 - m11, m10 - m01], dim=-1),
+    ], dim=-2)
+    idx = torch.stack([tr, m00, m11, m22], dim=-1).argmax(dim=-1)
+    q = torch.gather(cases, -2, idx[..., None, None].expand(idx.shape + (1, 4))).squeeze(-2)
+    return quat_normalize(q)

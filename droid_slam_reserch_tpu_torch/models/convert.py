@@ -4,7 +4,9 @@
   ``fnet/layer1_0/conv1/kernel`` (HWIO); the port uses the upstream torch
   names ``fnet.layer1.0.conv1.weight`` (OIHW).  This is the inverse of the
   JAX package's torch-checkpoint converter, so the same weights run in both
-  packages.
+  packages.  ``params_to_jax`` is its inverse: the port's training
+  checkpoints store their tensors in the JAX tree, so the JAX package reads
+  them.
 - ``state_dict_from_torch``: an upstream ``droid.pth`` state_dict (the JAX
   package's models/convert.py:58-126 ingests the same file): the
   DataParallel ``module.`` prefix stripped, the update operator's weight and
@@ -81,6 +83,37 @@ def params_from_jax(params):
         else:
             sd[f"{module}.{name}.bias"] = torch.from_numpy(val.copy())
     return sd
+
+
+_UPDATE_PATHS = {v: k for k, v in _UPDATE_NAMES.items()}
+
+
+def _encoder_path(name):
+    """'layer2.0.downsample.0' -> 'layer2_0/downsample'; 'conv1' -> 'conv1'."""
+    parts = name.split(".")
+    if len(parts) == 1:
+        return parts[0]
+    return f"{parts[0]}_{parts[1]}/{parts[2]}"
+
+
+def params_to_jax(state_dict):
+    """The port's state_dict (any device and float dtype) -> the JAX
+    package's params tree of float32 numpy arrays ({"fnet", "cnet",
+    "update"} nested dicts, kernels HWIO)."""
+    tree = {}
+    for key, val in state_dict.items():
+        module, rest = key.split(".", 1)
+        name, kind = rest.rsplit(".", 1)
+        path = _UPDATE_PATHS[name] if module == "update" else _encoder_path(name)
+        node = tree.setdefault(module, {})
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        val = val.detach().float().cpu().numpy()
+        if kind == "weight":
+            node["kernel"] = np.ascontiguousarray(val.transpose(2, 3, 1, 0))
+        else:
+            node["bias"] = val.copy()
+    return tree
 
 
 # heads trained with an extra channel; inference uses the first two

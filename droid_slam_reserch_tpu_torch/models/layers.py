@@ -1,4 +1,4 @@
-"""Shared layer helpers: forward-only gradient clip, instance norm, convs.
+"""Shared layer helpers: the gradient clip, instance norm, convs.
 
 Modules take and return NHWC tensors at their boundaries, as the JAX
 package does; inside, ``x.permute(0, 3, 1, 2)`` gives the NCHW view that
@@ -8,15 +8,31 @@ import torch
 from torch import nn
 
 
-class GradientClip(nn.Module):
-    """Identity in the forward pass (the port does not train yet).
+GRAD_CLIP = 0.01
 
-    Kept as a module so ``nn.Sequential`` indices match the upstream
-    checkpoint keys (``update.weight.2`` is the conv before it).
-    """
+
+class _GradientClip(torch.autograd.Function):
+    """Identity forward; the backward zeroes gradient entries with
+    |g| > 0.01 or NaN (upstream modules/clipping.py)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.where((g.abs() > GRAD_CLIP) | torch.isnan(g), torch.zeros_like(g), g)
+
+
+class GradientClip(nn.Module):
+    """The gradient clip at the update operator's three heads, as a module
+    so ``nn.Sequential`` indices match the upstream checkpoint keys
+    (``update.weight.2`` is the conv before it)."""
 
     def forward(self, x):
-        return x
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return x
+        return _GradientClip.apply(x)
 
 
 def instance_norm(x, eps=1e-5):

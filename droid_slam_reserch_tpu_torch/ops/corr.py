@@ -1,7 +1,8 @@
 """Correlation volumes and the radius-3 bilinear pyramid lookup, plain PyTorch:
 the full pyramid (K2, K3), the per-pixel window cache and its drift rule
-(K4, K5, K7, K8), the zero-bordered P-major pyramid (K6), and the backend's
-altcorr over a pooled feature pyramid.
+(K4, K5, K7, K8), the zero-bordered P-major pyramid (K6), the backend's
+altcorr over a pooled feature pyramid, and the training forward's
+differentiable pyramid.
 
 The spec that the CUDA kernels of ops/cuda_corr.py match:
 - features dot products are scaled by 1/16 and accumulated in fp32;
@@ -272,6 +273,54 @@ def lookup_pmajor(padded, coords, radius=3):
         sx = (_floor_int(c[..., 0]) + PPAD - radius).clamp(0, Wp - 8)
         out.append(_sample_span(v.permute(0, 3, 1, 2), sy, sx, c, radius))
     return torch.cat(out, -1)
+
+
+# ---------------------------------------------------------------- training
+#
+# The training forward's all-pairs pyramid in the 5-D layout
+# [E, H1, W1, H2_l, W2_l], on the plain functions above.  Autograd runs
+# through the volume (the lookup's gather) and the features; the lookup's
+# coords are detached, as the upstream CUDA sampler differentiates the
+# volume only.  No counted kernel wrapper runs here.
+
+def corr_volume(f1, f2):
+    """f1 [E, H1, W1, C], f2 [E, H2, W2, C] -> [E, H1, W1, H2, W2] in fp32, scaled 1/16."""
+    E, H1, W1, _ = f1.shape
+    H2, W2 = f2.shape[1:3]
+    return corr_volume_flat(f1, f2).reshape(E, H1, W1, H2, W2)
+
+
+def pool2x_volume(vol):
+    """2x average pool over the last two dims of [E, H1, W1, H2, W2] (floor)."""
+    E, H1, W1, H2, W2 = vol.shape
+    out = pool2x_volume_flat(vol.reshape(E, H1 * W1, H2, W2))
+    return out.reshape(E, H1, W1, *out.shape[2:])
+
+
+def build_pyramid(vol, num_levels=4):
+    pyr = [vol]
+    for _ in range(num_levels - 1):
+        vol = pool2x_volume(vol)
+        pyr.append(vol)
+    return pyr
+
+
+def corr_lookup(vol, coords, radius=3):
+    """vol [E, H1, W1, H2, W2], coords [E, H1, W1, 2] in the volume's pixels
+    -> [E, H1, W1, (2r+1)**2], channel a * (2r+1) + b (a the x tap)."""
+    E, H1, W1, H2, W2 = vol.shape
+    out = _lookup_level(vol.reshape(E, H1 * W1, H2, W2),
+                        coords.detach().float().reshape(E, H1 * W1, 2), radius)
+    return out.reshape(E, H1, W1, -1)
+
+
+def corr_lookup_pyramid(pyramid, coords, radius=3):
+    """Every level's lookup at coords / 2**l, level-major:
+    coords [E, H1, W1, 2] -> [E, H1, W1, L*(2r+1)**2]."""
+    E, H1, W1 = pyramid[0].shape[:3]
+    flat = [v.reshape(E, H1 * W1, *v.shape[3:]) for v in pyramid]
+    out = corr_lookup_pyramid_flat(flat, coords.reshape(E, H1 * W1, 2), radius)
+    return out.reshape(E, H1, W1, -1)
 
 
 # ---------------------------------------------------------------- altcorr

@@ -7,50 +7,31 @@ it runs ``build_system_blocks``.  ``launches`` / ``calls`` count each
 (dicts keyed by the kernel's name, as ops.cuda_corr's);
 ``system_blocks`` is the uncounted function itself.
 
-Conventions: weights are scaled by 0.001, pixels behind min_depth get zero
-weight, and stereo self-edges (ii == jj) contribute only depth terms.
+Conventions: weights are scaled by ba.system.W_SCALE (0.001), pixels
+behind min_depth get zero weight, and stereo self-edges (ii == jj)
+contribute only depth terms.
 """
 import torch
 
 from . import build
-from ..geom.projective import projective_transform, relative_poses
+from ..geom.projective import relative_poses
 from ..lie import quat_to_matrix
 
 
-def system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
-                  min_depth=0.25, w_scale=0.001):
-    """K1's function in plain PyTorch.  target/weight [N, H, W, 2]; poses
-    [MW, 7]; disps [MW, H, W]; intrinsics [4]; ii/jj [N] local frame indices.
+def system_blocks(target, weight, poses, disps, intrinsics, ii, jj, min_depth=0.25):
+    """K1's function in plain PyTorch: ba/system.py's blocks on one batch
+    item.  target/weight [N, H, W, 2]; poses [MW, 7]; disps [MW, H, W];
+    intrinsics [4]; ii/jj [N] local frame indices.
 
     Returns Hii/Hij/Hji/Hjj [N, 6, 6], vi/vj [N, 6], Ei/Ej [N, 6, HW] and
-    Ck/wk [N, HW], computed through projective_transform's Jacobians.
+    Ck/wk [N, HW].
     """
-    N = target.shape[0]
-    MW = poses.shape[0]
-    HW = disps.shape[-2] * disps.shape[-1]
-    intr = intrinsics.expand(MW, 4)
-    coords, valid, (Ji, Jj, Jz) = projective_transform(
-        poses[None], disps[None], intr[None], ii, jj, jacobian=True, min_depth=min_depth)
-    coords, valid, Ji, Jj, Jz = coords[0], valid[0], Ji[0], Jj[0], Jz[0]
+    from ..ba import system     # ba imports this module (ba/solver.py)
 
-    r = target - coords                                 # [N, H, W, 2]
-    w = w_scale * valid * weight
-    wp = w * (ii != jj).to(w.dtype)[:, None, None, None]
-    Jz0 = Jz[..., 0]                                    # [N, H, W, 2]
-
-    def hblock(Ja, Jb):
-        return torch.einsum("nhwcx,nhwc,nhwcy->nxy", Ja, wp, Jb)
-
-    Hij = hblock(Ji, Jj)
-    return {
-        "Hii": hblock(Ji, Ji), "Hij": Hij, "Hji": Hij.transpose(-1, -2), "Hjj": hblock(Jj, Jj),
-        "vi": torch.einsum("nhwcx,nhwc,nhwc->nx", Ji, wp, r),
-        "vj": torch.einsum("nhwcx,nhwc,nhwc->nx", Jj, wp, r),
-        "Ei": torch.einsum("nhwcx,nhwc,nhwc->nxhw", Ji, wp, Jz0).reshape(N, 6, HW),
-        "Ej": torch.einsum("nhwcx,nhwc,nhwc->nxhw", Jj, wp, Jz0).reshape(N, 6, HW),
-        "Ck": (w * Jz0 * Jz0).sum(-1).reshape(N, HW),
-        "wk": (w * r * Jz0).sum(-1).reshape(N, HW),
-    }
+    intr = intrinsics.expand(poses.shape[0], 4)
+    blk = system.build_system_blocks(target[None], weight[None], poses[None], disps[None],
+                                     intr[None], ii, jj, min_depth=min_depth)
+    return {k: v[0] for k, v in blk.items() if k not in ("coords", "valid")}
 
 
 def build_system_blocks(*args, **kw):
@@ -83,10 +64,11 @@ def outputs(N, H, W, device):
             parts[3].view(N, HW), parts[4].view(N, HW))
 
 
-def launch(out, target, weight, poses, disps, intrinsics, ii, jj, min_depth=0.25,
-           w_scale=0.001):
+def launch(out, target, weight, poses, disps, intrinsics, ii, jj, min_depth=0.25):
     """One launch of csrc/ba_blocks.cu into ``out`` (from ``outputs``), on
     inputs the wrapper has checked."""
+    from ..ba.system import W_SCALE
+
     N, H, W, _ = target.shape
     lib = build.library()
     with torch.cuda.device(target.device):
@@ -94,18 +76,17 @@ def launch(out, target, weight, poses, disps, intrinsics, ii, jj, min_depth=0.25
         err = lib.ba_blocks_launch(
             target.data_ptr(), weight.data_ptr(), poses.data_ptr(), disps.data_ptr(),
             ii.data_ptr(), jj.data_ptr(), intrinsics.data_ptr(), float(min_depth),
-            float(w_scale), N, H, W, *[o.data_ptr() for o in out], stream)
+            W_SCALE, N, H, W, *[o.data_ptr() for o in out], stream)
     build.check(err, "ba_system_blocks")
     return out
 
 
-def ba_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
-                     min_depth=0.25, w_scale=0.001):
+def ba_system_blocks(target, weight, poses, disps, intrinsics, ii, jj, min_depth=0.25):
     """Per-edge GN blocks (K1); arguments and result as build_system_blocks.
     On the card: float32 tensors, ii/jj int64, all contiguous on one device."""
     if target.device.type == "cpu":
         return build_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
-                                   min_depth=min_depth, w_scale=w_scale)
+                                   min_depth=min_depth)
     dev = target.device
     for name, x, dtype in (("target", target, torch.float32), ("weight", weight, torch.float32),
                            ("poses", poses, torch.float32), ("disps", disps, torch.float32),
@@ -126,7 +107,7 @@ def ba_system_blocks(target, weight, poses, disps, intrinsics, ii, jj,
         raise ValueError(f"ba_system_blocks: ii {tuple(ii.shape)}, jj {tuple(jj.shape)}")
 
     Hb, vb, Eb, Cb, wb = launch(outputs(N, H, W, dev), target, weight, poses, disps,
-                                intrinsics, ii, jj, min_depth, w_scale)
+                                intrinsics, ii, jj, min_depth)
     ba_system_blocks.launches["ba_blocks"] += 1
     return {
         "Hii": Hb[:, :6, :6], "Hij": Hb[:, :6, 6:], "Hji": Hb[:, 6:, :6], "Hjj": Hb[:, 6:, 6:],

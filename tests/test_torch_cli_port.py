@@ -100,15 +100,18 @@ def test_demo(tmp_path, capsys):
 
 
 def test_commands_and_refusals():
-    """The ported commands only (``train`` is refused), the card as the
-    default device, and --vis_path reaching the engine's configuration."""
+    """The ten commands of the JAX CLI, the card as the default device
+    (``train`` included), --vis_path reaching the engine's configuration,
+    and an unknown command refused."""
     sub = next(a for a in build_parser()._actions if a.dest == "cmd")
     assert sorted(sub.choices) == ["demo", "eth3d", "euroc", "multisession", "multisession-align",
-                                   "multisession-evaluate", "tartanair", "tum", "view"]
+                                   "multisession-evaluate", "tartanair", "train", "tum", "view"]
     args = build_parser().parse_args(["tum", "--datapath", "x"])
     assert args.device == "cuda"
     assert build_parser().parse_args(["view", "--reconstruction", "a.npz"]).device == "cuda"
     args = build_parser().parse_args(["tum", "--datapath", "x", "--vis_path", "cloud.ply"])
     assert _config_from_args(TUM_CONFIG, args).vis_path == "cloud.ply"
+    args = build_parser().parse_args(["train", "--datapath", "x"])
+    assert (args.device, args.iters, args.n_frames, args.image_size) == ("cuda", 15, 7, [384, 512])
     with pytest.raises(SystemExit):
-        build_parser().parse_args(["train", "--datapath", "x"])
+        build_parser().parse_args(["calibrate", "--datapath", "x"])

@@ -36,4 +36,6 @@ def test_walk_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "cuda_corr.py", "cuda_ba.py", "factor_graph.py",
             "profile_frontend.py", "cli.py", "imageio.py", "alignment.py",
-            "group_sequence.py", "pipeline.py", "live.py", "pointcloud.py"} <= names
+            "group_sequence.py", "pipeline.py", "live.py", "pointcloud.py", "sim3.py",
+            "losses.py", "chol.py", "dense.py", "system.py", "step.py", "checkpoint.py",
+            "logger.py", "rgbd_utils.py", "augmentation.py", "base.py", "factory.py"} <= names
