@@ -41,8 +41,9 @@ Phases (one line each; any failure exits nonzero):
 4. card vs CPU  the oracle frontend and backend gates on the card (ATE <
            0.01), and the port's Droid.track + terminate_eva at 64x96 on the
            card against the same run with device="cpu": mono, stereo,
-           RGB-D and mono with cfg.upsample (disps_up compared too) in fp32,
-           mono and stereo in bf16;
+           RGB-D, mono with cfg.upsample (disps_up compared too) and mono
+           with ba_shards=2 and refresh_shards=2 in fp32, mono and stereo in
+           bf16;
 5. main path    Droid.track with EUROC_CONFIG (mono, 320x512, full network
            widths, seeded random weights) over synthetic frames, then
            Droid.terminate_eva over the same frames (backend 7 + 12 steps,
@@ -95,7 +96,21 @@ Phases (one line each; any failure exits nonzero):
            training lookup's plain time; (c) an overfit whose loss falls;
            (d) cli train at the full crop, a resume, and tartanair with the
            trained weights; around (b)-(d) every count must stay 0
-           (train.json in chiprun_out/ holds the numbers).
+           (train.json in chiprun_out/ holds the numbers);
+8. parallel  the parallel/ package and the JPEG reader on the one card
+           (every shard on cuda:0): dist_ba_solve at 40x64, MW = 128, S = 2
+           and 4, both exchanges, against the unsharded solve, K1 launched
+           S x 2 a call and held on shard 0's inputs, each timed; on copies
+           of the mono bf16 main path's tracked state, one backend step with
+           refresh_shards 2 against 1 (bit for bit) and terminate_eva with
+           ba_shards=2 and refresh_shards=2 against the main path's (its
+           counts: K1, K2 bf16 -> fp32, K3, K4/K5 bf16, no plain version);
+           training at world size 1 over NCCL (make_parallel_train_step and
+           cli train, each bit for bit against one process); the eth3d
+           command on color/*.jpg built from tests/data/jpeg/ (bf16,
+           --depth), with the reader's ms a frame (parallel.json in
+           chiprun_out/ holds the sharded BA's times).  The card-vs-CPU
+           phase also runs mono 64x96 with ba_shards=2 and refresh_shards=2.
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as its last line the device JSON.  The script needs only
 torch, numpy and scipy, and the CUDA toolkit for nvcc.
@@ -1458,7 +1473,8 @@ def small_frames(mode, n=N_SMALL):
     """The 64x96 card-vs-CPU frames: tests/test_engine.py's sequences, as
     (image, depth) pairs; stereo pairs the frame with itself rolled 2 px,
     RGB-D draws a depth of 2 to 2.5 before each frame."""
-    rng = np.random.RandomState({"mono": 0, "upsample": 0, "stereo": 1, "rgbd": 2}[mode])
+    rng = np.random.RandomState({"mono": 0, "upsample": 0, "sharded": 0, "stereo": 1,
+                                 "rgbd": 2}[mode])
     out = []
     for t in range(n):
         depth = (2.0 + 0.5 * rng.rand(64, 96).astype(np.float32)) if mode == "rgbd" else None
@@ -1471,10 +1487,10 @@ def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
     """The oracle frontend and backend gates on the card, and the port's
     Droid.track + terminate_eva at 64x96 on the card against the same run on
     the CPU, in the compute dtype, for each sensor mode of `modes` (mono,
-    stereo, rgbd, and upsample: mono with cfg.upsample, whose disps_up after
-    terminate_eva is compared too).  Tolerance on poses, the trajectory and
-    disps_up:
-    fp32 1e-3; bf16 2e-2: bf16 keeps 8 significant bits, and the card's
+    stereo, rgbd, upsample: mono with cfg.upsample, whose disps_up after
+    terminate_eva is compared too, and sharded: mono with ba_shards=2 and
+    refresh_shards=2, whose counts on the card are returned; else None).
+    Tolerance on poses, the trajectory and disps_up: fp32 1e-3; bf16 2e-2: bf16 keeps 8 significant bits, and the card's
     cuDNN and the CPU's convolutions round at other places (as the JAX
     package and the port do on the CPU, where 8 frames differ by 2.6e-3 in
     poses, tests/test_torch_bf16_engine.py), which terminate_eva's backend
@@ -1520,12 +1536,16 @@ def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
     params = init_params(seed=0)
     intr = np.array([60.0, 60.0, 48.0, 32.0], np.float32)
     tol = 2e-2 if bf16 else 1e-3
+    sharded_counts = None
     for mode in modes:
         frames = small_frames(mode)
         cfg = small_config(DroidConfig).replace(compute_dtype=dtype, stereo=mode == "stereo",
                                                 rgbd=mode == "rgbd", upsample=mode == "upsample")
+        if mode == "sharded":
+            cfg = cfg.replace(ba_shards=2, refresh_shards=2)
         runs = {}
         for device in ("cuda", "cpu"):
+            ops.reset_counts()
             d = Droid(cfg, params=params, device=device)
             hist = []
             for t, (img, depth) in enumerate(frames):
@@ -1538,6 +1558,11 @@ def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
                                          for t, (img, _) in enumerate(frames)]))
             up = None if d.video.disps_up is None else d.video.disps_up[:d.video.counter].cpu()
             runs[device] = (hist, poses, traj, up)
+            if mode == "sharded" and device == "cuda":
+                torch.cuda.synchronize()
+                sharded_counts = ops.counts()
+                check_counts(sharded_counts, f"the card-vs-CPU sharded run ({dtype})",
+                             MAIN_KERNELS if not bf16 else MAIN_KERNELS_BF16, OFF_ENGINE)
         (h_gpu, p_gpu, tr_gpu, up_gpu), (h_cpu, p_cpu, tr_cpu, up_cpu) = runs["cuda"], runs["cpu"]
         same_graph = all(a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
                          for a, b in zip(h_gpu, h_cpu))
@@ -1564,6 +1589,7 @@ def phase_card_vs_cpu(torch, ops, dtype="float32", modes=("mono",)):
                                f"(tol {tol:.0e})")
             if not (same and bool(torch.isfinite(up_gpu).all()) and du <= tol):
                 fail(f"the card run and the CPU run disagree on disps_up ({dtype})")
+    return sharded_counts
 
 
 def check_counts(counts, what, kernels=MAIN_KERNELS, absent=()):
@@ -1809,7 +1835,8 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KE
     and the trajectory filler, timed apart on the host clock.  With
     profiling, the call runs under torch.profiler (whose overhead then
     enters the host-clock times).  With `capture`, the backend's kernel
-    inputs are kept.  Returns the kernel counts and the call's seconds."""
+    inputs are kept.  Returns the kernel counts, the call's seconds and the
+    trajectory."""
     from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
 
     n_kf = droid.video.counter
@@ -1848,7 +1875,7 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KE
         fail("terminate_eva did not return a finite trajectory of unit quaternions")
     check_counts(counts, f"the main path's terminate_eva ({mode}, {droid.cfg.compute_dtype})",
                  kernels, OFF_ENGINE)
-    return counts, call.seconds[0]
+    return counts, call.seconds[0], traj
 
 
 def phase_profile_frontend(torch, ops, dtype="float32"):
@@ -3066,6 +3093,469 @@ def phase_train(torch, ops):
             for k in counts}, results
 
 
+# ------------------------------------------------------------------ parallel
+
+MW_SHARDED = 128        # the sharded BA's window: the auto rule's smallest (MW >= 128)
+BA_ROUNDS = 25          # interleaved timing rounds of the sharded BA configurations
+# sharded against unsharded terminate_eva on the bf16 mono main path's state: the
+# backend's BA sums by atomic scatter-adds on the card (an unsharded rerun moves the
+# trajectory by about 1e-5) and the sharded BA in another order; 1e-3 is the fp32
+# card-vs-CPU limit, two orders above both
+SHARDED_TOL = 1e-3
+
+
+def sharded_ba_problem(torch, MW=MW_SHARDED, seed=5):
+    """A global BA at the main path's 40x64: MW frames panning along x with
+    small rotations, a radius-2 temporal graph (both directions) plus 16
+    long edges 8-24 frames apart, targets the true reprojections plus 0.5
+    px of noise, weights in [0.5, 1) where the reprojection is valid; the
+    poses moved off by 0.01 and the disparities by 5 %.  Returns the
+    window's tensors on the card and the host edge lists."""
+    from droid_slam_reserch_tpu_torch.geom import neighbourhood_graph, projective_transform
+    from droid_slam_reserch_tpu_torch.lie import se3_exp, se3_retr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    xi = torch.cat([0.05 * torch.arange(MW, device=dev)[:, None]
+                    * torch.tensor([1.0, 0.1, 0.0], device=dev),
+                    0.01 * torch.randn(MW, 3, generator=gen, device=dev)], 1)
+    poses_gt = se3_exp(xi)
+    disps = 0.5 + torch.rand(MW, H8, W8, generator=gen, device=dev)
+    intr = torch.tensor(INTR_EUROC / 8.0, device=dev)
+    ii, jj = (np.asarray(x, np.int64) for x in neighbourhood_graph(MW, 2))
+    li = rng.randint(0, MW - 24, 8)
+    lj = li + rng.randint(8, 25, 8)
+    ii, jj = np.concatenate([ii, li, lj]), np.concatenate([jj, lj, li])
+    iit, jjt = torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev)
+    target, valid = projective_transform(poses_gt[None], disps[None], intr.expand(MW, 4)[None],
+                                         iit, jjt)
+    target = (target[0] + 0.5 * torch.randn(target.shape[1:], generator=gen,
+                                            device=dev)).contiguous()
+    weight = ((0.5 + 0.5 * torch.rand(target.shape, generator=gen, device=dev))
+              * valid[0]).contiguous()
+    dxi = 0.01 * torch.randn(MW, 6, generator=gen, device=dev)
+    dxi[0] = 0.0
+    poses0 = se3_retr(poses_gt, dxi).contiguous()
+    eta = torch.full((MW, H8, W8), 1e-4, device=dev)
+    free = torch.arange(MW, device=dev) >= 1
+    return (poses0, (1.05 * disps).contiguous(), intr, torch.zeros_like(disps), target, weight,
+            eta, free), ii, jj
+
+
+def parallel_ba(torch, ops):
+    """dist_ba_solve at S = 2 and 4 shards, all on cuda:0, in both
+    exchanges, against the unsharded ba_iterations on the same inputs:
+    poses within 5e-4 and disparities within 5e-3 (tests/test_parallel.py's
+    limits); K1 launches S x 2 per call (2 iterations) and is held against
+    its plain version on shard 0's inputs.  Every configuration is timed
+    beside the unsharded solve by CUDA events around whole calls (host work
+    included), BA_ROUNDS rounds that call each configuration once in turn,
+    so that a drift of the card's clock reaches every configuration alike;
+    the median and the quartiles of each are kept.  partition_edges and the
+    bucket tables are timed on the host clock.  Returns the counts of the
+    untimed calls and the times."""
+    from droid_slam_reserch_tpu_torch import native
+    from droid_slam_reserch_tpu_torch.ba.solver import ba_iterations
+    from droid_slam_reserch_tpu_torch.parallel import dist_ba_solve, make_mesh, partition_edges
+    from droid_slam_reserch_tpu_torch.parallel.dist_ba import CUDA_EXCHANGE
+
+    (poses0, disps0, intr, dsens, target, weight, eta, free), ii, jj = sharded_ba_problem(torch)
+    MW = poses0.shape[0]
+    dev = poses0.device
+    t0 = time.perf_counter()
+    be, bm = native.bucket_tables(ii, MW)
+    tables_ms = 1e3 * (time.perf_counter() - t0)
+    iit, jjt = torch.as_tensor(ii, device=dev), torch.as_tensor(jj, device=dev)
+    bet, bmt = torch.as_tensor(be, dtype=torch.int64, device=dev), torch.as_tensor(bm, device=dev)
+
+    def single():
+        return ba_iterations(poses0, disps0, intr, dsens, target, weight, eta, iit, jjt, free,
+                             bet, bmt, iterations=2, min_depth=0.25)
+
+    ops.reset_counts()
+    p1, d1 = single()
+    torch.cuda.synchronize()
+    if ops.counts()["ba_blocks"] != (2, 0):
+        fail(f"the unsharded solve did not launch K1 twice: {ops.counts()['ba_blocks']}")
+    moved = float((p1 - poses0).abs().max())
+    say("parallel", f"sharded BA: MW={MW}, {len(ii)} edges at {H8}x{W8} (radius-2 graph + 16 "
+                    f"long edges), 2 iterations; bucket tables {tables_ms:.2f} ms on the host; "
+                    f"poses moved {moved:.3e}")
+    calls = {"unsharded": single}
+    counts = {k: [0, 0] for k in ops.counts()}
+    for S in (2, 4):
+        mesh = make_mesh((S,), ("kf",), devices=[dev])
+        t0 = time.perf_counter()
+        parts = partition_edges(ii, jj, target, weight, MW, S)
+        torch.cuda.synchronize()
+        part_ms = 1e3 * (time.perf_counter() - t0)
+        for exchange in ("gather_root", "dense_psum"):
+            def sharded():
+                return dist_ba_solve(mesh, poses0, disps0, intr, dsens, parts[2], parts[3], eta,
+                                     parts[0], parts[1], free, *parts[4:], iterations=2,
+                                     min_depth=0.25, exchange=exchange)
+
+            ops.reset_counts()
+            p2, d2 = sharded()
+            torch.cuda.synchronize()
+            for k, (a, b) in ops.counts().items():
+                counts[k][0] += a
+                counts[k][1] += b
+            k1 = ops.counts()["ba_blocks"]
+            ep, ed = float((p2 - p1).abs().max()), float((d2 - d1).abs().max())
+            calls[f"S{S}_{exchange}"] = sharded
+            say("parallel", f"sharded BA S={S} {exchange} on cuda:0: max |pose diff| {ep:.3e} "
+                            f"(tol 5e-4), max |disp diff| {ed:.3e} (tol 5e-3); K1 launches "
+                            f"{k1[0]} (S x 2 = {2 * S}), plain calls {k1[1]}; partition_edges "
+                            f"{part_ms:.2f} ms on the host (edge rows {parts[0].shape[1]}, "
+                            f"ranges {parts[7].tolist()})")
+            if not (ep <= 5e-4 and ed <= 5e-3):
+                fail(f"the sharded BA (S={S}, {exchange}) disagrees with the unsharded solve")
+            if k1 != (2 * S, 0):
+                fail(f"the sharded BA (S={S}, {exchange}) launched K1 {k1}, not {2 * S} times")
+        if S == 2:
+            s0 = [parts[2][0].contiguous(), parts[3][0].contiguous(), poses0, disps0, intr,
+                  torch.as_tensor(parts[0][0], dtype=torch.int64, device=dev),
+                  torch.as_tensor(parts[1][0], dtype=torch.int64, device=dev)]
+            hold_k1(torch, s0, f"on shard 0 of 2 of the sharded BA (N={parts[0].shape[1]}, "
+                               f"MW={MW})")
+    samples = {k: [] for k in calls}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for fn in calls.values():
+        fn()
+    for _ in range(BA_ROUNDS):
+        for k, fn in calls.items():
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            samples[k].append(start.elapsed_time(end))
+    times = {k: dict(zip(("q1", "median", "q3"), np.percentile(v, [25, 50, 75]).tolist()))
+             for k, v in samples.items()}
+    for k, q in times.items():
+        say("parallel", f"sharded BA {k}: median {q['median']:.2f} ms a call (quartiles "
+                        f"{q['q1']:.2f}-{q['q3']:.2f}; {q['median'] / times['unsharded']['median']:.2f}"
+                        f" x unsharded) over {BA_ROUNDS} interleaved rounds")
+    best = min(("gather_root", "dense_psum"),
+               key=lambda e: sum(times[f"S{S}_{e}"]["median"] for S in (2, 4)))
+    other = "dense_psum" if best == "gather_root" else "gather_root"
+    apart = all(times[f"S{S}_{best}"]["q3"] < times[f"S{S}_{other}"]["q1"] for S in (2, 4))
+    say("parallel", f"sharded BA: the faster exchange by summed medians over S = 2 and 4: {best}, "
+                    f"{'apart' if apart else 'not apart'} by the quartiles at both S; "
+                    f"resolve_exchange's CUDA choice: {CUDA_EXCHANGE}")
+    return {k: tuple(v) for k, v in counts.items()}, times
+
+
+def video_snapshot(droid):
+    """A copy of every buffer of a Droid's video (all slots: the trajectory
+    filler writes past the keyframes into slots that tracking left behind)
+    and its counter, for a later terminate_eva on a fresh engine."""
+    import torch
+
+    v = droid.video
+    snap = {k: x.clone() if torch.is_tensor(x) else x.copy() for k, x in vars(v).items()
+            if torch.is_tensor(x) or isinstance(x, np.ndarray)}
+    snap["counter"] = v.counter
+    return snap
+
+
+def engine_from_snapshot(torch, cfg, snap):
+    """A Droid of `cfg` (the same seeded weights) whose video holds a copy
+    of `snap`."""
+    from droid_slam_reserch_tpu_torch.engine import Droid
+
+    droid = Droid(cfg, device="cuda")
+    for k, x in snap.items():
+        setattr(droid.video, k, x if k == "counter" else x.clone() if torch.is_tensor(x)
+                else x.copy())
+    return droid
+
+
+def parallel_engine(torch, ops, snap):
+    """On copies of the mono bf16 main path's tracked state: one backend
+    step (update_lowmem) with refresh_shards 1 and 2 and an unsharded BA,
+    whose refresh outputs (damping, the edges' state, targets and weights)
+    must agree bit for bit (the poses and disparities after the BA are
+    printed: its index_add_ scatters are atomic on the card); then
+    terminate_eva with ba_shards=2 and refresh_shards=2, with the counts set
+    to 0 before and read after (K1, K2 bf16 -> fp32 and K3 in the backend,
+    K4/K5 bf16 in the filler, no plain version), and its trajectory against
+    the main path's unsharded one, within SHARDED_TOL, beside an unsharded
+    rerun on the same copy."""
+    from droid_slam_reserch_tpu_torch.engine import FactorGraph
+    from droid_slam_reserch_tpu_torch.engine.net_ops import update_apply
+
+    cfg, state, tracked, traj_main = snap
+    outs = []
+    for shards in (1, 2):
+        droid = engine_from_snapshot(torch, cfg.replace(ba_shards=0, refresh_shards=shards), state)
+        v, t = droid.video, droid.video.counter
+        g = FactorGraph(v, update_apply, droid.net.update, max_factors=16 * t)
+        g.add_proximity_factors(rad=cfg.backend_radius, nms=cfg.backend_nms,
+                                thresh=cfg.backend_thresh, beta=cfg.beta)
+        ops.reset_counts()
+        with torch.no_grad():
+            g.update_lowmem(steps=1)
+        torch.cuda.synchronize()
+        outs.append(([v.poses[:t].clone(), v.disps[:t].clone(), v.damping[:t].clone(),
+                      g.net.clone(), g.target.clone(), g.weight.clone()], g.chunks, ops.counts()))
+        del droid, g
+    same = [bool(torch.equal(a, b)) for a, b in zip(outs[0][0], outs[1][0])]
+    d_pose, d_disp = (float((a - b).abs().max()) for a, b in zip(outs[0][0][:2], outs[1][0][:2]))
+    say("parallel", f"refresh on the card, one update_lowmem step over {len(outs[0][0][3])} edges "
+                    f"in {outs[0][1][0]} chunks of {outs[0][1][1]}: refresh_shards=2 against 1, "
+                    f"bit-equal (damping, net, target, weight): {same[2:]}; after the step's "
+                    f"unsharded BA (its scatter-adds are atomic on the card) poses bit-equal "
+                    f"{same[0]}, max |diff| {d_pose:.3e}, disps {same[1]}, {d_disp:.3e}; K2 bf16 "
+                    f"-> fp32 launches {outs[0][2]['corr_build_bf16_f32'][0]} and "
+                    f"{outs[1][2]['corr_build_bf16_f32'][0]}")
+    if not all(same[2:]):
+        fail("the sharded refresh is not bit-equal to the unsharded one on the card")
+    del outs
+
+    stream = [(t, img, INTR_EUROC) for t, img in tracked]
+    trajs, counts = {}, None
+    for name, kw in (("unsharded", {}), ("sharded", {"ba_shards": 2, "refresh_shards": 2})):
+        droid = engine_from_snapshot(torch, cfg.replace(**kw), state)
+        ops.reset_counts()
+        t0 = time.time()
+        trajs[name] = droid.terminate_eva(iter(stream))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        if name == "sharded":
+            counts = ops.counts()
+        what = kw or "ba_shards and refresh_shards auto: unsharded on one card"
+        say("parallel", f"terminate_eva {name} ({what}) on the main path's mono bf16 state "
+                        f"({droid.video.counter} keyframes): "
+                        f"{secs:.2f} s; backend runs {droid.backend.runs}")
+        del droid
+        torch.cuda.empty_cache()
+    d_rerun = float(np.abs(trajs["unsharded"] - traj_main).max())
+    d_shard = float(np.abs(trajs["sharded"] - traj_main).max())
+    say("parallel", f"terminate_eva sharded (ba_shards=2, refresh_shards=2) against the main "
+                    f"path's: max |diff| {d_shard:.3e} (tol {SHARDED_TOL:.0e}); the unsharded "
+                    f"rerun against it: {d_rerun:.3e}; counts (kernel launches, plain calls): "
+                    f"{counts}")
+    if not (trajs["sharded"].shape == traj_main.shape and np.isfinite(trajs["sharded"]).all()
+            and d_shard <= SHARDED_TOL):
+        fail("the sharded terminate_eva disagrees with the unsharded one")
+    check_counts(counts, "the sharded terminate_eva (mono, bfloat16)", MAIN_KERNELS_BF16,
+                 OFF_ENGINE)
+    return counts
+
+
+def parallel_train(torch, ops, root):
+    """World size 1 over NCCL: one make_parallel_train_step step against
+    make_train_step (64x64, 4 frames, 2 iterations), and cli train (2
+    steps, 64x64 crop, 4 frames, 1 iteration, restarts at 0.5) in the group
+    against the same command before the group existed; both bit for bit
+    (parameters, Adam moments, count; the dataset's unseeded augmentation
+    rng seeded alike for both commands).  Returns the counts (no kernel)."""
+    import contextlib
+    import io
+    import socket
+
+    import torch.distributed as dist
+
+    from droid_slam_reserch_tpu_torch import cli
+    from droid_slam_reserch_tpu_torch.geom import neighbourhood_graph
+    from droid_slam_reserch_tpu_torch.parallel import (init_distributed, make_mesh,
+                                                       make_parallel_train_step)
+    from droid_slam_reserch_tpu_torch.train import TrainConfig, init_train_state, load_ckpt
+    from droid_slam_reserch_tpu_torch.train.step import make_train_step
+
+    write_tartan_training_scene(os.path.join(root, "tartan_train"))
+    argv = ["train", "--datapath", os.path.join(root, "tartan_train"), "--steps", "2",
+            "--n_frames", "4", "--iters", "1", "--image_size", "64", "64", "--save_every", "1",
+            "--restart_prob", "0.5"]
+    orig_rng = np.random.default_rng
+
+    def run_cli(name):
+        np.random.default_rng = lambda seed=None: orig_rng(4321 if seed is None else seed)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(argv + ["--name", name])
+        finally:
+            np.random.default_rng = orig_rng
+        torch.cuda.synchronize()
+        return load_ckpt(os.path.join(root, "checkpoints", f"{name}_000002.npz"))
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    ops.reset_counts()
+    # deterministic cuDNN and scatter-adds, so that two runs of one step can
+    # be compared bit for bit; each comparison is also made between two
+    # single-process runs
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.time()
+        plain = run_cli("plain")
+        t_plain = time.time() - t0
+        plain2 = run_cli("plain2")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.time()
+        rank, world = init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+        t_init = time.time() - t0
+        try:
+            P, H, W = 4, 64, 64
+            cfg = TrainConfig(batch=1, n_frames=P, iters=2)
+            item = train_scene(np.random.default_rng(2), P, H, W)
+            batch = {k: torch.from_numpy(np.ascontiguousarray(x[None])).cuda()
+                     for k, x in zip(("images", "poses", "disps", "intrinsics"), item)}
+            ii, jj = (torch.as_tensor(np.asarray(x, np.int64)) for x in neighbourhood_graph(P, 2))
+            params, opt = init_train_state(cfg, device="cuda")
+            ref = make_train_step(cfg, ii.cuda(), jj.cuda())(params, opt, batch)
+            ref2 = make_train_step(cfg, ii.cuda(), jj.cuda())(params, opt, batch)
+            mesh = make_mesh((1,), ("dp",), group=dist.group.WORLD)
+            step, prepare = make_parallel_train_step(cfg, ii, jj, mesh)
+            got = step(*prepare(params, opt, batch))
+            torch.cuda.synchronize()
+            same_step = same_state(got, ref)
+            same_ref = same_state(ref2, ref)
+            t0 = time.time()
+            grouped = run_cli("grouped")
+            t_grouped = time.time() - t0
+        finally:
+            dist.destroy_process_group()
+    finally:
+        os.chdir(cwd)
+        torch.backends.cudnn.deterministic = deterministic[0]
+        torch.use_deterministic_algorithms(deterministic[1])
+    counts = ops.counts()
+    same_cli = plain[2] == grouped[2] == 2 and same_state(grouped[:2], plain[:2])
+    same_plain = same_state(plain2[:2], plain[:2])
+    say("parallel", f"training at world size {world} over NCCL (rank {rank}, group made in "
+                    f"{t_init:.2f} s): make_parallel_train_step against make_train_step, "
+                    f"bit-equal: {same_step} (two make_train_step runs: {same_ref}); cli train 2 "
+                    f"steps in the group ({t_grouped:.1f} s) against without it "
+                    f"({t_plain:.1f} s), bit-equal checkpoints: {same_cli} (two runs without "
+                    f"it: {same_plain})")
+    if not (same_step and same_cli):
+        fail("training at world size 1 over NCCL differs from the single-process step"
+             + ("" if same_ref and same_plain else " (and single-process runs differ from "
+                                                   "each other: the step is not deterministic)"))
+    if any(a or b for a, b in counts.values()):
+        fail(f"training called a kernel or a plain version: {counts}")
+    return counts
+
+
+def same_state(a, b):
+    """(params, opt_state[, metrics]) equal bit for bit."""
+    return (all(torch_equal(a[0][k], b[0][k]) for k in b[0])
+            and all(torch_equal(a[1][m][k], b[1][m][k]) for m in ("mu", "nu") for k in b[0])
+            and a[1]["count"] == b[1]["count"]
+            and (len(a) < 3 or all(torch_equal(a[2][k], b[2][k]) for k in b[2])))
+
+
+def torch_equal(x, y):
+    return x.shape == y.shape and bool((x == y).all())
+
+
+N_JPEG = 24           # ETH3D_CONFIG's warmup is 20
+
+
+def write_jpeg_eth3d(root):
+    """An ETH3D sequence whose frames are color/*.jpg (no rgb/): the
+    committed fixtures tests/data/jpeg/ (739x458, 4 px of pan a frame)
+    cycled forth and back over N_JPEG frames, depth_frames' depth as 16-bit
+    PNGs, ETH3D's calibration and a ground truth 0.02 m a frame."""
+    fixtures = os.path.join(REPO, "tests", "data", "jpeg")
+    files = sorted(os.listdir(fixtures))
+    order = [k for _ in range(N_JPEG) for k in list(range(len(files))) + list(
+        range(len(files) - 2, 0, -1))][:N_JPEG]
+    seq = os.path.join(root, "eth3d_jpeg")
+    os.makedirs(os.path.join(seq, "color"))
+    os.makedirs(os.path.join(seq, "depth"))
+    rows = []
+    for t, (k, depth) in enumerate(zip(order, depth_frames(N_JPEG, seed=4, H=458, W=739))):
+        ts = f"{1305031102.175 + 0.033 * t:.6f}"
+        shutil.copy(os.path.join(fixtures, files[k]), os.path.join(seq, "color", ts + ".jpg"))
+        write_png(os.path.join(seq, "depth", ts + ".png"), (depth * 1000.0).astype(np.uint16))
+        rows.append([float(ts), 0.02 * t, 0.0, 0.01 * t, 0.0, 0.0, 0.0, 1.0])
+    np.savetxt(os.path.join(seq, "groundtruth.txt"), np.asarray(rows), fmt="%.6f")
+    np.savetxt(os.path.join(seq, "calibration.txt"), np.array([[726.28, 726.28, 354.65, 186.47]]))
+    return seq
+
+
+def parallel_jpeg(torch, ops, root):
+    """The JPEG reader: ms a frame of imageio.imread and of eth3d_stream
+    (with depth) over the committed fixtures; then the eth3d command (bf16,
+    --depth) on color/*.jpg, with the counts set to 0 before and read after
+    (K1-K5 of bf16 launch, no plain version): a finite ATE and poses."""
+    import contextlib
+    import io
+
+    from droid_slam_reserch_tpu_torch import cli
+    from droid_slam_reserch_tpu_torch.data import eth3d_stream, imageio
+
+    seq = write_jpeg_eth3d(root)
+    files = sorted(os.listdir(os.path.join(seq, "color")))
+    t0 = time.perf_counter()
+    for f in files[:6]:
+        img = imageio.imread(os.path.join(seq, "color", f))
+    dec_ms = 1e3 * (time.perf_counter() - t0) / 6
+    t0 = time.perf_counter()
+    n = sum(1 for _ in eth3d_stream(seq, use_depth=True))
+    stream_ms = 1e3 * (time.perf_counter() - t0) / n
+    ops.reset_counts()
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        droid = cli.main(["eth3d", "--datapath", seq, "--depth", "--bf16", "--filter_thresh", "-1",
+                          "--keyframe_thresh", "0"])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    counts = ops.counts()
+    res = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    ate = res[-1]["ate"]["rmse"] if res and "ate" in res[-1] else float("nan")
+    v = droid.video
+    finite = bool(torch.isfinite(v.poses[:v.counter]).all())
+    say("parallel", f"JPEG: imageio.imread {dec_ms:.1f} ms a 739x458 frame, eth3d_stream "
+                    f"(color/*.jpg + depth PNGs, resized to {img.shape[1]}x{img.shape[0]} -> "
+                    f"{droid.cfg.image_size[1]}x{droid.cfg.image_size[0]}) {stream_ms:.1f} ms a "
+                    f"frame; eth3d --depth bf16 on {n} JPEG frames: {v.counter} keyframes in "
+                    f"{secs:.1f} s, ATE {ate:.4f}, poses finite {finite}; counts {counts}")
+    if not (n == N_JPEG and np.isfinite(ate) and finite):
+        fail("the eth3d command on JPEG frames gave no finite trajectory")
+    check_counts(counts, "the eth3d command on JPEG frames", MAIN_KERNELS_BF16, OFF_ENGINE)
+    del droid
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_parallel(torch, ops, snap):
+    """The parallel/ package and the JPEG reader on one card (see
+    parallel_ba, parallel_engine, parallel_train and parallel_jpeg).
+    Returns the counts by path."""
+    by_path = {}
+    t0 = time.time()
+    by_path["parallel_ba"], times = parallel_ba(torch, ops)
+    say("time", f"parallel sharded BA: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    by_path["parallel_terminate_eva_bf16"] = parallel_engine(torch, ops, snap)
+    say("time", f"parallel engine: {time.time() - t0:.1f} s")
+    root = tempfile.mkdtemp(prefix="droid_parallel_")
+    try:
+        t0 = time.time()
+        by_path["parallel_train"] = parallel_train(torch, ops, root)
+        say("time", f"parallel training: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        by_path["parallel_eth3d_jpeg_bf16"] = parallel_jpeg(torch, ops, root)
+        say("time", f"parallel JPEG: {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with open(os.path.join(OUT_DIR, "parallel.json"), "w") as f:
+        json.dump({"sharded_ba_ms": times}, f, indent=1)
+    return by_path
+
+
 def main():
     import torch
 
@@ -3104,7 +3594,8 @@ def main():
     lap("kernels-bf16")
     by_path = {"drift": phase_drift(torch, ops), "drift_bf16": phase_drift(torch, ops, "bfloat16")}
     lap("drift")
-    phase_card_vs_cpu(torch, ops, "float32", ("mono", "stereo", "rgbd", "upsample"))
+    by_path["parallel_card_vs_cpu"] = phase_card_vs_cpu(
+        torch, ops, "float32", ("mono", "stereo", "rgbd", "upsample", "sharded"))
     phase_card_vs_cpu(torch, ops, "bfloat16", ("mono", "stereo"))
     lap("card-vs-cpu")
     frames = {"mono": (euroc_frames(N_MAIN + (12 if profiling else 0)), None),
@@ -3123,9 +3614,13 @@ def main():
                                                       depths, cap)
         if profiling and mode == "mono":
             tracked += phase_profile(torch, droid, imgs[N_MAIN:], float(N_MAIN), tag=sfx)
-        counts_term, secs = phase_terminate(
+        if (mode, dtype) == ("mono", "bfloat16"):      # the parallel phase's state
+            snap = (droid.cfg, video_snapshot(droid), list(tracked))
+        counts_term, secs, traj = phase_terminate(
             torch, ops, droid, tracked, profiling and mode == "mono", kernels,
             INTR_ETH3D if mode == "rgbd" else INTR_EUROC, cap)
+        if (mode, dtype) == ("mono", "bfloat16"):
+            snap += (traj,)
         by_path["track" + sfx], by_path["terminate_eva" + sfx] = counts, counts_term
         speed[mode, dtype] = (fps, secs)
         if dtype == "float32" and mode != "rgbd":
@@ -3176,6 +3671,9 @@ def main():
     with open(os.path.join(OUT_DIR, "train.json"), "w") as f:
         json.dump(train_results, f, indent=1)
     lap("train")
+    by_path.update(phase_parallel(torch, ops, snap))
+    del snap
+    lap("parallel")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)

@@ -459,33 +459,57 @@ def cmd_multisession_evaluate(args):
 
 
 def cmd_train(args):
-    """The training loop (reference train.py:43-186) on one device: per item
-    a sampled graph (covisibility or temporal, 1/2 each), random pose
-    restarts whose gradients are summed before one optimizer step, and a
-    producer thread that prepares the items.  The numpy seeds are derived
-    from the step index, so a resumed run replays the data of an
-    uninterrupted one."""
+    """The training loop (reference train.py:43-186): per item a sampled
+    graph (covisibility or temporal, 1/2 each), random pose restarts whose
+    gradients are summed before one optimizer step, and a producer thread
+    that prepares the items.  The numpy seeds are derived from the step
+    index, so a resumed run replays the data of an uninterrupted one.
+
+    Several processes (one per card, joined by ``parallel.init_distributed``
+    from the ``DROID_*`` variables) train data-parallel: each rank draws
+    cfg.batch items of its own (seeds (54321, rank, t); the global batch is
+    cfg.batch x world), takes rank 0's graph, shares the restart draws,
+    scales its loss by 1 / world and sums the gradients over the ranks
+    before the step (the global batch's gradient; see
+    train.step.grads_and_aux); rank 0 alone logs and writes checkpoints.
+    At world size 1 the loop computes what a single process does, bit for
+    bit."""
     import queue
     import threading
 
     import torch
+    import torch.distributed as dist
 
     from .data import dataset_factory
     from .lie import se3_inv
+    from .parallel import allreduce, backend_for, init_distributed, rank_device
     from .train import Logger, TrainConfig, init_train_state, load_ckpt, save_ckpt
     from .train.step import initial_poses, make_train_step_dynamic, sample_frame_graph
 
-    device = torch.device(args.device)
+    rank, world = init_distributed(backend=backend_for(args.device))
+    grouped = dist.is_initialized()
+    device = rank_device(args.device)
     crop = tuple(args.image_size)
     cfg = TrainConfig(name=args.name, lr=args.lr, steps=args.steps, batch=args.batch,
                       n_frames=args.n_frames, iters=args.iters, image_size=crop)
-    os.makedirs("checkpoints", exist_ok=True)
+    if rank == 0:
+        os.makedirs("checkpoints", exist_ok=True)
+
     # the scene-index cache lives under the dataset root, so different
-    # datasets never share a stale pickle
-    db = dataset_factory(["tartan"], datapath=args.datapath, n_frames=cfg.n_frames,
-                         fmin=cfg.fmin, fmax=cfg.fmax, crop_size=crop,
-                         cache_dir=os.path.join(args.datapath, ".droid_cache"), device=device)
-    grad_step, apply_step = make_train_step_dynamic(cfg)
+    # datasets never share a stale pickle; rank 0 writes it before the
+    # others read it
+    def make_db():
+        return dataset_factory(["tartan"], datapath=args.datapath, n_frames=cfg.n_frames,
+                               fmin=cfg.fmin, fmax=cfg.fmax, crop_size=crop,
+                               cache_dir=os.path.join(args.datapath, ".droid_cache"),
+                               device=device)
+
+    db = make_db() if rank == 0 else None
+    if world > 1:
+        dist.barrier()
+    db = db or make_db()
+    # each rank's share of the global batch's loss; the gradients are summed
+    grad_step, apply_step = make_train_step_dynamic(cfg, loss_scale=1.0 / world)
 
     params, opt_state = init_train_state(cfg, device=device)
     start_step = 0
@@ -493,7 +517,7 @@ def cmd_train(args):
         params, opt2, start_step = load_ckpt(args.ckpt, device)
         if opt2 is not None:
             opt_state = opt2
-    logger = Logger(cfg.name)
+    logger = Logger(cfg.name) if rank == 0 else None
     # covers the r=2 temporal graph and the covisibility sampler's 24 edges
     e_pad = max(4 * cfg.n_frames, 24)
 
@@ -504,7 +528,7 @@ def cmd_train(args):
         t = start_step
         try:
             while not stop.is_set():
-                prng = np.random.default_rng((54321, 0, t))
+                prng = np.random.default_rng((54321, rank, t))
                 grng = np.random.default_rng((98765, t))
                 items = [db[int(i)] for i in prng.integers(0, len(db), size=cfg.batch)]
                 images, poses, disps, intr = (np.stack([x[k] for x in items]) for k in range(4))
@@ -543,11 +567,16 @@ def cmd_train(args):
     try:
         while total < cfg.steps:
             images, poses, disps, intr, ii, jj, emask = next_item()
-            rng = np.random.default_rng((12345, total))
+            rng = np.random.default_rng((12345, total))   # the same draws on every rank
             poses, disps = put(poses), put(disps)
+            ii, jj, emask = put(ii, torch.long), put(jj, torch.long), put(emask)
+            if world > 1:
+                # one graph per global batch: the covisibility graph depends
+                # on local data, so every rank takes rank 0's
+                for x in (ii, jj, emask):
+                    dist.broadcast(x, src=0)
             batch = {"images": put(images), "poses": poses, "disps": disps,
-                     "intrinsics": put(intr), "ii": put(ii, torch.long),
-                     "jj": put(jj, torch.long), "emask": put(emask),
+                     "intrinsics": put(intr), "ii": ii, "jj": jj, "emask": emask,
                      "Gs0": initial_poses(se3_inv(poses)),
                      "disp0": torch.ones_like(disps[:, :, 3::8, 3::8])}
 
@@ -561,14 +590,19 @@ def cmd_train(args):
                 batch = dict(batch, Gs0=Gs_last, disp0=disp_last)
                 if rng.random() >= args.restart_prob:
                     break
+            if grouped:
+                grads_acc = allreduce(grads_acc, None)
+                metrics = allreduce(metrics, None, world)
             params, opt_state = apply_step(params, opt_state, grads_acc)
 
             values = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=device)
                                   for v in metrics.values()]).cpu().tolist()
-            logger.push(dict(zip(metrics, values)))
             total += 1
-            if total % args.save_every == 0:
-                save_ckpt(f"checkpoints/{cfg.name}_{total:06d}.npz", params, opt_state, total)
+            if rank == 0:
+                logger.push(dict(zip(metrics, values)))
+                if total % args.save_every == 0:
+                    save_ckpt(f"checkpoints/{cfg.name}_{total:06d}.npz", params, opt_state,
+                              total)
     finally:
         stop.set()
 

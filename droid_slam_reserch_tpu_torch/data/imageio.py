@@ -4,7 +4,8 @@ in numpy and zlib: PNG decoding, resizing, undistortion and remapping.
 Each function names the cv2 call it replaces and gives what that call
 gives, bit for bit where OpenCV's integer arithmetic is replicated:
 
-- ``imread``: ``cv2.imread`` (IMREAD_COLOR, or IMREAD_ANYDEPTH) of PNGs;
+- ``imread``: ``cv2.imread`` (IMREAD_COLOR, or IMREAD_ANYDEPTH) of PNGs,
+  and of baseline JPEGs (IMREAD_COLOR) through data/jpeg.py;
 - ``resize``: ``cv2.resize`` with INTER_LINEAR (uint8: OpenCV's 11-bit
   fixed point; float: float weights) or INTER_NEAREST;
 - ``init_undistort_rectify_map``: ``cv2.initUndistortRectifyMap`` (CV_32F);
@@ -20,24 +21,34 @@ import zlib
 
 import numpy as np
 
+from . import jpeg
+
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}          # PNG colour type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}      # PNG colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (x0, y0, dx, dy) of each of the 7 passes of an interlaced PNG
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 def _read_png(path):
     """Decode a PNG into [H, W, C] samples (uint8, or uint16 at 16 bits) in
-    the file's channel order: grey, RGB, grey + alpha or RGBA."""
+    the file's channel order: grey, RGB, grey + alpha or RGBA; a palette
+    image becomes RGB through its PLTE, and grey below 8 bits is scaled to
+    8 (libpng's expand transforms, which OpenCV asks for)."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, header = 8, [], None
+    pos, idat, header, palette = 8, [], None, None
     while pos < len(blob):
         n, kind = struct.unpack(">I4s", blob[pos: pos + 8])
         body = blob[pos + 8: pos + 8 + n]
         pos += 12 + n
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -45,19 +56,49 @@ def _read_png(path):
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
-    if ctype not in _CHANNELS:
-        raise NotImplementedError(f"{path}: PNG colour type {ctype} (palette) is not supported")
-    if depth not in (8, 16):
-        raise NotImplementedError(f"{path}: PNG bit depth {depth} is not supported")
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNGs are not supported")
+    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype]:
+        raise ValueError(f"{path}: PNG colour type {ctype} at bit depth {depth} does not exist")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
     ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * bpp)
-    data = _unfilter(raw[:, 0], raw[:, 1:].reshape(h, w, bpp))
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if interlace:
+        px = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        ofs = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw > 0 and ph > 0:     # an empty pass has no rows, not even filter bytes
+                sub, n = _decode_rows(raw[ofs:], pw, ph, ch, depth)
+                px[y0::dy, x0::dx] = sub
+                ofs += n
+    else:
+        px = _decode_rows(raw, w, h, ch, depth)[0]
+    if ctype == 3:
+        if int(px.max(initial=0)) >= len(palette):
+            raise ValueError(f"{path}: palette index beyond the PLTE's {len(palette)} entries")
+        return palette[px[..., 0]]
+    if depth < 8:
+        px = px * np.uint8(255 // (2 ** depth - 1))
+    return px
+
+
+def _decode_rows(raw, w, h, ch, depth):
+    """Unfilter and unpack h rows of w pixels from the start of raw: the
+    samples [h, w, ch] and the bytes used."""
+    row = (w * ch * depth + 7) // 8
+    bpp = max(1, ch * depth // 8)
+    n = h * (1 + row)
+    if raw.size < n:
+        raise ValueError("PNG image data is truncated")
+    rows = raw[:n].reshape(h, 1 + row)
+    data = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, row // bpp, bpp)).reshape(h, row)
     if depth == 16:
-        return data.view(">u2").astype(np.uint16).reshape(h, w, ch)
-    return data.reshape(h, w, ch)
+        return data.view(">u2").astype(np.uint16).reshape(h, w, ch), n
+    if depth == 8:
+        return data.reshape(h, w, ch), n
+    bits = np.unpackbits(data, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[..., None], n
 
 
 def _unfilter(ftype, data):
@@ -118,8 +159,10 @@ def imread(path, anydepth=False):
     anydepth: ``cv2.imread(path, cv2.IMREAD_ANYDEPTH)`` of a grey PNG: [H, W]
     at the file's depth (uint16 for TUM's and ETH3D's depth maps).
 
-    PNG only: colour types 0, 2, 4 and 6 at 8 and 16 bits, not interlaced.
-    Other files, JPEG included, raise NotImplementedError.
+    PNG: every colour type and bit depth, interlaced or not.  JPEG
+    (``.jpg``/``.jpeg``): baseline and extended sequential (data/jpeg.py);
+    progressive and arithmetic-coded JPEGs raise NotImplementedError.
+    IMREAD_ANYDEPTH reads grey PNGs only.
     """
     if anydepth:
         px = _read_png(_png_path(path))
@@ -134,6 +177,10 @@ def read_bgr(path):
     """``imread(path)`` before grey is replicated: [H, W, 1] for a grey PNG,
     else [H, W, 3] BGR.  Resizing and remapping act on each channel alone,
     so a reader may do them on one grey channel and replicate it after."""
+    path = os.fspath(path)
+    if path.lower().endswith((".jpg", ".jpeg")):
+        with open(path, "rb") as f:
+            return jpeg.decode(f.read(), path)
     px = _read_png(_png_path(path))
     if px.dtype == np.uint16:
         px = (px >> 8).astype(np.uint8)
@@ -145,7 +192,7 @@ def read_bgr(path):
 def _png_path(path):
     path = os.fspath(path)
     if not path.lower().endswith(".png"):
-        raise NotImplementedError(f"{path}: only PNG images are decoded (no JPEG decoder)")
+        raise NotImplementedError(f"{path}: only PNG and JPEG images are decoded")
     return path
 
 

@@ -25,6 +25,7 @@ Features and the update operator's state are in the compute dtype
 levels and lookups; the backend's levels are fp32.  Delta, weight and eta
 are cast to fp32 before the BA, which runs in fp32.
 """
+import copy
 import os
 
 import numpy as np
@@ -35,7 +36,7 @@ from ..ba.solver import ba_iterations
 from ..geom import coords_grid, frame_distance, neighbourhood_graph, projective_transform
 from ..ops.corr import level_sizes, window_drift_ok
 from ..ops.cuda_corr import corr_build, corr_build_windows, corr_lookup, corr_lookup_windows
-from ..utils.log import log_once
+from ..parallel import local_device_count, local_devices
 from ..utils.timing import count_sync, section
 
 # Rounds of update_fused that read the window cache (K5) and rounds that
@@ -405,21 +406,25 @@ class FactorGraph:
 
     def _chunk_tables(self, s):
         """Host tables of update_lowmem: edges sorted by source frame, one
-        chunk per s-frame band, each padded to EB slots (reference :270)."""
+        chunk per s-frame band, each padded to EB slots (reference :270);
+        with a sharded refresh, empty chunks pad the count to a multiple of
+        the shards (JAX :1066-1068).  Returns (nC, nC_pad, EB, tables...)."""
         t = self.video.counter
         order = np.argsort(self.ii, kind="stable")
         ii_s = self.ii[order]
         nC = int(ii_s.max()) // s + 1
+        ndev = self._resolved_refresh_shards(nC)
+        nC_pad = _round_up(nC, ndev)
         counts = np.array([np.count_nonzero((ii_s >= c * s) & (ii_s < (c + 1) * s))
                            for c in range(nC)])
         EB = _round_up(max(int(counts.max()), 1), self.cfg.edge_bucket)
 
-        ii_ck = np.zeros((nC, EB), np.int64)
-        jj_ck = np.zeros((nC, EB), np.int64)
-        emask_ck = np.zeros((nC, EB), np.float32)
-        pos_ck = np.zeros((nC, EB), np.int64)     # chunk slot -> edge index
-        kk_ck = np.zeros((nC, EB), np.int64)
-        frame_ck = np.full((nC, s), t, np.int64)  # sentinel t: no edges
+        ii_ck = np.zeros((nC_pad, EB), np.int64)
+        jj_ck = np.zeros((nC_pad, EB), np.int64)
+        emask_ck = np.zeros((nC_pad, EB), np.float32)
+        pos_ck = np.zeros((nC_pad, EB), np.int64)     # chunk slot -> edge index
+        kk_ck = np.zeros((nC_pad, EB), np.int64)
+        frame_ck = np.full((nC_pad, s), t, np.int64)  # sentinel t: no edges
         ofs = 0
         for c in range(nC):
             n = int(counts[c])
@@ -435,7 +440,49 @@ class FactorGraph:
         slots = np.nonzero(emask_ck.reshape(-1) > 0)[0]
         take_back = np.empty(len(self.ii), np.int64)   # edge -> flat chunk slot
         take_back[pos_ck.reshape(-1)[slots]] = slots
-        return nC, EB, ii_ck, jj_ck, emask_ck, pos_ck, kk_ck, frame_ck, take_back
+        return nC, nC_pad, EB, ii_ck, jj_ck, emask_ck, pos_ck, kk_ck, frame_ck, take_back
+
+    def _resolved_refresh_shards(self, nC):
+        """cfg.refresh_shards with -1 = auto (the JAX package's rule): shard
+        the backend's chunks over every local card (``torch.cuda.device_count()``;
+        the CPU counts as one device) when there are 2 chunks or more."""
+        s = self.cfg.refresh_shards
+        if s in (0, 1):
+            return 1
+        n = local_device_count(self.device) if s == -1 else s
+        return n if (n > 1 and nC >= 2) else 1
+
+    def _params_on(self, dev):
+        """The update operator's weights on `dev` (a copy made once per
+        device other than the engine's)."""
+        if dev == self.device:
+            return self.params
+        copies = self.__dict__.setdefault("_param_copies", {})
+        if dev not in copies:
+            copies[dev] = copy.deepcopy(self.params).to(dev)
+        return copies[dev]
+
+    def _refresh_chunk(self, params, state, c, tables, coords0, nets_c, target_c):
+        """Chunk c of update_lowmem's refresh, on the device of the frame
+        state copy `state` (poses, disps, intr, fmaps, inps), of the chunk
+        tables (ii, jj, kk, emask) and of `params`: returns (nets, target,
+        weight, eta, upmask) of its EB slots."""
+        ii, jj, kk, emask = (x[c] for x in tables)
+        EB = ii.shape[0]
+        h8, w8 = self.video.h8, self.video.w8
+        coords1 = projective_transform(state["poses"][None], state["disps"][None],
+                                       state["intr"][None], ii, jj)[0][0]
+        motn = torch.cat([coords1 - coords0, target_c - coords1], -1).clamp(-64.0, 64.0)
+        levels = corr_build(state["fmaps"][ii, 0], state["fmaps"][jj, self._cams(ii, jj)],
+                            torch.float32)
+        corr = corr_lookup(levels, coords1.reshape(EB, h8 * w8, 2).contiguous())
+        del levels
+        nets, delta, weight, eta, upmask = self.update_apply(
+            params, nets_c[None], state["inps"][ii][None], corr.reshape(1, EB, h8, w8, -1),
+            motn[None], kk, 8, emask)
+        return (nets[0], coords1 + delta[0].float(),
+                weight[0].float() * emask[:, None, None, None], eta[0].float(),
+                None if upmask is None else upmask[0])
 
     def update_lowmem(self, steps=8, itrs=2):
         """Global BA over all edges, chunked over source frames
@@ -448,57 +495,67 @@ class FactorGraph:
         package's altcorr_pyramid computes the same function from a pooled
         feature pyramid (pooled in the compute dtype there: the two differ
         within its rounding).
+
+        A sharded refresh (``_resolved_refresh_shards`` > 1, JAX
+        ``_lowmem_refresh_sharded``) splits the chunk axis, padded with
+        empty chunks, into contiguous blocks, one per shard; shard k runs on
+        card k mod the card count against its own copy of the frame state
+        and of the update operator.  Each frame's damping and upsampled
+        disparities come from the one chunk that wrote them (JAX combines
+        them by a written mask): chunks write disjoint frames, so they are
+        written into one buffer on the engine's device.  Empty padding
+        chunks write nothing and are not run.  Each chunk computes
+        what it computes unsharded, so on one device the two refreshes are
+        equal bit for bit.
         """
         video, cfg, dev = self.video, self.cfg, self.device
         t = video.counter
         s = 8
         if len(self.ii) == 0:
             return
-        if cfg.refresh_shards > 1:
-            log_once("refresh_shards", f"sharded edge refresh declined: refresh_shards="
-                                       f"{cfg.refresh_shards} is not part of the port; the "
-                                       f"chunks run on one device")
         h8, w8 = video.h8, video.w8
-        nC, EB, ii_ck, jj_ck, emask_ck, pos_ck, kk_ck, frame_ck, take_back = \
+        nC, nC_pad, EB, ii_ck, jj_ck, emask_ck, pos_ck, kk_ck, frame_ck, take_back = \
             self._chunk_tables(s)
         self.chunks = (nC, EB)
+        shards = self._resolved_refresh_shards(nC)
+        per = nC_pad // shards
+        devices = local_devices(dev) if shards > 1 else [dev]
+        shard_devices = [devices[k % len(devices)] for k in range(shards)]
+        flat_src = self._t(pos_ck[:nC].reshape(-1))
+        take_back = self._t(take_back)
         # per chunk with upsampling: its slots that hold a frame, and those frames
         up_slots = ([(self._t(np.nonzero(f < t)[0]), self._t(f[f < t])) for f in frame_ck]
                     if self.upsample else None)
-        ii_ck, jj_ck, kk_ck = self._t(ii_ck), self._t(jj_ck), self._t(kk_ck)
-        frame_ck, flat_src = self._t(frame_ck), self._t(pos_ck.reshape(-1))
-        take_back = self._t(take_back)
-        emask_ck = torch.as_tensor(emask_ck, device=dev)
-        coords0 = coords_grid(h8, w8, device=dev)
-        intr = video.intrinsics[:t]
+        frame_ck = self._t(frame_ck)
+        # the chunk tables and pixel grid on each shard device
+        on = {d: (tuple(torch.as_tensor(x, device=d) for x in (ii_ck, jj_ck, kk_ck, emask_ck)),
+                  coords_grid(h8, w8, device=d)) for d in dict.fromkeys(shard_devices)}
 
         for _ in range(steps):
             nets_ck = self.net[flat_src].reshape(nC, EB, h8, w8, -1)
             target_ck = self.target[flat_src].reshape(nC, EB, h8, w8, 2)
-            poses, disps = video.poses[:t], video.disps[:t]
+            full = {"poses": video.poses[:t], "disps": video.disps[:t],
+                    "intr": video.intrinsics[:t], "fmaps": video.fmaps[:t],
+                    "inps": video.inps[:t]}
             damping_ext = torch.cat([video.damping[:t], video.damping.new_zeros(1, h8, w8)], 0)
-            nets_out, target_out, weight_out = [], [], []
-            for c in range(nC):
-                ii, jj, emask = ii_ck[c], jj_ck[c], emask_ck[c]
-                coords1 = projective_transform(poses[None], disps[None], intr[None], ii, jj)[0][0]
-                motn = torch.cat([coords1 - coords0, target_ck[c] - coords1], -1).clamp(-64.0, 64.0)
-                levels = corr_build(video.fmaps[ii, 0], video.fmaps[jj, self._cams(ii, jj)],
-                                    torch.float32)
-                corr = corr_lookup(levels, coords1.reshape(EB, h8 * w8, 2).contiguous())
-                del levels
-                nets, delta, weight, eta, upmask = self.update_apply(
-                    self.params, nets_ck[c][None], video.inps[ii][None],
-                    corr.reshape(1, EB, h8, w8, -1), motn[None], kk_ck[c], s, emask)
-                damping_ext[frame_ck[c]] = eta[0].float()   # slots without edges land in row t
-                if self.upsample:   # from the disparities before this step's BA
-                    slot, frame = up_slots[c]
-                    video.upsample(frame, upmask[0][slot])
-                nets_out.append(nets[0])
-                target_out.append(coords1 + delta[0].float())
-                weight_out.append(weight[0].float() * emask[:, None, None, None])
-            self.net = torch.cat(nets_out, 0)[take_back]
-            self.target = torch.cat(target_out, 0)[take_back]
-            self.weight = torch.cat(weight_out, 0)[take_back]
+            outs = []
+            for k, sdev in enumerate(shard_devices):
+                tables, coords0 = on[sdev]
+                state = {key: x.to(sdev) for key, x in full.items()}
+                params = self._params_on(sdev)
+                for c in range(k * per, min((k + 1) * per, nC)):
+                    nets, target, weight, eta, upmask = self._refresh_chunk(
+                        params, state, c, tables, coords0, nets_ck[c].to(sdev),
+                        target_ck[c].to(sdev))
+                    # chunks write disjoint frames: slots without edges land in row t
+                    damping_ext[frame_ck[c]] = eta.to(dev)
+                    if self.upsample:   # from the disparities before this step's BA
+                        slot, frame = up_slots[c]
+                        video.upsample(frame, upmask.to(dev)[slot])
+                    outs.append((nets.to(dev), target.to(dev), weight.to(dev)))
+            self.net = torch.cat([o[0] for o in outs], 0)[take_back]
+            self.target = torch.cat([o[1] for o in outs], 0)[take_back]
+            self.weight = torch.cat([o[2] for o in outs], 0)[take_back]
             video.damping[:t] = damping_ext[:t]
 
             # one dense BA over the whole video (reference :297)

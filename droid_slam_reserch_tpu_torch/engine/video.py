@@ -3,7 +3,8 @@ the engine's device, updated in place; images stay on the host.  A stereo
 buffer keeps both cameras' features (``fmaps`` [buf, 2, h8, w8, 128]); an
 RGB-D frame's depth becomes its sensor disparity ``disps_sens``.  With
 ``config.upsample`` the factor graphs fill ``disps_up``, the disparities at
-full resolution."""
+full resolution.  A large global BA may run keyframe-sharded
+(``cfg.ba_shards``, parallel/dist_ba.py)."""
 import numpy as np
 import torch
 
@@ -12,6 +13,8 @@ from ..ba.solver import ba_iterations
 from ..geom import frame_distance, projective_transform
 from ..lie import se3_identity
 from ..models.update import cvx_upsample
+from ..parallel import (dist_ba_solve, local_device_count, local_devices, make_mesh,
+                        partition_edges, resolve_exchange)
 from ..utils.log import log_once
 from ..utils.timing import section
 from .net_ops import compute_dtype
@@ -141,12 +144,9 @@ class Video:
         target/weight [N, h8, w8, 2] on the device (N = the edge count);
         ii/jj global edge indices (host); damping 0.2 * damping + eps.  The
         window, edge count and Schur degree are padded to buckets as in the
-        JAX package.  The port has no sharded BA: ``ba_shards`` > 1 is
-        declined with a notice, once.
+        JAX package.  A window that ``_resolved_ba_shards`` shards runs
+        through the keyframe-sharded ``parallel.dist_ba_solve``.
         """
-        if self.cfg.ba_shards > 1:
-            log_once("ba_shards", f"BA sharding declined: ba_shards={self.cfg.ba_shards} is not "
-                                  f"part of the port; BA runs on one device")
         with section("video.ba"):
             self._ba(target, weight, ii, jj, t0, t1, iterations, lm, ep)
 
@@ -173,15 +173,62 @@ class Video:
         sl = slice(m0, m0 + MW)
         eta = 0.2 * self.damping[sl] + cfg.damping_eps
         dev = self.device
-        poses, disps = ba_iterations(
-            self.poses[sl], self.disps[sl], self.intrinsics[0], self.disps_sens[sl],
-            torch.cat([target, pad], 0), torch.cat([weight, pad], 0), eta,
-            torch.as_tensor(ii_l, device=dev), torch.as_tensor(jj_l, device=dev),
-            torch.as_tensor(free, device=dev), torch.as_tensor(be, dtype=torch.int64, device=dev),
-            torch.as_tensor(bm, device=dev), iterations=iterations, lm=lm, ep=ep,
-            alpha=cfg.rgbd_alpha, min_depth=cfg.min_depth)
+        shards = self._resolved_ba_shards(MW, motion_only=False)
+        if shards > 1:
+            poses, disps = self._ba_sharded(sl, MW, ii_l[:n], jj_l[:n], target, weight, eta,
+                                            free, iterations, lm, ep, shards)
+        else:
+            poses, disps = ba_iterations(
+                self.poses[sl], self.disps[sl], self.intrinsics[0], self.disps_sens[sl],
+                torch.cat([target, pad], 0), torch.cat([weight, pad], 0), eta,
+                torch.as_tensor(ii_l, device=dev), torch.as_tensor(jj_l, device=dev),
+                torch.as_tensor(free, device=dev),
+                torch.as_tensor(be, dtype=torch.int64, device=dev),
+                torch.as_tensor(bm, device=dev), iterations=iterations, lm=lm, ep=ep,
+                alpha=cfg.rgbd_alpha, min_depth=cfg.min_depth)
         self.poses[sl] = poses
         self.disps[sl] = disps.clamp_min(0.001)   # reference depth_video.py:204
+
+    def _resolved_ba_shards(self, MW, motion_only):
+        """cfg.ba_shards with -1 = auto, by the JAX package's rules: auto
+        shards a global-BA window of 128 frames or more over every local
+        card (``torch.cuda.device_count()``; the CPU counts as one device, so
+        auto never shards there); frontend-sized windows and motion-only
+        solves stay unsharded.  A decline other than "window too small /
+        motion-only" is logged once."""
+        s = self.cfg.ba_shards
+        if s == -1:
+            n = local_device_count(self.device)
+            if n > 1 and not motion_only and MW >= 128:
+                if MW >= n:
+                    return n
+                log_once(f"ba_auto_shard_decline_{MW}_{n}",
+                         f"auto BA sharding declined: window MW={MW} < {n} devices")
+            return 0
+        if s > 1 and not motion_only:
+            if MW >= s:
+                return s
+            log_once(f"ba_shard_decline_{MW}_{s}",
+                     f"BA sharding declined: window MW={MW} < ba_shards={s}")
+        return 0
+
+    def _ba_sharded(self, sl, MW, ii_l, jj_l, target, weight, eta, free, iterations, lm, ep,
+                    shards):
+        """Keyframe-sharded BA (parallel/dist_ba.py): shard k on card k mod
+        the card count (every shard on this device with one card), depth
+        buckets and their edges shard-local, only the pose system
+        exchanged."""
+        cfg = self.cfg
+        mesh = getattr(self, "_kf_mesh", None)
+        if mesh is None or mesh.size != shards:
+            mesh = self._kf_mesh = make_mesh((shards,), ("kf",), devices=local_devices(self.device))
+        ii_s, jj_s, tgt_s, wgt_s, be_s, bm_s, k0_s, rlen_s = partition_edges(
+            ii_l, jj_l, target, weight, MW, shards, edge_bucket=cfg.edge_bucket)
+        return dist_ba_solve(
+            mesh, self.poses[sl], self.disps[sl], self.intrinsics[0], self.disps_sens[sl],
+            tgt_s, wgt_s, eta, ii_s, jj_s, free, be_s, bm_s, k0_s, rlen_s,
+            iterations=iterations, lm=lm, ep=ep, alpha=cfg.rgbd_alpha,
+            min_depth=cfg.min_depth, exchange=resolve_exchange(device=self.device))
 
     def upsample(self, ix, mask):
         """8x upsample the disparities of slots ix [n] (long tensor) with the

@@ -61,10 +61,17 @@ def sanitize(grads):
     return {k: torch.where(torch.isfinite(g), g, torch.zeros_like(g)) for k, g in grads.items()}
 
 
-def clip_by_global_norm(grads, clip):
+def squares(grads):
+    """The squared global norm of a gradient dict."""
+    return sum(torch.sum(g * g) for g in grads.values())
+
+
+def clip_by_global_norm(grads, clip, sq_norm=squares):
     """optax.clip_by_global_norm: g where the global norm is under clip,
-    else (g / norm) * clip (chosen on the device, no host read)."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    else (g / norm) * clip (chosen on the device, no host read).  sq_norm
+    gives the squared global norm (parallel/train_parallel.py sums it over
+    the slices of sharded parameters)."""
+    norm = torch.sqrt(sq_norm(grads))
     keep = norm < clip
     return {k: torch.where(keep, g, (g / norm) * clip) for k, g in grads.items()}
 
@@ -75,14 +82,15 @@ def init_opt_state(params):
             "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
 
-def make_optimizer(cfg):
-    """update(params, opt_state, grads) -> (params, opt_state)."""
+def make_optimizer(cfg, sq_norm=squares):
+    """update(params, opt_state, grads) -> (params, opt_state); sq_norm as
+    clip_by_global_norm's."""
     schedule = make_schedule(cfg)
     wd = cfg.weight_decay
 
     @torch.no_grad()
     def update(params, opt_state, grads):
-        grads = clip_by_global_norm(sanitize(grads), cfg.clip)
+        grads = clip_by_global_norm(sanitize(grads), cfg.clip, sq_norm)
         count = opt_state["count"]
         lr = schedule(count)
         c1, c2 = 1.0 - B1 ** (count + 1), 1.0 - B2 ** (count + 1)
@@ -140,10 +148,19 @@ class _Model:
         return functional_call(self.net, params, args, kw)
 
 
-def grads_and_aux(loss_fn, params, batch):
-    """(grads, aux) of loss_fn(params, batch) -> (loss, aux) with respect to params."""
+def grads_and_aux(loss_fn, params, batch, loss_scale=1.0):
+    """(grads, aux) of loss_scale * loss_fn(params, batch)[0] with respect to
+    params; aux is loss_fn's second output.
+
+    loss_scale: a data-parallel rank's share of the global batch.  The
+    update operator's heads zero gradient entries above 0.01
+    (models/layers.py), so the gradients of a global batch are not the mean
+    of its parts' gradients: each rank scales its loss before the backward,
+    and the ranks' gradients are summed."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
     loss, aux = loss_fn(leaves, batch)
+    if loss_scale != 1.0:
+        loss = loss * loss_scale
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return dict(zip(leaves, grads)), aux
 
@@ -207,7 +224,7 @@ def make_train_step(cfg, ii, jj, num_steps=None, dtype=None, remat=False):
     return step
 
 
-def make_train_step_dynamic(cfg, num_steps=None, dtype=None, remat=False):
+def make_train_step_dynamic(cfg, num_steps=None, dtype=None, remat=False, loss_scale=1.0):
     """The training step for per-item sampled graphs and pose restarts.
 
     The graph and the initialisation travel in the batch: {images, poses,
@@ -218,11 +235,13 @@ def make_train_step_dynamic(cfg, num_steps=None, dtype=None, remat=False):
       one forward and backward pass; the carry re-seeds Gs0 and disp0 for a
       restart, whose gradients are summed before one optimizer step;
     - apply_step(params, opt_state, grads) -> (params, opt_state).
+
+    loss_scale: see grads_and_aux (1 / world size on each of several ranks).
     """
     loss_fn = sampled_graph_loss(cfg, num_steps, dtype, remat)
 
     def grad_step(params, batch):
-        grads, (metrics, carry) = grads_and_aux(loss_fn, params, batch)
+        grads, (metrics, carry) = grads_and_aux(loss_fn, params, batch, loss_scale)
         return grads, metrics, carry
 
     return grad_step, make_optimizer(cfg)

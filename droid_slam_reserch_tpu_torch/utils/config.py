@@ -1,9 +1,10 @@
 """One typed, central configuration (copy of the JAX package's DroidConfig).
 
 Every tunable lives in one dataclass, with the per-dataset presets of the
-reference's evaluation scripts.  The port runs what every field describes
-but the sharded BA and edge refresh (``ba_shards``, ``refresh_shards``
-above 1), which it declines with a notice and runs on one device.
+reference's evaluation scripts.  ``ba_shards`` and ``refresh_shards`` (-1:
+auto, by the JAX package's rules over ``torch.cuda.device_count()``) place
+shard k on card k mod the card count: on one card or the CPU an explicit
+count runs every shard there, one after the other.
 """
 import dataclasses
 from typing import Optional, Tuple

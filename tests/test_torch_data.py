@@ -82,12 +82,15 @@ def test_eth3d_stream_with_depth(tmp_path):
 
 
 def test_eth3d_jpeg_is_refused_by_name(tmp_path):
+    """A JPEG the port does not decode (progressive) is refused naming the
+    file; baseline JPEGs are decoded (tests/test_torch_jpeg.py)."""
     os.makedirs(tmp_path / "color")
     np.savetxt(tmp_path / "calibration.txt", np.array([[100.0, 100.0, 80.0, 60.0]]))
-    cv2.imwrite(str(tmp_path / "color" / "100.0.jpg"), textured_image(120, 160, 0,
-                                                                       np.random.RandomState(0)))
+    cv2.imwrite(str(tmp_path / "color" / "100.0.jpg"),
+                textured_image(120, 160, 0, np.random.RandomState(0)),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     assert tdata.eth3d_timestamps(str(tmp_path)) == jdata.eth3d_timestamps(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="100.0.jpg"):
+    with pytest.raises(NotImplementedError, match="100.0.jpg: progressive"):
         next(tdata.eth3d_stream(str(tmp_path)))
 
 

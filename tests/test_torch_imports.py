@@ -38,4 +38,5 @@ def test_walk_sees_the_whole_port():
             "profile_frontend.py", "cli.py", "imageio.py", "alignment.py",
             "group_sequence.py", "pipeline.py", "live.py", "pointcloud.py", "sim3.py",
             "losses.py", "chol.py", "dense.py", "system.py", "step.py", "checkpoint.py",
-            "logger.py", "rgbd_utils.py", "augmentation.py", "base.py", "factory.py"} <= names
+            "logger.py", "rgbd_utils.py", "augmentation.py", "base.py", "factory.py",
+            "jpeg.py", "mesh.py", "distributed.py", "dist_ba.py", "train_parallel.py"} <= names
