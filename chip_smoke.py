@@ -5,7 +5,9 @@
 
 Phases (one line each; any failure exits nonzero):
 1. build   nvcc-compiles the port's CUDA kernels from csrc/ (sm_90a), one
-           process per source, all started together;
+           process per source, all started together, and g++ the port's C++
+           graph library (csrc/graph_ops.cpp: edge selection, dedup, Schur
+           bucket tables);
 2. kernels prints what ptxas made of the correlation build (K2), the BA
            blocks (K1), the window-cache build (K4, K8), the windowed lookup
            (K5), the pyramid lookups (K3, K6) and the window extraction (K7)
@@ -53,7 +55,12 @@ Phases (one line each; any failure exits nonzero):
            ETH3D_CONFIG (RGB-D, 480x640) over 32 frames and a smooth seeded
            depth, in bf16 and then fp32; before each track and terminate_eva,
            every kernel's launch count and every plain version's call count
-           is set to 0, and read just after; then K1 held at the largest
+           is set to 0, and read just after, and so are the graph library's
+           (its three entry points called, their numpy versions not); then
+           the library held against its numpy version on the fp32 mono
+           path's last frontend and first backend selections, and both timed
+           there and on a 512-keyframe backend matrix (graph_library.json in
+           chiprun_out/); then K1 held at the largest
            edge count of the fp32 mono and stereo backends' graphs, and on the
            stereo and RGB-D paths every kernel held against its plain version
            on the inputs of the engine's last call of it in the track and in
@@ -108,8 +115,12 @@ Phases (one line each; any failure exits nonzero):
            training at world size 1 over NCCL (make_parallel_train_step and
            cli train, each bit for bit against one process); the eth3d
            command on color/*.jpg built from tests/data/jpeg/ (bf16,
-           --depth), with the reader's ms a frame (parallel.json in
-           chiprun_out/ holds the sharded BA's times).  The card-vs-CPU
+           --depth), with the reader's ms a frame; every committed
+           progressive and arithmetic-coded JPEG fixture decoded and held
+           against its cv2 digest, ms a frame of each kind; the same eth3d
+           command on the progressive frames of tests/data/jpeg_progressive/
+           (parallel.json in chiprun_out/ holds the sharded BA's and the
+           decoders' times).  The card-vs-CPU
            phase also runs mono 64x96 with ba_shards=2 and refresh_shards=2.
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as its last line the device JSON.  The script needs only
@@ -1600,6 +1611,116 @@ def check_counts(counts, what, kernels=MAIN_KERNELS, absent=()):
             fail(f"{name}: {launches} kernel launches, {plain} plain calls on {what}")
 
 
+def check_graph_counts(counts, what):
+    """The C++ graph library's entry points (native.py) each called, and none
+    of their numpy plain versions."""
+    say("graph-lib", f"{what}: calls (library, numpy plain version) {counts}")
+    for name, (lib, plain) in counts.items():
+        if lib == 0 or plain != 0:
+            fail(f"graph library {name}: {lib} library calls, {plain} numpy calls on {what}")
+
+
+class Selections:
+    """The inputs of every native.proximity_select call while installed,
+    the distance matrix copied (the library writes into its own copy): the
+    engine's edge selections, to hold the C++ library against its numpy
+    plain version on the main path's own data."""
+
+    def __init__(self):
+        from droid_slam_reserch_tpu_torch import native
+
+        self.native, self.orig, self.calls = native, native.proximity_select, []
+
+        def select(d, *args):
+            self.calls.append((np.array(d, np.float64), args))
+            return self.orig(d, *args)
+
+        native.proximity_select = select
+
+    def restore(self):
+        self.native.proximity_select = self.orig
+
+
+def host_cpu():
+    """The host's CPU model (lscpu, else /proc/cpuinfo), architecture and
+    the cores this process may use."""
+    import platform
+
+    model = None
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=10).stdout
+        model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.strip().lower().startswith("model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if model is None:
+        try:
+            with open("/proc/cpuinfo") as f:
+                model = next((ln.split(":", 1)[1].strip() for ln in f
+                              if ln.lower().startswith(("model name", "cpu model"))), None)
+        except OSError:
+            pass
+    return (f"{model or 'CPU model not reported'} ({platform.machine()}), "
+            f"{len(os.sched_getaffinity(0))} cores")
+
+
+def backend_distances(n, seed=0):
+    """A distance matrix of n keyframes as the backend sees a long run: 0.3
+    per keyframe of separation, plus uniform noise up to 4."""
+    rng = np.random.RandomState(seed)
+    i = np.arange(n)
+    return 0.3 * np.abs(i[:, None] - i[None, :]) + 4.0 * rng.rand(n, n)
+
+
+def phase_graph_library(front, back, cfg):
+    """The C++ graph library (native.py) against its numpy plain version on
+    the main path's captured selections: the last frontend selection of the
+    fp32 mono track and the first backend selection of its terminate_eva,
+    edge for edge and in order (where no two candidate distances tie: there
+    the two sorts may order them apart, and the CPU tests hold the library
+    against the JAX package's C++ path instead); then ms per call of both at
+    the frontend's, the backend's and a 512-keyframe backend's size, on the
+    card's host."""
+    from droid_slam_reserch_tpu_torch import native
+
+    times = {}
+    n512 = backend_distances(512)
+    cases = (("frontend", front), ("backend", back),
+             ("backend 512", (n512, (0, 0, 512, cfg.backend_radius, cfg.backend_nms,
+                                     cfg.backend_thresh, 16 * 512, np.zeros(0, np.int32),
+                                     np.zeros(0, np.int32), False))))
+    for what, (d, args) in cases:
+        lib = native.proximity_select(d, *args)
+        plain = native.proximity_select_plain(d, *args)
+        t0, t1, t, rad, thresh = args[0], args[1], args[2], args[3], args[5]
+        ii, jj = np.meshgrid(np.arange(t0, t), np.arange(t1, t), indexing="ij")
+        cand = d[(ii - rad >= jj) & (d <= thresh)]           # the selectable distances
+        tied = len(cand) - len(np.unique(cand))
+        same = len(lib[0]) == len(plain[0]) and all(
+            np.array_equal(a, b) for a, b in zip(lib, plain))
+        ms = {}
+        for name, fn in (("library", native.proximity_select),
+                         ("numpy", native.proximity_select_plain)):
+            reps = []
+            for _ in range(5 if name == "library" else 3):
+                start = time.perf_counter()
+                fn(d, *args)
+                reps.append(1e3 * (time.perf_counter() - start))
+            ms[name] = float(np.median(reps))
+        times[what] = dict(shape=list(d.shape), edges=len(lib[0]), tied_candidates=int(tied),
+                           same_as_plain=same, **{f"{k}_ms": v for k, v in ms.items()})
+        say("graph-lib", f"proximity_select at the {what}'s size {d.shape[0]}x{d.shape[1]} "
+                         f"(rad {args[3]}, nms {args[4]}, thresh {thresh}, max_factors "
+                         f"{args[6]}): {len(lib[0])} edges, library {ms['library']:.3f} ms, "
+                         f"numpy {ms['numpy']:.3f} ms a call; equal to the numpy version in "
+                         f"order: {same} ({tied} tied candidate distances)")
+        if not same and tied == 0:
+            fail(f"the graph library's edges differ from the numpy version's at the {what}'s "
+                 f"selection")
+    say("graph-lib", f"host: {host_cpu()}")
+    return times
+
+
 class EngineInputs:
     """The inputs of the engine's latest call of K1, K4 with the coords of
     the last K5 round on its windows, and K2 with the coords of the last K3
@@ -1738,6 +1859,7 @@ def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS, m
     and `depths`; returns the kernel counts, the Droid, the tracked (tstamp,
     image) pairs and the frames/s after initialisation.  With `capture`
     (EngineInputs), the track's kernel inputs are kept."""
+    from droid_slam_reserch_tpu_torch import native
     from droid_slam_reserch_tpu_torch.engine import Droid
     from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
     from droid_slam_reserch_tpu_torch.utils import ETH3D_CONFIG, EUROC_CONFIG
@@ -1753,6 +1875,7 @@ def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS, m
     torch.cuda.synchronize()
 
     ops.reset_counts()
+    native.reset_counts()
     fg.reset_corr_rounds()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1765,6 +1888,7 @@ def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS, m
     torch.cuda.synchronize()
     t1 = time.time()
     counts = ops.counts()
+    graph_counts = native.counts()
     if t_init is None:
         fail("the frontend never initialised on the main path")
 
@@ -1807,6 +1931,7 @@ def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS, m
         if not bool((sens > 0).all()):
             fail("the RGB-D main path has keyframes without sensor disparity")
     check_counts(counts, f"the main path's track ({mode}, {dtype})", kernels, OFF_ENGINE)
+    check_graph_counts(graph_counts, f"the main path's track ({mode}, {dtype})")
     return counts, droid, [(float(t), img) for t, img in enumerate(frames)], fps_steady
 
 
@@ -1837,6 +1962,7 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KE
     enters the host-clock times).  With `capture`, the backend's kernel
     inputs are kept.  Returns the kernel counts, the call's seconds and the
     trajectory."""
+    from droid_slam_reserch_tpu_torch import native
     from droid_slam_reserch_tpu_torch.engine import factor_graph as fg
 
     n_kf = droid.video.counter
@@ -1848,6 +1974,7 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KE
     call = Timed(torch, droid.terminate_eva)
     stream = iter([(t, img, intr) for t, img in tracked])
     ops.reset_counts()
+    native.reset_counts()
     fg.reset_corr_rounds()
     tag = "" if droid.cfg.compute_dtype == "float32" else "_bf16"
     if profiling:
@@ -1856,6 +1983,7 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KE
     else:
         traj = call(stream)
     counts = ops.counts()
+    graph_counts = native.counts()
     rounds = dict(fg.CORR_ROUNDS)
     mode = "stereo" if droid.cfg.stereo else "rgbd" if droid.cfg.rgbd else "mono"
     say("main-path", f"terminate_eva {mode} {droid.cfg.compute_dtype}: {call.seconds[0]:.2f} s: "
@@ -1875,6 +2003,8 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KE
         fail("terminate_eva did not return a finite trajectory of unit quaternions")
     check_counts(counts, f"the main path's terminate_eva ({mode}, {droid.cfg.compute_dtype})",
                  kernels, OFF_ENGINE)
+    check_graph_counts(graph_counts, f"the main path's terminate_eva ({mode}, "
+                                     f"{droid.cfg.compute_dtype})")
     return counts, call.seconds[0], traj
 
 
@@ -3461,16 +3591,17 @@ def torch_equal(x, y):
 N_JPEG = 24           # ETH3D_CONFIG's warmup is 20
 
 
-def write_jpeg_eth3d(root):
+def write_jpeg_eth3d(root, folder="jpeg"):
     """An ETH3D sequence whose frames are color/*.jpg (no rgb/): the
-    committed fixtures tests/data/jpeg/ (739x458, 4 px of pan a frame)
-    cycled forth and back over N_JPEG frames, depth_frames' depth as 16-bit
-    PNGs, ETH3D's calibration and a ground truth 0.02 m a frame."""
-    fixtures = os.path.join(REPO, "tests", "data", "jpeg")
+    committed fixtures tests/data/<folder>/ (739x458, 4 px of pan a frame;
+    jpeg_progressive/ holds their progressive versions) cycled forth and
+    back over N_JPEG frames, depth_frames' depth as 16-bit PNGs, ETH3D's
+    calibration and a ground truth 0.02 m a frame."""
+    fixtures = os.path.join(REPO, "tests", "data", folder)
     files = sorted(os.listdir(fixtures))
     order = [k for _ in range(N_JPEG) for k in list(range(len(files))) + list(
         range(len(files) - 2, 0, -1))][:N_JPEG]
-    seq = os.path.join(root, "eth3d_jpeg")
+    seq = os.path.join(root, "eth3d_" + folder)
     os.makedirs(os.path.join(seq, "color"))
     os.makedirs(os.path.join(seq, "depth"))
     rows = []
@@ -3484,18 +3615,60 @@ def write_jpeg_eth3d(root):
     return seq
 
 
-def parallel_jpeg(torch, ops, root):
-    """The JPEG reader: ms a frame of imageio.imread and of eth3d_stream
-    (with depth) over the committed fixtures; then the eth3d command (bf16,
-    --depth) on color/*.jpg, with the counts set to 0 before and read after
-    (K1-K5 of bf16 launch, no plain version): a finite ATE and poses."""
+JPEG_FIXTURES = (("baseline", "jpeg", ".jpg"), ("progressive", "jpeg_progressive", ".jpg"),
+                 ("arithmetic sequential", "jpeg_arith", "_seq.jpg"),
+                 ("arithmetic progressive", "jpeg_arith", "_prog.jpg"))
+
+
+def decode_fixtures():
+    """Every committed JPEG fixture decoded on this host (imageio.imread,
+    as the readers call it): the progressive and arithmetic-coded ones held
+    against the digest of cv2.imread's decode committed beside their folder
+    (tests/data/<folder>.json); ms a 739x458 frame of each kind."""
+    import hashlib
+
+    from droid_slam_reserch_tpu_torch.data import imageio
+
+    data = os.path.join(REPO, "tests", "data")
+    ms = {}
+    for kind, folder, suffix in JPEG_FIXTURES:
+        digests = None
+        if os.path.exists(os.path.join(data, folder + ".json")):
+            with open(os.path.join(data, folder + ".json")) as f:
+                digests = json.load(f)
+        files = [f for f in sorted(os.listdir(os.path.join(data, folder))) if f.endswith(suffix)
+                 and (suffix != ".jpg" or not f.endswith(("_seq.jpg", "_prog.jpg")))]
+        secs = 0.0
+        for name in files:
+            t0 = time.perf_counter()
+            img = imageio.imread(os.path.join(data, folder, name))
+            secs += time.perf_counter() - t0
+            if digests is not None:
+                got = {"sha256": hashlib.sha256(img.tobytes()).hexdigest(),
+                       "shape": list(img.shape), "dtype": str(img.dtype)}
+                if got != digests[name]:
+                    fail(f"JPEG fixture {folder}/{name} decodes to {got}, cv2 to {digests[name]}")
+        ms[kind] = 1e3 * secs / len(files)
+        say("parallel", f"JPEG {kind}: {len(files)} fixtures of {folder}/ decoded"
+                        f"{'' if digests is None else ', each equal to the cv2 digest'}; "
+                        f"{ms[kind]:.1f} ms a 739x458 frame on {host_cpu()}")
+    return ms
+
+
+def parallel_jpeg(torch, ops, root, folder="jpeg"):
+    """The JPEG reader on tests/data/<folder>/ (baseline frames, or their
+    progressive versions): ms a frame of imageio.imread and of eth3d_stream
+    (with depth); then the eth3d command (bf16, --depth) on color/*.jpg,
+    with the kernel and graph-library counts set to 0 before and read after
+    (K1-K5 of bf16 launch, the library's entry points run, no plain
+    version): a finite ATE and poses."""
     import contextlib
     import io
 
-    from droid_slam_reserch_tpu_torch import cli
+    from droid_slam_reserch_tpu_torch import cli, native
     from droid_slam_reserch_tpu_torch.data import eth3d_stream, imageio
 
-    seq = write_jpeg_eth3d(root)
+    seq = write_jpeg_eth3d(root, folder)
     files = sorted(os.listdir(os.path.join(seq, "color")))
     t0 = time.perf_counter()
     for f in files[:6]:
@@ -3505,6 +3678,7 @@ def parallel_jpeg(torch, ops, root):
     n = sum(1 for _ in eth3d_stream(seq, use_depth=True))
     stream_ms = 1e3 * (time.perf_counter() - t0) / n
     ops.reset_counts()
+    native.reset_counts()
     out = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(out):
@@ -3513,18 +3687,21 @@ def parallel_jpeg(torch, ops, root):
     torch.cuda.synchronize()
     secs = time.time() - t0
     counts = ops.counts()
+    graph_counts = native.counts()
     res = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
     ate = res[-1]["ate"]["rmse"] if res and "ate" in res[-1] else float("nan")
     v = droid.video
     finite = bool(torch.isfinite(v.poses[:v.counter]).all())
-    say("parallel", f"JPEG: imageio.imread {dec_ms:.1f} ms a 739x458 frame, eth3d_stream "
+    say("parallel", f"JPEG {folder}/: imageio.imread {dec_ms:.1f} ms a 739x458 frame, eth3d_stream "
                     f"(color/*.jpg + depth PNGs, resized to {img.shape[1]}x{img.shape[0]} -> "
                     f"{droid.cfg.image_size[1]}x{droid.cfg.image_size[0]}) {stream_ms:.1f} ms a "
                     f"frame; eth3d --depth bf16 on {n} JPEG frames: {v.counter} keyframes in "
                     f"{secs:.1f} s, ATE {ate:.4f}, poses finite {finite}; counts {counts}")
     if not (n == N_JPEG and np.isfinite(ate) and finite):
-        fail("the eth3d command on JPEG frames gave no finite trajectory")
-    check_counts(counts, "the eth3d command on JPEG frames", MAIN_KERNELS_BF16, OFF_ENGINE)
+        fail(f"the eth3d command on the JPEG frames of {folder}/ gave no finite trajectory")
+    check_counts(counts, f"the eth3d command on the JPEG frames of {folder}/", MAIN_KERNELS_BF16,
+                 OFF_ENGINE)
+    check_graph_counts(graph_counts, f"the eth3d command on the JPEG frames of {folder}/")
     del droid
     torch.cuda.empty_cache()
     return counts
@@ -3549,10 +3726,15 @@ def phase_parallel(torch, ops, snap):
         t0 = time.time()
         by_path["parallel_eth3d_jpeg_bf16"] = parallel_jpeg(torch, ops, root)
         say("time", f"parallel JPEG: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        jpeg_ms = decode_fixtures()
+        by_path["parallel_eth3d_jpeg_progressive_bf16"] = parallel_jpeg(torch, ops, root,
+                                                                        "jpeg_progressive")
+        say("time", f"parallel JPEG fixtures and progressive eth3d: {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     with open(os.path.join(OUT_DIR, "parallel.json"), "w") as f:
-        json.dump({"sharded_ba_ms": times}, f, indent=1)
+        json.dump({"sharded_ba_ms": times, "jpeg_ms_a_frame": jpeg_ms}, f, indent=1)
     return by_path
 
 
@@ -3585,6 +3767,13 @@ def main():
     say("build", f"nvcc sm_90a, {n_src} sources in parallel: "
                  f"{time.time() - t0:.1f} s ({build.LIB_PATH})")
     build.library()
+    from droid_slam_reserch_tpu_torch import native
+
+    t0 = time.time()
+    native.build()
+    native.have_native()
+    say("build", f"graph library: {' '.join(native.CXX)} csrc/graph_ops.cpp: "
+                 f"{time.time() - t0:.1f} s ({native.LIB_PATH})")
     lap("build")
 
     profiling = "--profile" in sys.argv[1:]
@@ -3610,8 +3799,12 @@ def main():
         imgs, depths = frames[mode]
         n = N_RGBD if mode == "rgbd" else N_MAIN
         cap = None if mode == "mono" else EngineInputs()
+        sel = Selections() if (mode, dtype) == ("mono", "float32") else None
         counts, droid, tracked, fps = phase_main_path(torch, ops, imgs[:n], dtype, kernels, mode,
                                                       depths, cap)
+        if sel is not None:
+            front = sel.calls[-1]
+            sel.calls.clear()
         if profiling and mode == "mono":
             tracked += phase_profile(torch, droid, imgs[N_MAIN:], float(N_MAIN), tag=sfx)
         if (mode, dtype) == ("mono", "bfloat16"):      # the parallel phase's state
@@ -3619,6 +3812,9 @@ def main():
         counts_term, secs, traj = phase_terminate(
             torch, ops, droid, tracked, profiling and mode == "mono", kernels,
             INTR_ETH3D if mode == "rgbd" else INTR_EUROC, cap)
+        if sel is not None:
+            back, graph_cfg = sel.calls[0], droid.cfg
+            sel.restore()
         if (mode, dtype) == ("mono", "bfloat16"):
             snap += (traj,)
         by_path["track" + sfx], by_path["terminate_eva" + sfx] = counts, counts_term
@@ -3643,6 +3839,10 @@ def main():
                          f"frames/s after initialisation, terminate_eva {s16:.2f} against "
                          f"{s32:.2f} s")
     lap("main-path")
+    graph_times = phase_graph_library(front, back, graph_cfg)
+    with open(os.path.join(OUT_DIR, "graph_library.json"), "w") as f:
+        json.dump(graph_times, f, indent=1)
+    lap("graph-library")
     root = tempfile.mkdtemp(prefix="droid_cli_")
     try:
         t0 = time.time()

@@ -5,7 +5,8 @@ Each function names the cv2 call it replaces and gives what that call
 gives, bit for bit where OpenCV's integer arithmetic is replicated:
 
 - ``imread``: ``cv2.imread`` (IMREAD_COLOR, or IMREAD_ANYDEPTH) of PNGs,
-  and of baseline JPEGs (IMREAD_COLOR) through data/jpeg.py;
+  and of baseline, progressive and arithmetic-coded JPEGs (IMREAD_COLOR)
+  through data/jpeg.py;
 - ``resize``: ``cv2.resize`` with INTER_LINEAR (uint8: OpenCV's 11-bit
   fixed point; float: float weights) or INTER_NEAREST;
 - ``init_undistort_rectify_map``: ``cv2.initUndistortRectifyMap`` (CV_32F);
@@ -160,8 +161,9 @@ def imread(path, anydepth=False):
     at the file's depth (uint16 for TUM's and ETH3D's depth maps).
 
     PNG: every colour type and bit depth, interlaced or not.  JPEG
-    (``.jpg``/``.jpeg``): baseline and extended sequential (data/jpeg.py);
-    progressive and arithmetic-coded JPEGs raise NotImplementedError.
+    (``.jpg``/``.jpeg``): baseline, extended sequential, progressive and
+    arithmetic-coded (data/jpeg.py); lossless, hierarchical, 12-bit and
+    CMYK JPEGs raise NotImplementedError.
     IMREAD_ANYDEPTH reads grey PNGs only.
     """
     if anydepth:

@@ -1,13 +1,25 @@
-"""Baseline JPEG decoding in numpy: what ``cv2.imread`` gives for a JPEG.
+"""JPEG decoding in numpy: what ``cv2.imread`` gives for a JPEG.
 
 OpenCV decodes JPEGs with libjpeg-turbo at its defaults, and this module
-repeats that library's arithmetic, so that the result equals cv2's (the
-tests hold it within 1 per channel):
+repeats that library's arithmetic, so that the result equals cv2's:
 
-- markers SOI, APPn (JFIF and Adobe), COM, DQT, SOF0/SOF1 (8-bit), DHT,
-  SOS, DRI with RSTn, EOI; interleaved and single-component scans;
+- markers SOI, APPn (JFIF and Adobe), COM, DQT, SOF0/SOF1 (baseline and
+  extended sequential), SOF2 (progressive), SOF9 and SOF10 (arithmetic-coded
+  sequential and progressive), DHT, DAC, SOS, DRI with RSTn, EOI;
+  interleaved and single-component scans;
 - Huffman decoding (a 16-bit lookup table per code table), DC prediction
   reset at each restart marker;
+- progressive scans as jdphuff.c decodes them: spectral selection and
+  successive approximation, DC first and refine scans (interleaved or
+  not), AC first scans with end-of-band runs, AC refine scans (correction
+  bits, ZRL and EOBRUN as decode_mcu_AC_refine), restart intervals that
+  reset the end-of-band run and the DC prediction; every scan's
+  coefficients are gathered before the blocks are transformed;
+- arithmetic decoding as jdarith.c does it: the QM decoder and jaricom.c's
+  113-state table, DC statistics conditioned by the DAC marker's L and U
+  (defaults 0 and 1), AC statistics split at Kx (default 5), sequential and
+  progressive scans, statistics and decoder reset at each restart, zero
+  bytes fed after a marker;
 - dequantisation and the integer "islow" IDCT (jidctint.c: 13-bit
   constants, 2 extra bits after the column pass, the post-IDCT range-limit
   table);
@@ -16,8 +28,10 @@ tests hold it within 1 per channel):
   ratios by replication, as libjpeg-turbo does;
 - YCbCr -> BGR with jdcolor.c's 16-bit fixed-point tables; grey.
 
-Progressive, arithmetic-coded, lossless, hierarchical, 12-bit and
-4-component (CMYK, YCCK) JPEGs raise NotImplementedError naming the mode.
+Lossless, hierarchical, 12-bit and 4-component (CMYK, YCCK) JPEGs raise
+NotImplementedError naming the mode, and so does a progressive JPEG whose
+scans leave bits of its first AC coefficients unknown: libjpeg smooths such
+blocks (jdcoefct.c's decompress_smooth_data), which is not ported.
 """
 import numpy as np
 
@@ -28,15 +42,58 @@ ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
 
+# SOF markers decoded: (progressive, arithmetic)
+_SOF_MODES = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
+              0xC9: (False, True), 0xCA: (True, True)}
 _UNSUPPORTED_SOF = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential (hierarchical)",
+    0xC3: "lossless", 0xC5: "differential sequential (hierarchical)",
     0xC6: "differential progressive (hierarchical)", 0xC7: "differential lossless (hierarchical)",
-    0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
     0xCB: "arithmetic-coded lossless",
     0xCD: "arithmetic-coded differential sequential (hierarchical)",
     0xCE: "arithmetic-coded differential progressive (hierarchical)",
     0xCF: "arithmetic-coded differential lossless (hierarchical)",
 }
+
+
+# jaricom.c (ITU-T T.81 Table D.2): per state, Qe, the next state after an
+# LPS, the next state after an MPS, and whether an LPS switches the MPS;
+# state 113 is the fixed probability 0.5 (sign and DC refinement bits)
+_ARITAB = [
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0),
+    (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1), (0x3f25, 36, 16, 0),
+    (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0), (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0),
+    (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0),
+    (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0),
+    (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0), (0x119c, 74, 76, 0),
+    (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0), (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415e, 103, 99, 0), (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0),
+]
+_QE = [q for q, _, _, _ in _ARITAB]
+_NEXT_LPS = [nl | (sw << 7) for _, nl, _, sw in _ARITAB]     # the MPS switch in bit 7
+_NEXT_MPS = [nm for _, _, nm, _ in _ARITAB]
+_FIXED_STATE = 113
+_DC_STAT_BINS, _AC_STAT_BINS = 64, 256
 
 
 class _Component:
@@ -98,19 +155,19 @@ def _entropy_data(blob, pos):
         return intervals, i
 
 
-def _decode_interval(data, units, preds, n_mcu):
-    """Huffman-decode `n_mcu` MCUs of one restart interval.
+def _decode_interval(data, units, preds, m0, n_mcu):
+    """Huffman-decode MCUs m0 .. m0 + n_mcu - 1, one restart interval.
 
-    units: per block of the MCU, (component index, dc lut, ac lut, block
-    offset function of the MCU's number, the component's index and value
-    lists, to which the nonzero coefficients are appended); preds: the DC
-    predictors, reset by the caller."""
-    words = np.frombuffer(data + b"\x00" * (8 - len(data) % 4), ">u4").tolist()
+    units: per block of the MCU, (component index, dc lut, ac lut, the
+    block row of each MCU in the component's grid, the component's index
+    and value lists, to which the nonzero coefficients are appended);
+    preds: the DC predictors, reset by the caller."""
+    words = _words(data)
     acc, nb, wi = 0, 0, 0
     zz = ZIGZAG.tolist()
-    for mcu in range(n_mcu):
-        for ci, dc_lut, ac_lut, base_of, out_idx, out_val in units:
-            base = base_of(mcu)
+    for mcu in range(m0, m0 + n_mcu):
+        for ci, dc_lut, ac_lut, rows, out_idx, out_val in units:
+            base = rows[mcu] * 64
             if nb < 32:
                 acc = ((acc & ((1 << nb) - 1)) << 32) | (words[wi] if wi < len(words) else 0)
                 wi += 1
@@ -319,12 +376,52 @@ def ycc_to_bgr(y, cb, cr):
     return np.clip(np.stack([b, g, r], -1), 0, 255).astype(np.uint8)
 
 
+class Coefficients:
+    """A JPEG's frame and its quantised coefficients, as libjpeg's
+    jpeg_read_coefficients gives them: ``comps`` (id, h, v, quantisation
+    table number ``tq``, the latched table ``q`` [64] in natural order, and
+    ``blocks`` [bh * bw, 64] int32 in natural order over the MCU-padded
+    block grid ``bh`` x ``bw``), the frame's width, height, hmax, vmax, MCU
+    columns and rows, and the JFIF and Adobe markers that pick the colour
+    transform."""
+
+    def __init__(self, comps, frame, jfif, adobe_transform):
+        self.comps = comps
+        self.width, self.height, self.hmax, self.vmax, self.mcux, self.mcuy = frame
+        self.jfif, self.adobe_transform = jfif, adobe_transform
+
+
 def decode(blob, path="<bytes>"):
-    """Decode a baseline JPEG: [H, W, 1] uint8 for grey, else [H, W, 3]
-    BGR, as cv2.imread returns it before grey is replicated."""
+    """Decode a JPEG: [H, W, 1] uint8 for grey, else [H, W, 3] BGR, as
+    cv2.imread returns it before grey is replicated."""
+    return render(read_coefficients(blob, path))
+
+
+def render(coefs):
+    """Samples of read_coefficients' result: the islow IDCT, fancy
+    upsampling and the colour transform, as libjpeg's output pass."""
+    planes = []
+    for c in coefs.comps:
+        px = idct_islow(c.blocks, c.q)                                  # [bh * bw, 8, 8]
+        plane = px.reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
+        planes.append(_upsample(plane, c, coefs.hmax, coefs.vmax, coefs.width, coefs.height))
+    if len(coefs.comps) == 1:
+        return planes[0].astype(np.uint8)[..., None]
+    ids = tuple(c.id for c in coefs.comps)
+    adobe, jfif = coefs.adobe_transform, coefs.jfif
+    rgb = (adobe == 0 if adobe is not None and not jfif
+           else (not jfif and ids == (82, 71, 66)))
+    if rgb:
+        return np.stack(planes[::-1], -1).astype(np.uint8)
+    return ycc_to_bgr(*planes)
+
+
+def read_coefficients(blob, path="<bytes>"):
+    """Parse a JPEG and decode every scan: a Coefficients."""
     qt, dc_tabs, ac_tabs = {}, {}, {}
-    comps, frame, restart = None, None, 0
+    comps, frame, restart, mode = None, None, 0, None
     jfif = adobe_transform = None
+    dac_l, dac_u, dac_k = [0] * 16, [1] * 16, [5] * 16        # jdmarker.c's defaults
     if blob[:2] != b"\xff\xd8":
         raise ValueError(f"{path}: not a JPEG file (no SOI marker)")
     pos = 2
@@ -344,7 +441,8 @@ def decode(blob, path="<bytes>"):
                 table[ZIGZAG] = vals
                 qt[tq] = table
                 i += 1 + n
-        elif marker in (0xC0, 0xC1):
+        elif marker in _SOF_MODES:
+            mode = _SOF_MODES[marker]
             precision = body[0]
             if precision != 8:
                 raise NotImplementedError(f"{path}: {precision}-bit JPEG samples "
@@ -360,14 +458,14 @@ def decode(blob, path="<bytes>"):
             mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
             for c in comps:
                 c.bw, c.bh = mcux * c.h, mcuy * c.v              # blocks, MCU-padded
-                c.idx, c.val = [], []
+                c.idx, c.val, c.q = [], [], None
+                if mode[0]:                                        # zigzag order
+                    c.coef = np.zeros((c.bh * c.bw, 64), np.int32)
+                    c.coef_bits = [-1] * 64
             frame = (width, height, hmax, vmax, mcux, mcuy)
         elif marker in _UNSUPPORTED_SOF:
             raise NotImplementedError(f"{path}: {_UNSUPPORTED_SOF[marker]} JPEG is not "
-                                      f"supported (baseline and extended sequential Huffman "
-                                      f"only)")
-        elif marker == 0xCC:
-            raise NotImplementedError(f"{path}: arithmetic-coded JPEG is not supported")
+                                      f"supported")
         elif marker == 0xC4:
             i = 0
             while i < len(body):
@@ -377,86 +475,591 @@ def decode(blob, path="<bytes>"):
                 lut = _huffman_lut(counts, list(body[i + 17: i + 17 + n]))
                 (ac_tabs if tc else dc_tabs)[th] = lut
                 i += 17 + n
+        elif marker == 0xCC:
+            for i in range(0, len(body) - 1, 2):
+                tc, tb, val = body[i] >> 4, body[i] & 15, body[i + 1]
+                if tc:
+                    dac_k[tb] = val
+                else:
+                    dac_l[tb], dac_u[tb] = val & 15, val >> 4
+                    if dac_l[tb] > dac_u[tb]:
+                        raise ValueError(f"{path}: corrupt JPEG (DAC L {dac_l[tb]} > U "
+                                         f"{dac_u[tb]})")
         elif marker == 0xDD:
             restart = (body[0] << 8) | body[1]
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError(f"{path}: corrupt JPEG (SOS before SOF)")
             ns = body[0]
-            scan = []
+            cis, tds, tas = [], [], []
             for k in range(ns):
                 cid, tables = body[1 + 2 * k], body[2 + 2 * k]
                 ci = next(i for i, c in enumerate(comps) if c.id == cid)
-                scan.append((ci, dc_tabs[tables >> 4], ac_tabs[tables & 15]))
-            ss, se, ahal = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
-            if ss != 0 or se != 63 or ahal != 0:
-                raise NotImplementedError(f"{path}: progressive JPEG scans are not supported")
-            pos = _decode_scan(blob, pos, frame, comps, scan, restart)
+                cis.append(ci)
+                tds.append(tables >> 4)
+                tas.append(tables & 15)
+                if comps[ci].q is None:                 # latched at the first scan, as libjpeg
+                    if comps[ci].tq not in qt:
+                        raise ValueError(f"{path}: quantisation table {comps[ci].tq} is "
+                                         f"missing")
+                    comps[ci].q = qt[comps[ci].tq].copy()
+            ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, \
+                body[3 + 2 * ns] & 15
+            progressive, arithmetic = mode
+            if progressive:
+                _check_progressive_scan(path, ns, ss, se, ah, al)
+                for ci in cis:
+                    bits = comps[ci].coef_bits
+                    bits[ss: se + 1] = [al] * (se + 1 - ss)
+            elif ss != 0 or se != 63 or ah or al:
+                raise NotImplementedError(f"{path}: a sequential JPEG with a spectral or "
+                                          f"successive-approximation scan is not supported")
+            if not progressive and not arithmetic:
+                scan = [(ci, dc_tabs[td], ac_tabs[ta]) for ci, td, ta in zip(cis, tds, tas)]
+                pos = _decode_scan(blob, pos, frame, comps, scan, restart)
+            else:
+                intervals, pos = _entropy_data(blob, pos)
+                n_mcu, units = _scan_units(frame, comps, cis)
+                if arithmetic:
+                    tables = [(td, ta, dac_l[td], dac_u[td], dac_k[ta])
+                              for td, ta in zip(tds, tas)]
+                    _arith_scan(path, intervals, n_mcu, units, comps, cis, tables, restart,
+                                progressive, ss, se, ah, al)
+                else:
+                    luts = [(dc_tabs.get(td), ac_tabs.get(ta)) for td, ta in zip(tds, tas)]
+                    _progressive_huffman_scan(path, intervals, n_mcu, units, comps, cis, luts,
+                                              restart, ss, se, ah, al)
             if pos >= len(blob):
                 break                  # no EOI: libjpeg accepts a truncated end
         elif marker == 0xD9:
             break
     if frame is None:
         raise ValueError(f"{path}: no frame header (SOF) in the JPEG")
-    width, height, hmax, vmax = frame[:4]
-
-    planes = []
     for c in comps:
-        if c.tq not in qt:
-            raise ValueError(f"{path}: quantisation table {c.tq} is missing")
-        blocks = np.zeros(c.bh * c.bw * 64, np.int64)
-        blocks[np.asarray(c.idx, np.int64)] = c.val
-        px = idct_islow(blocks.reshape(-1, 64), qt[c.tq])            # [bh * bw, 8, 8]
-        plane = px.reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
-        planes.append(_upsample(plane, c, hmax, vmax, width, height))
-    if len(comps) == 1:
-        return planes[0].astype(np.uint8)[..., None]
-    ids = tuple(c.id for c in comps)
-    rgb = (adobe_transform == 0 if adobe_transform is not None and not jfif
-           else (not jfif and ids == (82, 71, 66)))
-    if rgb:
-        return np.stack(planes[::-1], -1).astype(np.uint8)
-    return ycc_to_bgr(*planes)
+        if c.q is None:                        # in no scan: its blocks stay 0
+            if c.tq not in qt:
+                raise ValueError(f"{path}: quantisation table {c.tq} is missing")
+            c.q = qt[c.tq].copy()
+        if mode[0]:
+            c.blocks = np.zeros((c.bh * c.bw, 64), np.int32)
+            c.blocks[:, ZIGZAG] = c.coef
+        else:
+            blocks = np.zeros(c.bh * c.bw * 64, np.int32)
+            blocks[np.asarray(c.idx, np.int64)] = c.val
+            c.blocks = blocks.reshape(-1, 64)
+    if mode[0] and _smoothing_applies(comps):
+        raise NotImplementedError(
+            f"{path}: a progressive JPEG whose scans leave bits of its first AC coefficients "
+            f"unknown (libjpeg's block smoothing of an incomplete image is not supported)")
+    return Coefficients(comps, frame, jfif, adobe_transform)
+
+
+def _check_progressive_scan(path, ns, ss, se, ah, al):
+    """jdphuff.c / jdarith.c start_pass: the scan parameters a progressive
+    scan may have."""
+    if (ss == 0 and se != 0) or (ss and (se < ss or se > 63 or ns != 1)) \
+            or (ah and ah - 1 != al) or al > 13:
+        raise ValueError(f"{path}: corrupt JPEG (progressive scan Ss={ss} Se={se} Ah={ah} "
+                         f"Al={al} over {ns} components)")
+
+
+def _smoothing_applies(comps):
+    """jdcoefct.c's smoothing_ok (libjpeg-turbo, coefficients 0-9) after the
+    last scan: every component's DC partly known, its table's first ten
+    quantisers nonzero, and some AC coefficient 1-9 of some component not
+    known to its last bit."""
+    useful = False
+    for c in comps:
+        if c.coef_bits[0] < 0 or not np.all(c.q[ZIGZAG[:10]]):
+            return False
+        useful |= any(b != 0 for b in c.coef_bits[1:10])
+    return useful
+
+
+def _scan_units(frame, comps, cis):
+    """(MCUs in the scan, [(component index, block rows [n_mcu] into its
+    coefficient array) for each block of an MCU]): an interleaved scan's
+    MCUs, or a single component's own block grid (its samples' width and
+    height in blocks, not MCU-padded), row by row."""
+    width, height, hmax, vmax, mcux, mcuy = frame
+    if len(cis) == 1:
+        c = comps[cis[0]]
+        bw = -(-(-(-width * c.h // hmax)) // 8)
+        bh = -(-(-(-height * c.v // vmax)) // 8)
+        u = np.arange(bw * bh)
+        return bw * bh, [(cis[0], (u // bw) * c.bw + u % bw)]
+    m = np.arange(mcux * mcuy)
+    units = []
+    for ci in cis:
+        c = comps[ci]
+        for v in range(c.v):
+            for h in range(c.h):
+                units.append((ci, ((m // mcux) * c.v + v) * c.bw + (m % mcux) * c.h + h))
+    return mcux * mcuy, units
+
+
+def _intervals(intervals, n_mcu, restart):
+    """(bytes, first MCU, MCUs) of each restart interval of a scan."""
+    per = restart or n_mcu
+    done = 0
+    for data in intervals:
+        if done >= n_mcu:
+            break
+        n = min(per, n_mcu - done)
+        yield data, done, n
+        done += n
+
+
+def _words(data):
+    return np.frombuffer(data + b"\x00" * (8 - len(data) % 4), ">u4").tolist()
+
+
+def _progressive_huffman_scan(path, intervals, n_mcu, units, comps, cis, luts, restart,
+                              ss, se, ah, al):
+    """One progressive Huffman scan (jdphuff.c), into the components'
+    zigzag-order coefficient arrays."""
+    if ss == 0 and ah:                        # DC refine: the next bit of each block's DC
+        for data, m0, n in _intervals(intervals, n_mcu, restart):
+            bits = np.unpackbits(np.frombuffer(data, np.uint8))
+            bits = np.concatenate([bits, np.zeros(max(0, n * len(units) - len(bits)), np.uint8)])
+            bits = bits[: n * len(units)].reshape(n, len(units))
+            for u, (ci, rows) in enumerate(units):
+                comps[ci].coef[rows[m0: m0 + n], 0] |= bits[:, u].astype(np.int32) << al
+        return
+    if ss == 0:                               # DC first, interleaved or not
+        rows_out, vals_out = [[] for _ in comps], [[] for _ in comps]
+        plan = []
+        for (ci, rows) in units:
+            lut = luts[cis.index(ci)][0]
+            if lut is None:
+                raise ValueError(f"{path}: corrupt JPEG (DC scan without a DC Huffman table)")
+            plan.append((ci, lut, rows.tolist(), rows_out[ci], vals_out[ci]))
+        for data, m0, n in _intervals(intervals, n_mcu, restart):
+            words = _words(data)
+            acc = nb = wi = 0
+            preds = [0] * len(comps)
+            for m in range(m0, m0 + n):
+                for ci, lut, rows, ro, vo in plan:
+                    if nb < 32:
+                        acc = ((acc & ((1 << nb) - 1)) << 32) | (words[wi] if wi < len(words)
+                                                                 else 0)
+                        wi += 1
+                        nb += 32
+                    e = lut[(acc >> (nb - 16)) & 0xFFFF]
+                    if not e:
+                        raise ValueError(f"{path}: corrupt JPEG (bad Huffman code)")
+                    nb -= e >> 8
+                    s = e & 0xFF
+                    if s:
+                        diff = (acc >> (nb - s)) & ((1 << s) - 1)
+                        nb -= s
+                        if diff < (1 << (s - 1)):
+                            diff -= (1 << s) - 1
+                        preds[ci] += diff
+                    ro.append(rows[m])
+                    vo.append(preds[ci])
+        for ci in set(cis):
+            comps[ci].coef[np.asarray(rows_out[ci], np.int64), 0] = \
+                np.asarray(vals_out[ci], np.int64) << al
+        return
+    (ci, rows), = units
+    lut = luts[0][1]
+    if lut is None:
+        raise ValueError(f"{path}: corrupt JPEG (AC scan without an AC Huffman table)")
+    coef = comps[ci].coef
+    flat = coef.reshape(-1)
+    if ah == 0:
+        _ac_first_huffman(path, intervals, n_mcu, restart, rows, lut, ss, se, al, flat)
+    else:
+        _ac_refine_huffman(path, intervals, n_mcu, restart, rows, lut, ss, se, al, coef)
+
+
+def _ac_first_huffman(path, intervals, n_mcu, restart, rows, lut, ss, se, al, flat):
+    """decode_mcu_AC_first: coefficients ss..se of one block per MCU, end-of-band runs."""
+    idx, val = [], []
+    rows = rows.tolist()
+    for data, m0, n in _intervals(intervals, n_mcu, restart):
+        words = _words(data)
+        acc = nb = wi = 0
+        eobrun = 0
+        for u in range(m0, m0 + n):
+            if eobrun:
+                eobrun -= 1
+                continue
+            base = rows[u] * 64
+            k = ss
+            while k <= se:
+                if nb < 32:
+                    acc = ((acc & ((1 << nb) - 1)) << 32) | (words[wi] if wi < len(words) else 0)
+                    wi += 1
+                    nb += 32
+                e = lut[(acc >> (nb - 16)) & 0xFFFF]
+                if not e:
+                    raise ValueError(f"{path}: corrupt JPEG (bad Huffman code)")
+                nb -= e >> 8
+                r, s = (e >> 4) & 15, e & 15
+                if s:
+                    k += r
+                    v = (acc >> (nb - s)) & ((1 << s) - 1)
+                    nb -= s
+                    if v < (1 << (s - 1)):
+                        v -= (1 << s) - 1
+                    idx.append(base + min(k, 63))
+                    val.append(v)
+                    k += 1
+                elif r == 15:
+                    k += 16
+                else:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (acc >> (nb - r)) & ((1 << r) - 1)
+                        nb -= r
+                    eobrun -= 1
+                    break
+    flat[np.asarray(idx, np.int64)] = np.asarray(val, np.int64) << al
+
+
+def _ac_refine_huffman(path, intervals, n_mcu, restart, rows, lut, ss, se, al, coef):
+    """decode_mcu_AC_refine: a correction bit for every coefficient of the
+    band that earlier scans made nonzero, new coefficients of +-1 << al,
+    ZRL and end-of-band runs.  The band's nonzero positions are taken
+    before the scan (a block's new coefficients lie behind its cursor), and
+    the corrections are applied after it, each as libjpeg applies it."""
+    p1 = 1 << al
+    nz_b, nz_k = np.nonzero(coef[rows, ss: se + 1])
+    nz_k = (nz_k + ss).tolist()
+    starts = np.searchsorted(nz_b, np.arange(len(rows) + 1)).tolist()
+    rows = rows.tolist()
+    corr, new_idx, new_val = [], [], []
+    for data, m0, n in _intervals(intervals, n_mcu, restart):
+        words = _words(data)
+        acc = nb = wi = 0
+        eobrun = 0
+        for u in range(m0, m0 + n):
+            base = rows[u] * 64
+            pi, pe = starts[u], starts[u + 1]
+            k = ss
+            if eobrun == 0:
+                while k <= se:
+                    if nb < 32:
+                        acc = ((acc & ((1 << nb) - 1)) << 32) | (words[wi] if wi < len(words)
+                                                                 else 0)
+                        wi += 1
+                        nb += 32
+                    e = lut[(acc >> (nb - 16)) & 0xFFFF]
+                    if not e:
+                        raise ValueError(f"{path}: corrupt JPEG (bad Huffman code)")
+                    nb -= e >> 8
+                    r, s = (e >> 4) & 15, e & 15
+                    if s:
+                        nb -= 1
+                        s = p1 if (acc >> nb) & 1 else -p1
+                    elif r != 15:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += (acc >> (nb - r)) & ((1 << r) - 1)
+                            nb -= r
+                        break
+                    # pass the band's nonzero coefficients (a correction bit
+                    # each) and r zero ones; stop on the next zero one
+                    while True:
+                        p = nz_k[pi] if pi < pe else se + 1
+                        if r < p - k:
+                            k += r
+                            break
+                        r -= p - k
+                        k = p
+                        if k > se:
+                            break
+                        if nb < 32:
+                            acc = ((acc & ((1 << nb) - 1)) << 32) | (words[wi] if wi < len(words)
+                                                                     else 0)
+                            wi += 1
+                            nb += 32
+                        nb -= 1
+                        if (acc >> nb) & 1:
+                            corr.append(base + k)
+                        pi += 1
+                        k += 1
+                    if s:
+                        new_idx.append(base + min(k, 63))
+                        new_val.append(s)
+                    k += 1
+            if eobrun > 0:
+                for q in range(pi, pe):
+                    if nb < 32:
+                        acc = ((acc & ((1 << nb) - 1)) << 32) | (words[wi] if wi < len(words)
+                                                                 else 0)
+                        wi += 1
+                        nb += 32
+                    nb -= 1
+                    if (acc >> nb) & 1:
+                        corr.append(base + nz_k[q])
+                eobrun -= 1
+    flat = coef.reshape(-1)
+    corr = np.asarray(corr, np.int64)
+    v = flat[corr]
+    flat[corr] = np.where((v & p1) == 0, v + np.where(v >= 0, p1, -p1), v)
+    flat[np.asarray(new_idx, np.int64)] = new_val
+
+
+def _qm_decoder(data):
+    """jdarith.c's arith_decode over one restart interval's bytes (byte
+    stuffing removed; zero bytes after its end, as after a marker):
+    decode(stats, i) decodes one binary decision with the state stats[i]
+    and updates it."""
+    n = len(data)
+    qe_of, nl_of, nm_of = _QE, _NEXT_LPS, _NEXT_MPS
+    c = a = pos = 0
+    ct = -16
+
+    def decode(st, i):
+        nonlocal c, a, ct, pos
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                c = (c << 8) | (data[pos] if pos < n else 0)
+                pos += 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        j = sv & 0x7F
+        qe = qe_of[j]
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nm_of[j]
+            else:
+                st[i] = (sv & 0x80) ^ nl_of[j]
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl_of[j]
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm_of[j]
+        return sv >> 7
+
+    return decode
+
+
+def _arith_dc_diff(path, dec, st, ctx, ci, lo, hi):
+    """Figures F.19-F.24: one DC difference with the statistics st (a DC
+    table's 64 bins); updates ctx[ci], the conditioning category."""
+    s0 = ctx[ci]
+    if dec(st, s0) == 0:
+        ctx[ci] = 0
+        return 0
+    sign = dec(st, s0 + 1)
+    i = s0 + 2 + sign
+    m = dec(st, i)
+    if m:
+        i = 20
+        while dec(st, i):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError(f"{path}: corrupt arithmetic-coded JPEG (DC magnitude)")
+            i += 1
+    if m < (1 << lo) >> 1:
+        ctx[ci] = 0
+    elif m > (1 << hi) >> 1:
+        ctx[ci] = 12 + 4 * sign
+    else:
+        ctx[ci] = 4 + 4 * sign
+    v = m
+    i += 14
+    m >>= 1
+    while m:
+        if dec(st, i):
+            v |= m
+        m >>= 1
+    v += 1
+    return -v if sign else v
+
+
+def _arith_ac(path, dec, st, fixed, k, kx):
+    """Figures F.21-F.24 after a nonzero decision at band position k: the
+    coefficient's value."""
+    i = 3 * (k - 1) + 2
+    sign = dec(fixed, 0)
+    m = dec(st, i)
+    if m and dec(st, i):
+        m <<= 1
+        i = 189 if k <= kx else 217
+        while dec(st, i):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError(f"{path}: corrupt arithmetic-coded JPEG (AC magnitude)")
+            i += 1
+    v = m
+    i += 14
+    m >>= 1
+    while m:
+        if dec(st, i):
+            v |= m
+        m >>= 1
+    v += 1
+    return -v if sign else v
+
+
+def _int16(v):
+    """A JCOEF store: v wrapped to 16 bits, signed."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _arith_scan(path, intervals, n_mcu, units, comps, cis, tables, restart, progressive,
+                ss, se, ah, al):
+    """One arithmetic-coded scan (jdarith.c): decode_mcu for a sequential
+    frame, into the components' coefficient lists; decode_mcu_DC_first,
+    _AC_first, _DC_refine or _AC_refine for a progressive one, into their
+    zigzag-order arrays.  The statistics of the scan's tables and the
+    decoder start afresh in every restart interval."""
+    plan = [(ci, rows.tolist(), tables[cis.index(ci)]) for ci, rows in units]
+    fixed = [_FIXED_STATE]
+    if progressive and ah and ss == 0:          # DC refine: one fixed-probability bit a block
+        p1 = 1 << al
+        for data, m0, n in _intervals(intervals, n_mcu, restart):
+            dec = _qm_decoder(data)
+            for m in range(m0, m0 + n):
+                for ci, rows, _ in plan:
+                    if dec(fixed, 0):
+                        comps[ci].coef[rows[m], 0] |= p1
+        return
+    if progressive and ss:
+        (ci, rows, (_, ta, _, _, kx)), = plan
+        coef = comps[ci].coef
+        (_arith_ac_refine if ah else _arith_ac_first)(path, intervals, n_mcu, restart, rows,
+                                                      ss, se, al, kx, coef)
+        return
+    out_rows, out_vals = [[] for _ in comps], [[] for _ in comps]
+    for data, m0, n in _intervals(intervals, n_mcu, restart):
+        dec = _qm_decoder(data)
+        dc_stats = {td: [0] * _DC_STAT_BINS for _, _, (td, _, _, _, _) in plan}
+        ac_stats = {ta: [0] * _AC_STAT_BINS for _, _, (_, ta, _, _, _) in plan}
+        last = [0] * len(comps)
+        ctx = [0] * len(comps)
+        for m in range(m0, m0 + n):
+            for ci, rows, (td, ta, lo, hi, kx) in plan:
+                diff = _arith_dc_diff(path, dec, dc_stats[td], ctx, ci, lo, hi)
+                if progressive:                 # DC first
+                    last[ci] += diff
+                    out_rows[ci].append(rows[m])
+                    out_vals[ci].append(_int16(last[ci] << al))
+                    continue
+                last[ci] = (last[ci] + diff) & 0xFFFF
+                base = rows[m] * 64
+                c = comps[ci]
+                dc = _int16(last[ci])
+                if dc:
+                    c.idx.append(base)
+                    c.val.append(dc)
+                st = ac_stats[ta]
+                k = 1
+                while k <= 63:
+                    i = 3 * (k - 1)
+                    if dec(st, i):
+                        break                    # end of block
+                    while dec(st, i + 1) == 0:
+                        i += 3
+                        k += 1
+                        if k > 63:
+                            raise ValueError(f"{path}: corrupt arithmetic-coded JPEG "
+                                             f"(spectral overflow)")
+                    c.idx.append(base + int(ZIGZAG[k]))
+                    c.val.append(_int16(_arith_ac(path, dec, st, fixed, k, kx)))
+                    k += 1
+    if progressive:
+        for ci in set(cis):
+            comps[ci].coef[np.asarray(out_rows[ci], np.int64), 0] = out_vals[ci]
+
+
+def _arith_ac_first(path, intervals, n_mcu, restart, rows, ss, se, al, kx, coef):
+    """decode_mcu_AC_first (arithmetic): coefficients ss..se of one block an MCU."""
+    idx, val = [], []
+    fixed = [_FIXED_STATE]
+    for data, m0, n in _intervals(intervals, n_mcu, restart):
+        dec = _qm_decoder(data)
+        st = [0] * _AC_STAT_BINS
+        for u in range(m0, m0 + n):
+            base = rows[u] * 64
+            k = ss
+            while k <= se:
+                i = 3 * (k - 1)
+                if dec(st, i):
+                    break
+                while dec(st, i + 1) == 0:
+                    i += 3
+                    k += 1
+                    if k > se:
+                        raise ValueError(f"{path}: corrupt arithmetic-coded JPEG "
+                                         f"(spectral overflow)")
+                idx.append(base + k)
+                val.append(_int16(_arith_ac(path, dec, st, fixed, k, kx) << al))
+                k += 1
+    coef.reshape(-1)[np.asarray(idx, np.int64)] = val
+
+
+def _arith_ac_refine(path, intervals, n_mcu, restart, rows, ss, se, al, kx, coef):
+    """decode_mcu_AC_refine (arithmetic): below the previous stage's last
+    nonzero coefficient (EOBx) no end-of-block decision; a correction
+    decision for each coefficient earlier scans made nonzero, a
+    newly-nonzero decision and a sign for each other one."""
+    p1 = 1 << al
+    hist = coef[rows].tolist()
+    nzm = coef[rows, 1: se + 1] != 0
+    kexs = np.where(nzm.any(1), se - np.argmax(nzm[:, ::-1], 1), 0).tolist()
+    fixed = [_FIXED_STATE]
+    corr, new_idx, new_val = [], [], []
+    for data, m0, n in _intervals(intervals, n_mcu, restart):
+        dec = _qm_decoder(data)
+        st = [0] * _AC_STAT_BINS
+        for u in range(m0, m0 + n):
+            base = rows[u] * 64
+            h = hist[u]
+            kex = kexs[u]
+            k = ss
+            while k <= se:
+                i = 3 * (k - 1)
+                if k > kex and dec(st, i):
+                    break
+                while True:
+                    if h[k]:
+                        if dec(st, i + 2):
+                            corr.append(base + k)
+                        break
+                    if dec(st, i + 1):
+                        new_idx.append(base + k)
+                        new_val.append(-p1 if dec(fixed, 0) else p1)
+                        break
+                    i += 3
+                    k += 1
+                    if k > se:
+                        raise ValueError(f"{path}: corrupt arithmetic-coded JPEG "
+                                         f"(spectral overflow)")
+                k += 1
+    flat = coef.reshape(-1)
+    corr = np.asarray(corr, np.int64)
+    v = flat[corr]
+    flat[corr] = v + np.where(v < 0, -p1, p1)
+    flat[np.asarray(new_idx, np.int64)] = new_val
 
 
 def _decode_scan(blob, pos, frame, comps, scan, restart):
-    """Decode one sequential scan starting at `pos`; returns the offset of
-    the marker after it.  Coefficients go to each component's idx/val
-    lists (flat indices into its MCU-padded block grid)."""
-    width, height, hmax, vmax, mcux, mcuy = frame
+    """Decode one sequential Huffman scan starting at `pos`; returns the
+    offset of the marker after it.  Coefficients go to each component's
+    idx/val lists (flat indices into its MCU-padded block grid)."""
     intervals, end = _entropy_data(blob, pos)
-    units = []
-    if len(scan) == 1:
-        ci, dc, ac = scan[0]
-        c = comps[ci]
-        # a single-component scan covers the component's own blocks, in rows
-        bw = -(-(-(-width * c.h // hmax)) // 8)
-        bh = -(-(-(-height * c.v // vmax)) // 8)
-        n_units = bw * bh
-
-        def base_of(u, bw=bw, cbw=c.bw):
-            return ((u // bw) * cbw + u % bw) * 64
-
-        units.append((ci, dc, ac, base_of, c.idx, c.val))
-    else:
-        n_units = mcux * mcuy
-        for ci, dc, ac in scan:
-            c = comps[ci]
-            for v in range(c.v):
-                for h in range(c.h):
-                    def base_of(m, c=c, h=h, v=v):
-                        return (((m // mcux) * c.v + v) * c.bw + (m % mcux) * c.h + h) * 64
-
-                    units.append((ci, dc, ac, base_of, c.idx, c.val))
-    per = restart or n_units
-    done = 0
-    for data in intervals:
-        if done >= n_units:
-            break
-        n = min(per, n_units - done)
-        preds = [0] * len(comps)
-        shifted = [(ci, dc, ac, (lambda m, f=f, d=done: f(m + d)), oi, ov)
-                   for ci, dc, ac, f, oi, ov in units]
-        _decode_interval(data, shifted, preds, n)
-        done += n
+    cis = [ci for ci, _, _ in scan]
+    n_mcu, units = _scan_units(frame, comps, cis)
+    units = [(ci, *scan[cis.index(ci)][1:], rows.tolist(), comps[ci].idx, comps[ci].val)
+             for ci, rows in units]
+    for data, m0, n in _intervals(intervals, n_mcu, restart):
+        _decode_interval(data, units, [0] * len(comps), m0, n)
     return end

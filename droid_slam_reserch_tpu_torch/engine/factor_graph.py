@@ -1,7 +1,8 @@
 """Covisibility factor graph (mirror of engine/factor_graph.py).
 
-Host bookkeeping (add / remove / dedup / proximity selection) runs in
-numpy.  ``update_fused`` (frontend and trajectory filler) pads the edges,
+Host bookkeeping (add / remove) runs in numpy; the dedup, the proximity
+selection and the Schur bucket tables call the port's C++ graph library
+(``native``).  ``update_fused`` (frontend and trajectory filler) pads the edges,
 cuts the frame window and calls ``fused_rounds``: K rounds of
 {reproject -> correlation lookup -> ConvGRU update + GraphAgg -> dense BA}
 as a Python loop, on the JAX package's default TPU path: each call caches

@@ -1,7 +1,7 @@
 """Networks of the port as nn.Modules, with upstream parameter names."""
 from .convert import load_weights, params_from_jax, params_to_jax, state_dict_from_torch
 from .droidnet import IMAGE_MEAN, IMAGE_STD, DroidNet, init_params
-from .extractor import BasicEncoder
+from .extractor import BasicEncoder, BottleneckBlock, ResidualBlock
 from .gru import ConvGRU
 from .update import GraphAgg, UpdateModule, cvx_upsample, upsample_disp
 

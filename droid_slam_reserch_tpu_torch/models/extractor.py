@@ -41,6 +41,31 @@ class ResidualBlock(nn.Module):
         return F.relu(x + y)
 
 
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck + skip, NCHW (the JAX package's
+    BottleneckBlock; upstream extractor.py:59-114).  No encoder of DroidNet
+    uses it; its parameters take params_from_jax's names (``conv1``,
+    ``conv2``, ``conv3``, ``downsample.0``)."""
+
+    def __init__(self, cin, planes, norm_fn="instance", stride=1):
+        super().__init__()
+        self.norm_fn = norm_fn
+        self.conv1 = tconv(cin, planes // 4, 1, 1, padding=0)
+        self.conv2 = tconv(planes // 4, planes // 4, 3, stride)
+        self.conv3 = tconv(planes // 4, planes, 1, 1, padding=0)
+        self.downsample = (
+            nn.Sequential(tconv(cin, planes, 1, stride, padding=0)) if stride != 1 else None
+        )
+
+    def forward(self, x):
+        y = F.relu(_norm(self.conv1(x), self.norm_fn))
+        y = F.relu(_norm(self.conv2(y), self.norm_fn))
+        y = F.relu(_norm(self.conv3(y), self.norm_fn))
+        if self.downsample is not None:
+            x = _norm(self.downsample(x), self.norm_fn)
+        return F.relu(x + y)
+
+
 class BasicEncoder(nn.Module):
     """Stride-8 residual encoder: [B, H, W, 3] -> [B, H/8, W/8, output_dim]."""
 

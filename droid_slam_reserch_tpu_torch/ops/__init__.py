@@ -18,7 +18,12 @@ K2-K8 also have bf16 instantiations (``cuda_corr.INSTANCES``): K2
 ``corr_lookup_windows_bf16``, ``corr_lookup_pmajor_bf16``,
 ``corr_extract_windows_bf16`` and ``corr_build_windows_levels_bf16``, each
 counted under its own name.
+
+``pack_pyramid`` / ``packed_lookup`` (plain PyTorch, ops/corr.py) are the
+JAX package's exports of the same names; no kernel and no engine path use
+them.
 """
+from .corr import pack_pyramid, packed_lookup
 from .cuda_ba import ba_system_blocks, build_system_blocks
 from .cuda_corr import (
     INSTANCES,

@@ -1,8 +1,9 @@
 """Correlation volumes and the radius-3 bilinear pyramid lookup, plain PyTorch:
 the full pyramid (K2, K3), the per-pixel window cache and its drift rule
 (K4, K5, K7, K8), the zero-bordered P-major pyramid (K6), the backend's
-altcorr over a pooled feature pyramid, and the training forward's
-differentiable pyramid.
+altcorr over a pooled feature pyramid, the training forward's
+differentiable pyramid, and the JAX package's packed single-product lookup
+(``pack_pyramid`` / ``packed_lookup``, used by no engine path).
 
 The spec that the CUDA kernels of ops/cuda_corr.py match:
 - features dot products are scaled by 1/16 and accumulated in fp32;
@@ -321,6 +322,60 @@ def corr_lookup_pyramid(pyramid, coords, radius=3):
     flat = [v.reshape(E, H1 * W1, *v.shape[3:]) for v in pyramid]
     out = corr_lookup_pyramid_flat(flat, coords.reshape(E, H1 * W1, 2), radius)
     return out.reshape(E, H1, W1, -1)
+
+
+def pack_pyramid(pyramid):
+    """All levels of [E, H1, W1, H2_l, W2_l] volumes in one [E, H1, W1, H2_0,
+    sum(W2_l)] array, each level in its own column range from row 0 (the
+    JAX package's layout for a single-product lookup on the TPU).
+
+    Returns (packed, meta), meta a tuple of (H2_l, W2_l, column offset)."""
+    E, H1, W1, H2 = pyramid[0].shape[:4]
+    meta, off = [], 0
+    for v in pyramid:
+        meta.append((v.shape[3], v.shape[4], off))
+        off += v.shape[4]
+    packed = pyramid[0].new_zeros(E, H1, W1, H2, off)
+    for v, (h2, w2, o) in zip(pyramid, meta):
+        packed[..., :h2, o: o + w2] = v
+    return packed, tuple(meta)
+
+
+def packed_lookup(packed, meta, coords, radius=3):
+    """corr_lookup_pyramid on a pack_pyramid volume, as the JAX package
+    computes it: per level a y-tap and an x-tap selector with the bilinear
+    weights (zero for corners off the level), two products over the packed
+    volume, and the diagonal level blocks kept.
+
+    packed [E, H1, W1, K, Wp], coords [E, H1, W1, 2] in level-0 pixels ->
+    [E, H1, W1, L*(2r+1)**2], level-major, channel a*(2r+1) + b."""
+    E, H1, W1, K, Wp = packed.shape
+    L, rd, P = len(meta), 2 * radius + 1, H1 * W1
+    dev = packed.device
+    coords = coords.detach().float().reshape(E, P, 2)
+    taps = torch.arange(rd, device=dev) - radius
+    iok = torch.arange(K, device=dev)
+    iow = torch.arange(Wp, device=dev)
+    wy, wx = [], []
+    for lvl, (h2, w2, off) in enumerate(meta):
+        c = coords / (2.0 ** lvl)
+        xf, yf = torch.floor(c[..., 0]), torch.floor(c[..., 1])
+        dx = (c[..., 0] - xf)[..., None, None]
+        dy = (c[..., 1] - yf)[..., None, None]
+        yc = yf.long()[..., None, None] + taps[:, None]
+        xc = xf.long()[..., None, None] + taps[:, None]
+        wy0 = torch.where((yc >= 0) & (yc < h2), 1.0 - dy, 0.0)
+        wy1 = torch.where((yc + 1 >= 0) & (yc + 1 < h2), dy, 0.0)
+        wy.append(wy0 * (iok == yc) + wy1 * (iok == yc + 1))
+        wx0 = torch.where((xc >= 0) & (xc < w2), 1.0 - dx, 0.0)
+        wx1 = torch.where((xc + 1 >= 0) & (xc + 1 < w2), dx, 0.0)
+        wx.append(wx0 * (iow == xc + off) + wx1 * (iow == xc + 1 + off))
+    wy = torch.cat(wy, 2).to(packed.dtype)                        # [E, P, L*rd, K]
+    wx = torch.cat(wx, 2).to(packed.dtype)                        # [E, P, L*rd, Wp]
+    tmp = torch.einsum("epbk,epkw->epbw", wy, packed.reshape(E, P, K, Wp))
+    full = torch.einsum("epbw,epaw->epba", tmp, wx).reshape(E, P, L, rd, L, rd)
+    out = torch.stack([full[:, :, l, :, l, :] for l in range(L)], 2)   # [E, P, L, b, a]
+    return out.transpose(3, 4).reshape(E, H1, W1, L * rd * rd)
 
 
 # ---------------------------------------------------------------- altcorr

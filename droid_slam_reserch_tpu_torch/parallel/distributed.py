@@ -52,6 +52,14 @@ def init_distributed(coordinator=None, num_processes=None, process_id=None, *, b
     return dist.get_rank(), dist.get_world_size()
 
 
+def is_distributed():
+    """True when this process is one of several ranks of an initialised
+    torch.distributed group."""
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
 def rank_device(device="cuda"):
     """This rank's device: ``cuda:{rank mod n}`` for a CUDA `device`, else
     `device` itself."""

@@ -1,5 +1,4 @@
-"""Lightweight timers (copy of the JAX package's utils/timing.py, less its
-unused ``Timer``)."""
+"""Lightweight timers (copy of the JAX package's utils/timing.py)."""
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -28,6 +27,16 @@ class Timings:
             t, c = self.totals[name], self.counts[name]
             lines.append(f"{name:32s} total {t:8.3f}s  calls {c:6d}  avg {1000*t/max(c,1):8.2f}ms")
         return "\n".join(lines)
+
+
+class Timer:
+    """Wall-clock seconds since construction."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def elapsed(self):
+        return time.perf_counter() - self.t0
 
 
 # process-wide timings for the SLAM engine sections (motion filter, frontend,

@@ -82,15 +82,18 @@ def test_eth3d_stream_with_depth(tmp_path):
 
 
 def test_eth3d_jpeg_is_refused_by_name(tmp_path):
-    """A JPEG the port does not decode (progressive) is refused naming the
-    file; baseline JPEGs are decoded (tests/test_torch_jpeg.py)."""
+    """A JPEG the port does not decode (lossless) is refused naming the
+    file; baseline, progressive and arithmetic-coded JPEGs are decoded
+    (tests/test_torch_jpeg*.py)."""
     os.makedirs(tmp_path / "color")
     np.savetxt(tmp_path / "calibration.txt", np.array([[100.0, 100.0, 80.0, 60.0]]))
-    cv2.imwrite(str(tmp_path / "color" / "100.0.jpg"),
-                textured_image(120, 160, 0, np.random.RandomState(0)),
-                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    blob = bytearray(cv2.imencode(".jpg", textured_image(120, 160, 0,
+                                                         np.random.RandomState(0)))[1].tobytes())
+    blob[blob.find(b"\xff\xc0") + 1] = 0xC3           # the frame declared lossless
+    with open(tmp_path / "color" / "100.0.jpg", "wb") as f:
+        f.write(bytes(blob))
     assert tdata.eth3d_timestamps(str(tmp_path)) == jdata.eth3d_timestamps(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="100.0.jpg: progressive"):
+    with pytest.raises(NotImplementedError, match="100.0.jpg: lossless"):
         next(tdata.eth3d_stream(str(tmp_path)))
 
 

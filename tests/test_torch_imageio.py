@@ -114,13 +114,17 @@ def test_imread_of_cv2_written_pngs(tmp_path, kind):
 
 def test_imread_refusals(tmp_path):
     """Formats the readers do not decode raise NotImplementedError naming
-    the file or the mode (palette and interlaced PNGs and baseline JPEGs are
-    decoded: tests/test_torch_jpeg.py)."""
+    the file or the mode (palette and interlaced PNGs and baseline,
+    progressive and arithmetic-coded JPEGs are decoded:
+    tests/test_torch_jpeg*.py; a lossless JPEG is not)."""
     with pytest.raises(NotImplementedError, match="frame.bmp"):
         imageio.imread(str(tmp_path / "frame.bmp"))
     path = str(tmp_path / "p.jpg")
-    cv2.imwrite(path, _smooth(16, 24), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="progressive"):
+    blob = bytearray(cv2.imencode(".jpg", _smooth(16, 24))[1].tobytes())
+    blob[blob.find(b"\xff\xc0") + 1] = 0xC3           # the frame declared lossless
+    with open(path, "wb") as f:
+        f.write(bytes(blob))
+    with pytest.raises(NotImplementedError, match="p.jpg: lossless"):
         imageio.imread(path)
     path = str(tmp_path / "i.png")
     write_png(path, _samples(8, 8, 3, 8), [0])

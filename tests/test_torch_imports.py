@@ -1,6 +1,7 @@
 """The port and chip_smoke.py never import JAX, Flax or the JAX package,
-nor OpenCV or PIL (the card's machine has neither): walk the AST of every
-module (imports inside functions included)."""
+nor OpenCV or PIL (the card's machine has neither), and name no path of the
+JAX package's tree: walk the AST of every module (imports inside functions
+included)."""
 import ast
 import pathlib
 
@@ -39,4 +40,16 @@ def test_walk_sees_the_whole_port():
             "group_sequence.py", "pipeline.py", "live.py", "pointcloud.py", "sim3.py",
             "losses.py", "chol.py", "dense.py", "system.py", "step.py", "checkpoint.py",
             "logger.py", "rgbd_utils.py", "augmentation.py", "base.py", "factory.py",
-            "jpeg.py", "mesh.py", "distributed.py", "dist_ba.py", "train_parallel.py"} <= names
+            "jpeg.py", "mesh.py", "distributed.py", "dist_ba.py", "train_parallel.py",
+            "native.py", "timing.py", "extractor.py", "corr.py"} <= names
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_reads_of_the_jax_package_tree(path):
+    """No module builds or loads anything from the JAX package's native/ or
+    droid_slam_reserch_tpu/ directories (the port has its own graph
+    library source, csrc/graph_ops.cpp)."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert node.value.rstrip("/") not in ("native", "droid_slam_reserch_tpu"), \
+                f"{path.name} names {node.value!r}"

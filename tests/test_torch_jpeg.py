@@ -9,8 +9,9 @@ the card's machine does not.
   exact on all of them here);
 - the committed fixtures of tests/data/jpeg/ (chip_smoke.py's ETH3D frames):
   within 1 of cv2.imread;
-- progressive and arithmetic-coded JPEGs raise NotImplementedError naming
-  the mode;
+- lossless, hierarchical, 12-bit and 4-component JPEGs, and a progressive
+  one whose scans leave coefficient bits unknown, raise NotImplementedError
+  naming the mode;
 - palette PNGs at 1, 2, 4 and 8 bits, grey at 1, 2 and 4 bits, and Adam7
   interlaced PNGs of every colour type: equal to cv2.imread;
 - eth3d_stream over color/*.jpg: the JAX package's frames and intrinsics,
@@ -73,17 +74,74 @@ def test_committed_fixtures_match_cv2():
         _within_one(got, cv2.imread(path))
 
 
-def test_unsupported_jpeg_modes_raise(tmp_path):
-    path = str(tmp_path / "p.jpg")
-    cv2.imwrite(path, _texture(16, 24), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(NotImplementedError, match="progressive"):
-        imageio.imread(path)
-    ok, buf = cv2.imencode(".jpg", _texture(16, 24))
-    blob = bytearray(buf.tobytes())
+def _sos_offsets(blob):
+    """Offsets of the SOS markers of a JPEG (header segments walked, each
+    scan's entropy-coded data skipped up to the next marker)."""
+    pos, out = 2, []
+    while pos < len(blob):
+        marker = blob[pos + 1]
+        if marker == 0xD9:
+            break
+        length = (blob[pos + 2] << 8) | blob[pos + 3]
+        if marker == 0xDA:
+            out.append(pos)
+            pos += 2 + length
+            while not (blob[pos] == 0xFF and blob[pos + 1] not in (0x00, *range(0xD0, 0xD8))):
+                pos += 1
+        else:
+            pos += 2 + length
+    return out
+
+
+def _with_sof(blob, marker=None, precision=None, extra_component=False):
+    """A baseline JPEG's frame header relabelled: another SOF marker, another
+    sample precision, or a fourth component."""
+    blob = bytearray(blob)
     sof = blob.find(b"\xff\xc0")
-    blob[sof + 1] = 0xC9                       # the same frame, declared arithmetic-coded
-    with pytest.raises(NotImplementedError, match="arithmetic"):
-        jpeg.decode(bytes(blob))
+    if marker is not None:
+        blob[sof + 1] = marker
+    if precision is not None:
+        blob[sof + 4] = precision
+    if extra_component:
+        n = (blob[sof + 2] << 8) | blob[sof + 3]
+        blob[sof + 2: sof + 4] = (n + 3).to_bytes(2, "big")
+        blob[sof + 9] = 4
+        blob[sof + 2 + n: sof + 2 + n] = bytes([4, 0x11, 0])
+    return bytes(blob)
+
+
+def _incomplete_progressive():
+    """cv2's progressive JPEG without its last four scans (the DC refine and
+    the final AC refinements): bits of every AC coefficient stay unknown."""
+    ok, buf = cv2.imencode(".jpg", _texture(16, 24), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    blob = buf.tobytes()
+    sos = _sos_offsets(blob)
+    assert len(sos) == 10
+    return blob[: sos[6]] + b"\xff\xd9"
+
+
+def _baseline():
+    return cv2.imencode(".jpg", _texture(16, 24))[1].tobytes()
+
+
+UNSUPPORTED = {
+    "lossless": (lambda: _with_sof(_baseline(), marker=0xC3), "lossless"),
+    "hierarchical": (lambda: _with_sof(_baseline(), marker=0xC5), "hierarchical"),
+    "arith-lossless": (lambda: _with_sof(_baseline(), marker=0xCB), "lossless"),
+    "12-bit": (lambda: _with_sof(_baseline(), precision=12), "12-bit"),
+    "4-component": (lambda: _with_sof(_baseline(), extra_component=True), "4-component"),
+    "incomplete-progressive": (_incomplete_progressive, "unknown"),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(UNSUPPORTED))
+def test_unsupported_jpeg_modes_raise(mode):
+    """The modes the decoder still refuses raise NotImplementedError naming
+    the mode (progressive and arithmetic-coded JPEGs decode:
+    tests/test_torch_jpeg_progressive.py and tests/test_torch_jpeg_arith.py)."""
+    make, match = UNSUPPORTED[mode]
+    with pytest.raises(NotImplementedError, match=match):
+        jpeg.decode(make())
 
 
 def _pack(samples, depth):
