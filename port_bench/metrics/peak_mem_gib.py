@@ -1,0 +1,6 @@
+"""torch.cuda.max_memory_allocated() over the window, reset at its start."""
+UNIT, BETTER = "GiB", "lower"
+
+
+def read(rec):
+    return rec.peak_bytes / 2 ** 30
