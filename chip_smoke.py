@@ -1439,7 +1439,7 @@ def phase_drift(torch, ops, dtype="float32"):
     drifts = (1.0, 12.0, -12.0)
     outs = [lookup((c0 + d).contiguous()) for d in drifts]
     torch.cuda.synchronize()
-    counts, rounds = ops.counts(), dict(fg.CORR_ROUNDS)
+    counts, rounds = ops.counts(), fg.corr_rounds()
     levels = cuda_corr.corr_build_plain(f1, f2)
     err = 0.0
     for d, out in zip(drifts, outs):
@@ -1884,7 +1884,7 @@ def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS, m
         track(float(t), img, depth=None if depths is None else depths[t], intrinsics=intr)
         if t_init is None and droid.frontend.is_initialized:
             torch.cuda.synchronize()
-            t_init = (time.time(), t + 1, droid.video.counter, dict(fg.CORR_ROUNDS))
+            t_init = (time.time(), t + 1, droid.video.counter, fg.corr_rounds())
     torch.cuda.synchronize()
     t1 = time.time()
     counts = ops.counts()
@@ -1899,7 +1899,7 @@ def phase_main_path(torch, ops, frames, dtype="float32", kernels=MAIN_KERNELS, m
     steady = n_frames - t_init[1]
     fps_all = n_frames / (t1 - t0)
     fps_steady = steady / (t1 - t_init[0]) if steady > 0 else float("nan")
-    rounds = dict(fg.CORR_ROUNDS)
+    rounds = fg.corr_rounds()
     steady_rounds = sum(rounds.values()) - sum(t_init[3].values())
     steady_kf = n_kf - t_init[2]
     say("main-path", f"track: {name} {mode} {cfg.image_size[0]}x{cfg.image_size[1]} {dtype}: "
@@ -1984,7 +1984,7 @@ def phase_terminate(torch, ops, droid, tracked, profiling=False, kernels=MAIN_KE
         traj = call(stream)
     counts = ops.counts()
     graph_counts = native.counts()
-    rounds = dict(fg.CORR_ROUNDS)
+    rounds = fg.corr_rounds()
     mode = "stereo" if droid.cfg.stereo else "rgbd" if droid.cfg.rgbd else "mono"
     say("main-path", f"terminate_eva {mode} {droid.cfg.compute_dtype}: {call.seconds[0]:.2f} s: "
                      f"backend {backend.seconds[0]:.2f} s "
@@ -2023,7 +2023,7 @@ def phase_profile_frontend(torch, ops, dtype="float32"):
     fg.reset_corr_rounds()
     res = profile(**FULL, device="cuda", iters=10, dtype=dtype)
     torch.cuda.synchronize()
-    counts, rounds = ops.counts(), dict(fg.CORR_ROUNDS)
+    counts, rounds = ops.counts(), fg.corr_rounds()
     torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
     say("profile-frontend", f"{dtype}: correlation rounds of fused_rounds {rounds}; counts "
@@ -2367,11 +2367,13 @@ def phase_cli(torch, ops, paths, root):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_counts()
-        timing.GLOBAL_TIMINGS.totals.clear()
-        timing.GLOBAL_TIMINGS.counts.clear()
-        timing.SYNC_COUNT[0] = 0
+        timing.reset()
+        timing.enable()
         cap = EngineInputs()
-        droid, printed, secs, spent = run_command(torch, argv, cap)
+        try:
+            droid, printed, secs, spent = run_command(torch, argv, cap)
+        finally:
+            timing.disable()
         split = ", ".join(f"{part} {spent.get(part, 0.0):.2f}" for part in TIMED_PARTS)
         counts = ops.counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2384,11 +2386,12 @@ def phase_cli(torch, ops, paths, root):
                    f"{secs - sum(spent.values()):.2f}; peak memory {peak:.2f} GiB; "
                    f"printed {lines}")
         say("cli", f"{name} {dtype}: counts (kernel launches, plain calls): {counts}")
-        sections = timing.GLOBAL_TIMINGS
-        say("cli", f"{name} {dtype}: {timing.SYNC_COUNT[0]} host syncs "
-                   f"({timing.SYNC_COUNT[0] / n_frames:.2f} a frame); sections (s, calls): "
-                   + ", ".join(f"{k} {sections.totals[k]:.2f} {sections.counts[k]}"
-                               for k in sorted(sections.totals)))
+        sections, syncs = timing.totals(), timing.counters().get("host_syncs", 0)
+        say("cli", f"{name} {dtype}: {syncs} host syncs ({syncs / n_frames:.2f} a frame); "
+                   f"sections (host s, calls, device s): "
+                   + ", ".join(f"{k} {h / 1e3:.2f} {c} "
+                               + ("-" if d is None else f"{d / 1e3:.2f}")
+                               for k, (c, h, d) in sorted(sections.items())))
         if key is not None:
             vals = [r[key]["rmse"] if key == "ate" else r[key] for r in res if key in r]
             if not (vals and np.isfinite(vals[-1])):

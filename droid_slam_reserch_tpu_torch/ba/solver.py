@@ -13,6 +13,7 @@ import torch
 
 from ..lie import se3_retr
 from ..ops.cuda_ba import ba_system_blocks
+from ..utils.timing import count, section
 
 
 def schur_pairs(ii, num_buckets, max_deg=None):
@@ -87,6 +88,16 @@ def ba_iterations(poses, disps, intrinsics, disps_sens, target, weight, eta, ii,
     uncounted plain ``system_blocks`` to time plain BA on the card.  Engine
     paths keep the default.
     """
+    count("ba_iterations", iterations)
+    with section("ba"):
+        return _iterate(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj,
+                        free_mask, bucket_edges, bucket_mask, iterations, lm, ep, motion_only,
+                        alpha, min_depth, blocks)
+
+
+def _iterate(poses, disps, intrinsics, disps_sens, target, weight, eta, ii, jj, free_mask,
+             bucket_edges, bucket_mask, iterations, lm, ep, motion_only, alpha, min_depth,
+             blocks):
     MW = poses.shape[0]
     H, W = disps.shape[-2:]
     HW = H * W

@@ -1,5 +1,5 @@
 """Global BA backend (mirror of engine/backend.py; reference droid_backend.py:9-41)."""
-from ..utils.timing import section
+from ..utils.timing import count_sync, section
 from .factor_graph import FactorGraph
 
 
@@ -22,8 +22,10 @@ class Backend:
             return
 
         # mono without depth sensing: fix the scale gauge (reference :29-30)
-        if not v.stereo and not bool((v.disps_sens[:t] > 0).any()):
-            v.normalize()
+        if not v.stereo:
+            count_sync("normalize")
+            if not bool((v.disps_sens[:t] > 0).any()):
+                v.normalize()
 
         graph = FactorGraph(v, self.update_apply, self.params, max_factors=16 * t,
                             upsample=cfg.upsample)

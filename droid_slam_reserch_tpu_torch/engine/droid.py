@@ -17,7 +17,7 @@ import torch
 from ..lie import se3_inv
 from ..models import DroidNet, init_params, load_weights
 from ..utils.npz import savez_compressed
-from ..utils.timing import maybe_report
+from ..utils.timing import maybe_report, next_call, section, set_request
 from ..viz.live import LiveViewer
 from .backend import Backend
 from .frontend import Frontend, SessionFrontend
@@ -74,28 +74,40 @@ class Droid:
         """Per-frame tracking (reference droid.py:76-90): image [H, W, 3]
         uint8 BGR, or [2, H, W, 3] for stereo; depth an optional [H, W]
         depth map (RGB-D); intrinsics [4]."""
-        self.filterx.track(tstamp, image, depth, intrinsics)
-        self.frontend()
+        set_request(tstamp)
+        with section("track"):
+            self.filterx.track(tstamp, image, depth, intrinsics)
+            self.frontend()
 
     @torch.no_grad()
     def terminate(self, stream=None):
         """Global refinement (reference droid.py:114-126): two backend runs,
         the viewer's last refresh, then the timing summary when DROID_TIMING
         is set."""
+        next_call()
+        with section("terminate"):
+            self._refine()
+        maybe_report()
+
+    def _refine(self):
         del self.frontend
         self.backend(self.cfg.backend_steps_first)
         self.backend(self.cfg.backend_steps_second)
         if self.viewer is not None:
             self.viewer.stop()
-        maybe_report()
 
+    @torch.no_grad()
     def terminate_eva(self, stream):
         """Backend, then the trajectory filler over ``stream`` (tstamp, image,
         intrinsics; images as ``track`` takes them); returns the camera
         trajectory [T, 7] (the inverted world-to-camera poses, reference
-        droid.py:132-146)."""
-        self.terminate()
-        return self.terminate_eva_second(stream)
+        droid.py:132-146).  Then the timing summary when DROID_TIMING is set."""
+        next_call()
+        with section("terminate"):
+            self._refine()
+            traj = self.terminate_eva_second(stream)
+        maybe_report()
+        return traj
 
     def terminate_eva_second(self, stream):
         """Trajectory fill only (reference droid.py:148-153)."""

@@ -27,7 +27,6 @@ levels and lookups; the backend's levels are fp32.  Delta, weight and eta
 are cast to fp32 before the BA, which runs in fp32.
 """
 import copy
-import os
 
 import numpy as np
 import torch
@@ -38,15 +37,19 @@ from ..geom import coords_grid, frame_distance, neighbourhood_graph, projective_
 from ..ops.corr import level_sizes, window_drift_ok
 from ..ops.cuda_corr import corr_build, corr_build_windows, corr_lookup, corr_lookup_windows
 from ..parallel import local_device_count, local_devices
-from ..utils.timing import count_sync, section
+from ..utils.timing import clear_counters, count, count_sync, counters, section
 
-# Rounds of update_fused that read the window cache (K5) and rounds that
-# fell back to the full lookup (K2 + K3), since the last reset_corr_rounds().
-CORR_ROUNDS = {"windowed": 0, "fallback": 0}
+
+def corr_rounds():
+    """Rounds of update_fused that read the window cache (K5) and rounds that
+    fell back to the full lookup (K2 + K3) since the last reset_corr_rounds():
+    the tracer's ``corr_rounds`` counters."""
+    c = counters()
+    return {k: c.get("corr_rounds." + k, 0) for k in ("windowed", "fallback")}
 
 
 def reset_corr_rounds():
-    CORR_ROUNDS.update(windowed=0, fallback=0)
+    clear_counters("corr_rounds.")
 
 
 def _round_up(x, m):
@@ -61,18 +64,21 @@ class WindowedLookup:
         self.f1, self.f2 = f1, f2
         self.hw = tuple(f2.shape[1:3])
         self.sizes = level_sizes(*self.hw)
-        self.wins, self.bases = corr_build_windows(f1, f2, coords_init)
+        with section("corr"):
+            self.wins, self.bases = corr_build_windows(f1, f2, coords_init)
         self.levels = None
 
     def __call__(self, coords):
-        # the round's one host read: the fallback decision
-        if bool(window_drift_ok(self.bases, coords, self.sizes)):
-            CORR_ROUNDS["windowed"] += 1
-            return corr_lookup_windows(self.wins, self.bases, coords, self.hw)
-        CORR_ROUNDS["fallback"] += 1
-        if self.levels is None:
-            self.levels = corr_build(self.f1, self.f2)
-        return corr_lookup(self.levels, coords)
+        with section("corr"):
+            # the round's one host read: the fallback decision
+            count_sync("drift")
+            if bool(window_drift_ok(self.bases, coords, self.sizes)):
+                count("corr_rounds.windowed")
+                return corr_lookup_windows(self.wins, self.bases, coords, self.hw)
+            count("corr_rounds.fallback")
+            if self.levels is None:
+                self.levels = corr_build(self.f1, self.f2)
+            return corr_lookup(self.levels, coords)
 
 
 def fused_rounds(update_apply, params, poses, disps, disps_sens, damping, intr, fmap1_e,
@@ -245,6 +251,7 @@ class FactorGraph:
 
     def filter_edges(self):
         """Cull low-confidence long-range edges (reference :71-78)."""
+        count_sync("edge_filter")
         conf = self.weight.mean(dim=(1, 2, 3)).cpu().numpy()
         mask = (np.abs(self.ii - self.jj) > 2) & (conf < 0.001)
         self.ii_bad = np.concatenate([self.ii_bad, self.ii[mask]])
@@ -285,61 +292,64 @@ class FactorGraph:
         if len(self.ii) == 0 or rounds == 0:
             return None
         video, cfg, dev = self.video, self.cfg, self.device
-        n, n_pad, ii_p, jj_p = self._padded_edges()
-        if t0 is None:
-            t0 = max(1, int(self.ii.min()) + 1)
-        if t1 is None:
-            t1 = int(max(self.ii.max(), self.jj.max())) + 1
+        with section("update_fused.setup"):
+            n, n_pad, ii_p, jj_p = self._padded_edges()
+            if t0 is None:
+                t0 = max(1, int(self.ii.min()) + 1)
+            if t1 is None:
+                t1 = int(max(self.ii.max(), self.jj.max())) + 1
 
-        h8, w8 = video.h8, video.w8
-        if use_inactive and len(self.ii_inac):
-            m = (self.ii_inac >= t0 - 3) & (self.jj_inac >= t0 - 3)
-            ii_i, jj_i = self.ii_inac[m], self.jj_inac[m]
-            sel = self._t(np.nonzero(m)[0])
-            tgt_i, wgt_i = self.target_inac[sel], self.weight_inac[sel]
-        else:
-            ii_i = jj_i = np.zeros(0, np.int64)
-            tgt_i = wgt_i = torch.zeros(0, h8, w8, 2, device=dev)
-        ni = len(ii_i)
-        ni_pad = _round_up(ni, cfg.edge_bucket) if ni else 0
-        zpad = torch.zeros(ni_pad - ni, h8, w8, 2, device=dev)
-        tgt_i = torch.cat([tgt_i, zpad], 0)
-        wgt_i = torch.cat([wgt_i, zpad], 0)
+            h8, w8 = video.h8, video.w8
+            if use_inactive and len(self.ii_inac):
+                m = (self.ii_inac >= t0 - 3) & (self.jj_inac >= t0 - 3)
+                ii_i, jj_i = self.ii_inac[m], self.jj_inac[m]
+                sel = self._t(np.nonzero(m)[0])
+                tgt_i, wgt_i = self.target_inac[sel], self.weight_inac[sel]
+            else:
+                ii_i = jj_i = np.zeros(0, np.int64)
+                tgt_i = wgt_i = torch.zeros(0, h8, w8, 2, device=dev)
+            ni = len(ii_i)
+            ni_pad = _round_up(ni, cfg.edge_bucket) if ni else 0
+            zpad = torch.zeros(ni_pad - ni, h8, w8, 2, device=dev)
+            tgt_i = torch.cat([tgt_i, zpad], 0)
+            wgt_i = torch.cat([wgt_i, zpad], 0)
 
-        # window covering every referenced frame and the free range [t0, t1)
-        lows = [int(self.ii.min()), int(self.jj.min()), t0]
-        if ni:
-            lows += [int(ii_i.min()), int(jj_i.min())]
-        MW = _round_up(t1 - min(lows), cfg.window_bucket)
-        m0 = max(0, t1 - MW)
-        if m0 == 0:
-            MW = _round_up(t1, cfg.window_bucket)
+            # window covering every referenced frame and the free range [t0, t1)
+            lows = [int(self.ii.min()), int(self.jj.min()), t0]
+            if ni:
+                lows += [int(ii_i.min()), int(jj_i.min())]
+            MW = _round_up(t1 - min(lows), cfg.window_bucket)
+            m0 = max(0, t1 - MW)
+            if m0 == 0:
+                MW = _round_up(t1, cfg.window_bucket)
 
-        # local indices; padded slots anchor at local frame 0
-        ii_a = ii_p - m0
-        jj_a = jj_p - m0
-        ii_a[n:] = 0
-        jj_a[n:] = 0
-        ii_il = np.zeros(ni_pad, np.int64)
-        jj_il = np.zeros(ni_pad, np.int64)
-        ii_il[:ni] = ii_i - m0
-        jj_il[:ni] = jj_i - m0
-        ii_all = np.concatenate([ii_il, ii_a])
-        jj_all = np.concatenate([jj_il, jj_a])
-        be, bm = native.bucket_tables(ii_all, MW)
+            # local indices; padded slots anchor at local frame 0
+            ii_a = ii_p - m0
+            jj_a = jj_p - m0
+            ii_a[n:] = 0
+            jj_a[n:] = 0
+            ii_il = np.zeros(ni_pad, np.int64)
+            jj_il = np.zeros(ni_pad, np.int64)
+            ii_il[:ni] = ii_i - m0
+            jj_il[:ni] = jj_i - m0
+            ii_all = np.concatenate([ii_il, ii_a])
+            jj_all = np.concatenate([jj_il, jj_a])
+            be, bm = native.bucket_tables(ii_all, MW)
 
-        free = np.zeros(MW, bool)
-        free[t0 - m0: t1 - m0] = True
-        has_edge = np.zeros(MW, bool)
-        has_edge[self.ii - m0] = True
-        active = torch.as_tensor(np.arange(n_pad) < n, device=dev).float()
+            free = np.zeros(MW, bool)
+            free[t0 - m0: t1 - m0] = True
+            has_edge = np.zeros(MW, bool)
+            has_edge[self.ii - m0] = True
+            active = torch.as_tensor(np.arange(n_pad) < n, device=dev).float()
 
-        ii_pt, jj_pt = self._t(ii_p), self._t(jj_p)
-        ii_at, jj_at = self._t(ii_a), self._t(jj_a)
-        cij = None if cull_pair is None else self._t([cull_pair[0] - m0, cull_pair[1] - m0])
+            ii_pt, jj_pt = self._t(ii_p), self._t(jj_p)
+            ii_at, jj_at = self._t(ii_a), self._t(jj_a)
+            cij = None if cull_pair is None else self._t([cull_pair[0] - m0, cull_pair[1] - m0])
 
         pad = n_pad - n
         win = slice(m0, m0 + MW)
+        count("edges", rounds * n)
+        count("edge_slots", rounds * n_pad)
         with section("update_fused.device"):
             poses, disps, damping, nets, target_a, weight_a, upmask, d_cull = fused_rounds(
                 self.update_apply, self.params, video.poses[win], video.disps[win],
@@ -356,9 +366,6 @@ class FactorGraph:
                 min_depth=cfg.min_depth, beta=cfg.beta, motion_only=motion_only,
                 alpha=cfg.rgbd_alpha)
 
-        if os.environ.get("DROID_TIMING"):
-            with section("update_fused.sync"):
-                float(poses.reshape(-1)[0])  # attribute the queued device time
         video.poses[win] = poses
         video.disps[win] = disps
         video.damping[win] = damping
@@ -396,13 +403,17 @@ class FactorGraph:
         target = torch.cat([self.target, torch.zeros(n_pad - n, h8, w8, 2, device=dev)], 0)
         coords0 = coords_grid(h8, w8, device=dev)
         motn = torch.cat([coords1 - coords0, target - coords1], -1).clamp(-64.0, 64.0)
-        levels = corr_build(video.fmaps[ii, 0], video.fmaps[jj, self._cams(ii, jj)])
-        corr = corr_lookup(levels, coords1.reshape(n_pad, h8 * w8, 2).contiguous())
+        with section("corr"):
+            levels = corr_build(video.fmaps[ii, 0], video.fmaps[jj, self._cams(ii, jj)])
+            corr = corr_lookup(levels, coords1.reshape(n_pad, h8 * w8, 2).contiguous())
         net = torch.cat([self.net, self.net.new_zeros(n_pad - n, h8, w8, 128)], 0)
+        count("edges", n)
+        count("edge_slots", n_pad)
         net, _, weight, _, _ = self.update_apply(
             self.params, net[None], video.inps[ii][None], corr.reshape(1, n_pad, h8, w8, -1),
             motn[None], kk, MW, emask)
         self.net = net[0, :n]
+        count_sync("quality")
         return weight[0, :n].float().sum(dim=(1, 2, 3)).cpu().numpy()
 
     def _chunk_tables(self, s):
@@ -474,10 +485,11 @@ class FactorGraph:
         coords1 = projective_transform(state["poses"][None], state["disps"][None],
                                        state["intr"][None], ii, jj)[0][0]
         motn = torch.cat([coords1 - coords0, target_c - coords1], -1).clamp(-64.0, 64.0)
-        levels = corr_build(state["fmaps"][ii, 0], state["fmaps"][jj, self._cams(ii, jj)],
-                            torch.float32)
-        corr = corr_lookup(levels, coords1.reshape(EB, h8 * w8, 2).contiguous())
-        del levels
+        with section("corr"):
+            levels = corr_build(state["fmaps"][ii, 0], state["fmaps"][jj, self._cams(ii, jj)],
+                                torch.float32)
+            corr = corr_lookup(levels, coords1.reshape(EB, h8 * w8, 2).contiguous())
+            del levels
         nets, delta, weight, eta, upmask = self.update_apply(
             params, nets_c[None], state["inps"][ii][None], corr.reshape(1, EB, h8, w8, -1),
             motn[None], kk, 8, emask)
@@ -533,31 +545,36 @@ class FactorGraph:
                   coords_grid(h8, w8, device=d)) for d in dict.fromkeys(shard_devices)}
 
         for _ in range(steps):
-            nets_ck = self.net[flat_src].reshape(nC, EB, h8, w8, -1)
-            target_ck = self.target[flat_src].reshape(nC, EB, h8, w8, 2)
-            full = {"poses": video.poses[:t], "disps": video.disps[:t],
-                    "intr": video.intrinsics[:t], "fmaps": video.fmaps[:t],
-                    "inps": video.inps[:t]}
-            damping_ext = torch.cat([video.damping[:t], video.damping.new_zeros(1, h8, w8)], 0)
-            outs = []
-            for k, sdev in enumerate(shard_devices):
-                tables, coords0 = on[sdev]
-                state = {key: x.to(sdev) for key, x in full.items()}
-                params = self._params_on(sdev)
-                for c in range(k * per, min((k + 1) * per, nC)):
-                    nets, target, weight, eta, upmask = self._refresh_chunk(
-                        params, state, c, tables, coords0, nets_ck[c].to(sdev),
-                        target_ck[c].to(sdev))
-                    # chunks write disjoint frames: slots without edges land in row t
-                    damping_ext[frame_ck[c]] = eta.to(dev)
-                    if self.upsample:   # from the disparities before this step's BA
-                        slot, frame = up_slots[c]
-                        video.upsample(frame, upmask.to(dev)[slot])
-                    outs.append((nets.to(dev), target.to(dev), weight.to(dev)))
-            self.net = torch.cat([o[0] for o in outs], 0)[take_back]
-            self.target = torch.cat([o[1] for o in outs], 0)[take_back]
-            self.weight = torch.cat([o[2] for o in outs], 0)[take_back]
-            video.damping[:t] = damping_ext[:t]
+            # every chunk's real edges and its EB slots
+            count("edges", len(self.ii))
+            count("edge_slots", nC * EB)
+            with section("refresh"):
+                nets_ck = self.net[flat_src].reshape(nC, EB, h8, w8, -1)
+                target_ck = self.target[flat_src].reshape(nC, EB, h8, w8, 2)
+                full = {"poses": video.poses[:t], "disps": video.disps[:t],
+                        "intr": video.intrinsics[:t], "fmaps": video.fmaps[:t],
+                        "inps": video.inps[:t]}
+                damping_ext = torch.cat([video.damping[:t],
+                                         video.damping.new_zeros(1, h8, w8)], 0)
+                outs = []
+                for k, sdev in enumerate(shard_devices):
+                    tables, coords0 = on[sdev]
+                    state = {key: x.to(sdev) for key, x in full.items()}
+                    params = self._params_on(sdev)
+                    for c in range(k * per, min((k + 1) * per, nC)):
+                        nets, target, weight, eta, upmask = self._refresh_chunk(
+                            params, state, c, tables, coords0, nets_ck[c].to(sdev),
+                            target_ck[c].to(sdev))
+                        # chunks write disjoint frames: slots without edges land in row t
+                        damping_ext[frame_ck[c]] = eta.to(dev)
+                        if self.upsample:   # from the disparities before this step's BA
+                            slot, frame = up_slots[c]
+                            video.upsample(frame, upmask.to(dev)[slot])
+                        outs.append((nets.to(dev), target.to(dev), weight.to(dev)))
+                self.net = torch.cat([o[0] for o in outs], 0)[take_back]
+                self.target = torch.cat([o[1] for o in outs], 0)[take_back]
+                self.weight = torch.cat([o[2] for o in outs], 0)[take_back]
+                video.damping[:t] = damping_ext[:t]
 
             # one dense BA over the whole video (reference :297)
             video.ba(self.target, self.weight, self.ii, self.jj, 1, t,
@@ -579,11 +596,12 @@ class FactorGraph:
         t = self.video.counter
         if t - t0 <= 0 or t - t1 <= 0:
             return
-        count_sync()  # blocking edge-selection sync (the port has no prefetch)
-        d = self.video.distance_matrix(t0, t1, t, beta=beta)
-        ii, jj = native.proximity_select(
-            d, t0, t1, t, rad, nms, thresh, self.max_factors,
-            np.concatenate([self.ii, self.ii_bad, self.ii_inac]),
-            np.concatenate([self.jj, self.jj_bad, self.jj_inac]), self.video.stereo)
-        if len(ii):
-            self.add_factors(ii, jj, remove)
+        with section("select"):
+            count_sync("select")  # blocking edge-selection sync (the port has no prefetch)
+            d = self.video.distance_matrix(t0, t1, t, beta=beta)
+            ii, jj = native.proximity_select(
+                d, t0, t1, t, rad, nms, thresh, self.max_factors,
+                np.concatenate([self.ii, self.ii_bad, self.ii_inac]),
+                np.concatenate([self.jj, self.jj_bad, self.jj_inac]), self.video.stereo)
+            if len(ii):
+                self.add_factors(ii, jj, remove)

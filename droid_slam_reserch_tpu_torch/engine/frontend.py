@@ -56,7 +56,7 @@ class Frontend:
         d_cull = self._run_updates(cfg.iters1, cull_pair=(self.t1 - 3, self.t1 - 2))
         if d_cull is None:  # empty graph: no update ran
             d_cull = v.distance([self.t1 - 3], [self.t1 - 2], beta=cfg.beta)[0]
-        count_sync()  # the culling decision reads the update's distance on the host
+        count_sync("cull")  # the culling decision reads the update's distance on the host
         if d_cull < cfg.keyframe_thresh:
             g.rm_keyframe(self.t1 - 2)
             v.counter -= 1

@@ -15,7 +15,7 @@ import torch
 from ..geom import coords_grid
 from ..lie import se3_identity
 from ..ops.cuda_corr import corr_build, corr_lookup
-from ..utils.timing import count_sync, section
+from ..utils.timing import count, count_sync, section, set_request
 from .net_ops import cnet_apply, fnet_apply
 
 
@@ -35,8 +35,11 @@ class MotionFilter:
         against left camera (a 0-d tensor)."""
         h8, w8 = gmap.shape[1:3]
         coords0 = coords_grid(h8, w8, device=gmap.device).reshape(1, h8 * w8, 2)
-        levels = corr_build(self.fmap[:1].contiguous(), gmap[:1].contiguous(), torch.float32)
-        corr = corr_lookup(levels, coords0).reshape(1, 1, h8, w8, -1)
+        with section("corr"):
+            levels = corr_build(self.fmap[:1].contiguous(), gmap[:1].contiguous(), torch.float32)
+            corr = corr_lookup(levels, coords0).reshape(1, 1, h8, w8, -1)
+        count("edges")
+        count("edge_slots")
         _, delta, _ = self.net.update(self.hidden[None, None], self.inp[None, None],
                                       corr.to(self.hidden.dtype))
         return delta[0, 0].float().norm(dim=-1).mean()
@@ -47,18 +50,21 @@ class MotionFilter:
 
     def track(self, tstamp, image, depth=None, intrinsics=None):
         """Process one frame: image [H, W, 3] uint8 BGR (host), or [2, H, W, 3]
-        for stereo (left, right); depth an optional [H, W] depth map."""
+        for stereo (left, right); depth an optional [H, W] depth map.  The
+        frame's timestamp becomes the tracer's request."""
+        set_request(tstamp)
         with section("motion_filter.track"):
             return self._track(tstamp, image, depth, intrinsics)
 
     def _track(self, tstamp, image, depth, intrinsics):
         video = self.video
         dev = video.device
-        image = np.asarray(image)
-        if image.ndim == 3:
-            image = image[None]
-        imgs = torch.as_tensor(image.astype(np.float32), device=dev)
-        intr = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev) / 8.0
+        with section("upload"):
+            image = np.asarray(image)
+            if image.ndim == 3:
+                image = image[None]
+            imgs = torch.as_tensor(image.astype(np.float32), device=dev)
+            intr = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev) / 8.0
         gmap = fnet_apply(self.net, imgs)
 
         if video.counter == 0:
@@ -68,7 +74,7 @@ class MotionFilter:
                          gmap, net[0], inp[0])
             return
 
-        count_sync()  # admission decision: the per-frame blocking sync
+        count_sync("admission")  # admission decision: the per-frame blocking sync
         if float(self.delta_norm(gmap)) > self.thresh:
             self.count = 0
             net, inp = cnet_apply(self.net, imgs[:1])

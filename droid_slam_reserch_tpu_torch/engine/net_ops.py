@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.droidnet import normalize_images
+from ..utils.timing import section
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -28,13 +29,15 @@ def _weights_dtype(encoder):
 
 def fnet_apply(net, images):
     """images [B, H, W, 3] BGR 0-255 -> fmaps [B, H/8, W/8, 128]."""
-    return net.fnet(normalize_images(images).to(_weights_dtype(net.fnet)))
+    with section("encode"):
+        return net.fnet(normalize_images(images).to(_weights_dtype(net.fnet)))
 
 
 def cnet_apply(net, images):
     """images [B, H, W, 3] -> (net tanh, inp relu), each [B, H/8, W/8, 128]."""
-    ctx = net.cnet(normalize_images(images).to(_weights_dtype(net.cnet)))
-    return torch.tanh(ctx[..., :128]), F.relu(ctx[..., 128:])
+    with section("encode"):
+        ctx = net.cnet(normalize_images(images).to(_weights_dtype(net.cnet)))
+        return torch.tanh(ctx[..., :128]), F.relu(ctx[..., 128:])
 
 
 def update_apply(update, net, inp, corr, motn, kk=None, num_segments=None, emask=None):

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..lie import se3_exp, se3_inv, se3_log, se3_mul
+from ..utils.timing import count_sync, section
 from .factor_graph import FactorGraph
 from .net_ops import fnet_apply
 
@@ -41,10 +42,12 @@ class TrajectoryFiller:
         Gs = se3_mul(se3_exp(w), Ps[i0])
 
         # fnet on every camera; set_slot fits the cameras to the buffer's
-        imgs = np.stack([im if im.ndim == 4 else im[None] for im in images])  # [M, c, H, W, 3]
-        c = imgs.shape[1]
-        fmaps = fnet_apply(self.net, torch.as_tensor(imgs.reshape((-1,) + imgs.shape[2:]),
-                                                     dtype=torch.float32, device=dev))
+        with section("upload"):
+            imgs = np.stack([im if im.ndim == 4 else im[None] for im in images])  # [M, c, H, W, 3]
+            c = imgs.shape[1]
+            x = torch.as_tensor(imgs.reshape((-1,) + imgs.shape[2:]), dtype=torch.float32,
+                                device=dev)
+        fmaps = fnet_apply(self.net, x)
         fmaps = fmaps.reshape((M, c) + fmaps.shape[1:])
         for m in range(M):
             v.set_slot(N + m, tstamps[m], imgs[m, 0], Gs[m], None, None,
@@ -56,6 +59,7 @@ class TrajectoryFiller:
         graph.add_factors(t1, np.arange(N, N + M))
         graph.update_fused(6, t0=N, t1=N + M, use_inactive=False, motion_only=True)
 
+        count_sync("filler")
         out = v.poses[N: N + M].cpu().numpy()
         v.counter = N
         return out
@@ -65,14 +69,15 @@ class TrajectoryFiller:
         """Poses [T, 7] (world-to-camera, as video.poses) of every frame that
         image_stream yields as (tstamp, image, intrinsics [4]); image is
         [H, W, 3], [1, H, W, 3] or a stereo [2, H, W, 3]."""
-        pose_list, tstamps, images, intrinsics = [], [], [], []
-        for tstamp, image, intrinsic in image_stream:
-            tstamps.append(tstamp)
-            images.append(np.asarray(image))
-            intrinsics.append(np.asarray(intrinsic))
-            if len(tstamps) == 16:
+        with section("filler"):
+            pose_list, tstamps, images, intrinsics = [], [], [], []
+            for tstamp, image, intrinsic in image_stream:
+                tstamps.append(tstamp)
+                images.append(np.asarray(image))
+                intrinsics.append(np.asarray(intrinsic))
+                if len(tstamps) == 16:
+                    pose_list.append(self._fill(tstamps, images, intrinsics))
+                    tstamps, images, intrinsics = [], [], []
+            if tstamps:
                 pose_list.append(self._fill(tstamps, images, intrinsics))
-                tstamps, images, intrinsics = [], [], []
-        if tstamps:
-            pose_list.append(self._fill(tstamps, images, intrinsics))
-        return np.concatenate(pose_list, axis=0)
+            return np.concatenate(pose_list, axis=0)

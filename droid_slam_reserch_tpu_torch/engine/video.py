@@ -16,7 +16,7 @@ from ..models.update import cvx_upsample
 from ..parallel import (dist_ba_solve, local_device_count, local_devices, make_mesh,
                         partition_edges, resolve_exchange)
 from ..utils.log import log_once
-from ..utils.timing import section
+from ..utils.timing import count, section
 from .net_ops import compute_dtype
 
 
@@ -65,6 +65,7 @@ class Video:
         ix = self.counter
         self.set_slot(ix, tstamp, image, pose, disp, depth, intrinsics, fmap, net, inp)
         self.counter = ix + 1
+        count("keyframes")
 
     def set_slot(self, ix, tstamp, image, pose, disp, depth, intrinsics, fmap, net=None,
                  inp=None):
@@ -84,7 +85,8 @@ class Video:
         if disp is not None:
             self.disps[ix] = torch.as_tensor(disp, dtype=torch.float32, device=self.device)
         if depth is not None:
-            depth = torch.as_tensor(depth)[3::8, 3::8].to(self.device, torch.float32)
+            with section("upload"):
+                depth = torch.as_tensor(depth)[3::8, 3::8].to(self.device, torch.float32)
             self.disps_sens[ix] = torch.where(depth > 0, 1.0 / depth.clamp_min(1e-8), 0.0)
         if intrinsics is not None:
             self.intrinsics[ix] = torch.as_tensor(intrinsics, dtype=torch.float32,

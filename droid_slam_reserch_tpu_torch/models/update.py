@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.timing import section
 from .gru import ConvGRU
 from .layers import GradientClip, tconv, to_nchw, to_nhwc
 
@@ -101,20 +102,21 @@ class UpdateModule(nn.Module):
         self.agg = GraphAgg()
 
     def forward(self, net, inp, corr, flow=None, kk=None, num_segments=None, emask=None):
-        B, N, H, W, _ = net.shape
-        if flow is None:
-            flow = net.new_zeros(B, N, H, W, 4)
+        with section("update_op"):
+            B, N, H, W, _ = net.shape
+            if flow is None:
+                flow = net.new_zeros(B, N, H, W, 4)
 
-        def flat(x):
-            return to_nchw(x.reshape(B * N, H, W, x.shape[-1]))
+            def flat(x):
+                return to_nchw(x.reshape(B * N, H, W, x.shape[-1]))
 
-        net_f = self.gru(
-            flat(net), flat(inp), self.corr_encoder(flat(corr)), self.flow_encoder(flat(flow))
-        )
-        delta = to_nhwc(self.delta(net_f)).reshape(B, N, H, W, 2)
-        weight = to_nhwc(self.weight(net_f)).reshape(B, N, H, W, 2)
-        net_out = to_nhwc(net_f).reshape(B, N, H, W, 128)
-        if kk is not None:
-            eta, upmask = self.agg(net_f, kk, num_segments, emask)
-            return net_out, delta, weight, eta, upmask
-        return net_out, delta, weight
+            net_f = self.gru(
+                flat(net), flat(inp), self.corr_encoder(flat(corr)), self.flow_encoder(flat(flow))
+            )
+            delta = to_nhwc(self.delta(net_f)).reshape(B, N, H, W, 2)
+            weight = to_nhwc(self.weight(net_f)).reshape(B, N, H, W, 2)
+            net_out = to_nhwc(net_f).reshape(B, N, H, W, 128)
+            if kk is not None:
+                eta, upmask = self.agg(net_f, kk, num_segments, emask)
+                return net_out, delta, weight, eta, upmask
+            return net_out, delta, weight

@@ -5,6 +5,6 @@ from .config import (
     TARTANAIR_CONFIG,
     ETH3D_CONFIG,
 )
-from .timing import Timer, Timings
+from .timing import Timer
 
 __all__ = [k for k in dir() if not k.startswith("_")]

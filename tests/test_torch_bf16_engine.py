@@ -136,7 +136,7 @@ def _update_fused_both(jd, td, rounds):
     _close_state(jd, td, jd.frontend.graph, td.frontend.graph)
     assert td.frontend.graph.net.dtype == torch.bfloat16
     np.testing.assert_allclose(d_t, d_j, rtol=2e-2)
-    return ops.counts(), dict(tfg.CORR_ROUNDS)
+    return ops.counts(), tfg.corr_rounds()
 
 
 def test_one_update_fused_call_bf16(runs):

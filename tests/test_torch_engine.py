@@ -130,7 +130,7 @@ def _update_fused_both(jd, td, rounds):
     np.testing.assert_allclose(td.frontend.graph.weight.numpy(),
                                np.asarray(jd.frontend.graph.weight), atol=1e-4)
     np.testing.assert_allclose(d_t, d_j, rtol=1e-4)
-    return ops.counts(), dict(tfg.CORR_ROUNDS)
+    return ops.counts(), tfg.corr_rounds()
 
 
 def test_one_update_fused_call_from_identical_state(runs):

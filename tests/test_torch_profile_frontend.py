@@ -97,7 +97,7 @@ def both():
             T(x["has_edge"]), T(x["ii"]), T(x["jj"]), T(empty), T(empty), T(x["free"]),
             T(be).long(), T(bm), T(x["cull"]), rounds=ROUNDS, ba_iters=2, lm=1e-4, ep=0.1,
             damping_eps=1e-7, min_depth=0.25, beta=0.3)
-    return ref, out, ops.counts(), dict(tfg.CORR_ROUNDS)
+    return ref, out, ops.counts(), tfg.corr_rounds()
 
 
 NAMES = ["poses", "disps", "damping", "nets", "target", "weight"]

@@ -108,7 +108,7 @@ def test_one_update_fused_call_stereo(runs):
     np.testing.assert_allclose(g.weight.numpy(), np.asarray(jd.frontend.graph.weight), atol=1e-4)
     np.testing.assert_allclose(d_t, d_j, rtol=1e-4)
     assert ops.counts()["corr_build_windows"] == (0, 1)
-    assert tfg.CORR_ROUNDS == {"windowed": 2, "fallback": 0}
+    assert tfg.corr_rounds() == {"windowed": 2, "fallback": 0}
 
 
 def test_update_lowmem_stereo(runs):

@@ -79,7 +79,7 @@ def test_terminate_eva_matches_jax(params):
                                atol=TOL)
     assert td.video.counter == t                      # the filler's slots are released
     # the filler's one chunk: 6 motion-only rounds through the window cache
-    assert tfg.CORR_ROUNDS["windowed"] + tfg.CORR_ROUNDS["fallback"] == 6
+    assert tfg.corr_rounds()["windowed"] + tfg.corr_rounds()["fallback"] == 6
     counts = ops.counts()
     assert counts["corr_build_windows"] == (0, 1)
     assert counts["corr_build"][1] >= 2                # the backend's chunks
