@@ -8,6 +8,13 @@ Phases (one line each; any failure exits nonzero):
            process per source, all started together, and g++ the port's C++
            graph library (csrc/graph_ops.cpp: edge selection, dedup, Schur
            bucket tables);
+1b. conv3x3  the update operator's 3x3 convolution kernel (csrc/conv3x3.cu):
+           its ptxas lines, the kernel against an fp64 convolution at every
+           (edges, map, channels) of the benchmark cells beside cuDNN's fp32
+           call against the same (at most 2e-6 relative, Frobenius, and 4x
+           cuDNN's), and both timed in turns at the cells' shapes (at least
+           60 TFLOP/s on the GRU's convzr, 48 edges of 40x64, and whether
+           that is 3x cuDNN's call);
 2. kernels prints what ptxas made of the correlation build (K2), the BA
            blocks (K1), the window-cache build (K4, K8), the windowed lookup
            (K5), the pyramid lookups (K3, K6) and the window extraction (K7)
@@ -125,6 +132,10 @@ Phases (one line each; any failure exits nonzero):
 Then it prints the card's name and power limit, one JSON line describing
 the kernels, and as its last line the device JSON.  The script needs only
 torch, numpy and scipy, and the CUDA toolkit for nvcc.
+
+    python3 chip_smoke.py --conv3x3
+
+runs the build and the conv3x3 phase alone.
 
     python3 chip_smoke.py --profile
 
@@ -572,6 +583,98 @@ def windows_build_info(build):
     info = (ctypes.c_int * 8)()
     build.library().corr_windows_build_info(H8, W8, info)
     return list(info)
+
+
+# The update operator's 3x3 convolutions at the cells' shapes: E edges of an
+# H x W map, C_in -> C_out (CONV_MAIN: the GRU's convzr in the EuRoC frontend)
+CONV_EDGES = (1, 2, 48, 64)
+CONV_MAPS = ((40, 64), (43, 70))
+CONV_CHANNELS = ((128, 128), (128, 64), (448, 256), (448, 128))
+CONV_MAIN = (48, 40, 64, 448, 256)
+
+
+def conv_inputs(torch, E, H, W, cin, cout, seed=0):
+    """A ReLU'd channels-last input and init_params-like weights and bias."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(E, H, W, cin, generator=g).clamp_min(0)
+    bound = 1.0 / (9 * cin) ** 0.5
+    w = (torch.rand(cout, cin, 3, 3, generator=g) * 2 - 1) * bound
+    b = (torch.rand(cout, generator=g) * 2 - 1) * bound
+    return x.cuda().permute(0, 3, 1, 2), w.cuda(), b.cuda()
+
+
+def phase_conv3x3(torch):
+    """ptxas lines of csrc/conv3x3.cu; the kernel against an fp64
+    convolution at every (E, map, channels) of the cells, beside cuDNN's fp32
+    call (the plain version on the card) against the same; times of both at
+    the cells' shapes, in turns.  Fails beyond 2e-6 relative (Frobenius) or
+    4x cuDNN's error, or below 60 TFLOP/s at CONV_MAIN; prints whether the
+    kernel is 3x as fast as cuDNN there."""
+    import re
+
+    import torch.nn.functional as F
+    from droid_slam_reserch_tpu_torch.ops import build, cuda_conv
+
+    name = None
+    for line in build.BUILD_LOG["ptxas"].splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"conv3x3_kernelILi(\d+)E", m.group(1))
+            name = k and f"conv3x3_kernel<{k.group(1)} channels>"
+        elif name and ("registers" in line or "spill" in line):
+            say("conv3x3", f"ptxas: {name}: {line.split(':', 1)[-1].strip()}")
+    for bn in cuda_conv.BLOCK_N:
+        smem, stages, resident = cuda_conv.conv3x3_info(bn)
+        say("conv3x3", f"block of {bn} channels: {smem} bytes of shared memory, {stages} "
+                       f"stages, {resident} resident block(s) an SM")
+
+    def rel(a, ref):
+        return float((a.double() - ref).norm() / ref.norm())
+
+    worst = 0.0
+    for E in CONV_EDGES:
+        for H, W in CONV_MAPS:
+            for cin, cout in CONV_CHANNELS:
+                x, w, b = conv_inputs(torch, E, H, W, cin, cout)
+                ref = F.conv2d(x.double(), w.double(), b.double(), padding=1)
+                err = rel(cuda_conv.conv3x3(x, w, b), ref)
+                err_lib = rel(F.conv2d(x, w, b, padding=1), ref)
+                worst = max(worst, err)
+                say("conv3x3", f"E={E} {H}x{W} {cin}->{cout}: relative error {err:.3e}, "
+                               f"cuDNN fp32 {err_lib:.3e}")
+                if not (err <= 2e-6 and err <= 4 * err_lib):
+                    fail(f"conv3x3 at E={E} {H}x{W} {cin}->{cout}: {err:.3e} against fp64 "
+                         f"(cuDNN fp32 {err_lib:.3e})")
+                del x, w, b, ref
+    row = None
+    for E, H, W, cin, cout in (CONV_MAIN, (48, 40, 64, 448, 128), (48, 40, 64, 128, 128),
+                               (48, 40, 64, 128, 64), (48, 43, 70, 448, 256),
+                               (64, 40, 64, 448, 256), (1, 40, 64, 448, 256),
+                               (1, 40, 64, 128, 128)):
+        x, w, b = conv_inputs(torch, E, H, W, cin, cout)
+        packed = cuda_conv.pack_weight(w)
+        flops = 2.0 * E * H * W * cout * 9 * cin
+        nbytes = 4.0 * (E * H * W * (cin + cout) + w.numel() + cout)
+        bnd = bound(0.0, nbytes, flops)
+        kern = lambda: cuda_conv.conv3x3(x, w, b, packed)
+        lib = lambda: F.conv2d(x, w, b, padding=1)
+        t = [cuda_ms(torch, f, 20) for f in (kern, lib, lib, kern)]
+        ms, lib_ms = min(t[0], t[3]), min(t[1], t[2])
+        say("conv3x3", f"E={E} {H}x{W} {cin}->{cout}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                       f"TFLOP/s), cuDNN fp32 {lib_ms:.4f} ms ({lib_ms / ms:.2f}x), bound "
+                       f"{bnd[0]:.4f} by {bnd[1]} (3xTF32); turns {', '.join(f'{v:.4f}' for v in t)}")
+        if (E, H, W, cin, cout) == CONV_MAIN:
+            row = dict(max_abs_err=worst, ms=ms, plain_ms=lib_ms, library_ms=lib_ms,
+                       bound_ms=bnd[0], bound_by=bnd[1], ops_route="tf32x3",
+                       tflops=flops / ms / 1e9)
+        del x, w, b, packed
+    torch.cuda.empty_cache()
+    say("conv3x3", f"at {CONV_MAIN}: {row['tflops']:.1f} TFLOP/s (at least 60 asked), "
+                   f"{row['library_ms'] / row['ms']:.2f}x cuDNN's fp32 call (3x asked: "
+                   f"{'met' if row['library_ms'] >= 3.0 * row['ms'] else 'missed'})")
+    if row["tflops"] < 60.0:
+        fail(f"conv3x3 at {CONV_MAIN}: {row['tflops']:.1f} TFLOP/s, under 60")
+    return {"conv3x3": row}
 
 
 def phase_kernels(torch):
@@ -3779,8 +3882,12 @@ def main():
                  f"{time.time() - t0:.1f} s ({native.LIB_PATH})")
     lap("build")
 
+    rows = phase_conv3x3(torch)
+    lap("conv3x3")
+    if "--conv3x3" in sys.argv[1:]:
+        return
     profiling = "--profile" in sys.argv[1:]
-    rows = phase_kernels(torch)
+    rows.update(phase_kernels(torch))
     lap("kernels")
     rows.update(phase_kernels_bf16(torch))
     lap("kernels-bf16")
@@ -3902,6 +4009,8 @@ def main():
         "corr_lookup_pmajor_bf16": (src + "corr_pmajor_lookup.cu", pallas + "109"),
         "corr_extract_windows_bf16": (src + "corr_extract_windows.cu", pallas + "391"),
         "corr_build_windows_levels_bf16": (src + "corr_windows_build.cu", pallas + "604"),
+        # replaces no TPU kernel: XLA's convolutions of the update operator
+        "conv3x3": (src + "conv3x3.cu", "none (droid_slam_reserch_tpu/models/update.py, gru.py)"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -3917,6 +4026,7 @@ def main():
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "ops_route": r.get("ops_route", "fp32"),
+                        **({"tflops": r["tflops"]} if "tflops" in r else {}),
                         # the lookups' times under a smooth 4-px pan (the others: random
                         # coords); K1's call as a whole, on the device and on the host clock
                         **{k: r[k] for k in ("ms_pan4", "library_ms_pan4", "call_ms", "host_ms",

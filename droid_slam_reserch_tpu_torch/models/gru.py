@@ -6,7 +6,7 @@ channels (``convzr``), as in the JAX package; NCHW tensors.
 import torch
 from torch import nn
 
-from .layers import tconv
+from .layers import uconv
 
 
 class ConvGRU(nn.Module):
@@ -14,11 +14,11 @@ class ConvGRU(nn.Module):
         super().__init__()
         self.h_planes = h_planes
         c = h_planes + i_planes
-        self.convzr = tconv(c, 2 * h_planes, 3)
-        self.convq = tconv(c, h_planes, 3)
-        self.w = tconv(h_planes, h_planes, 1, padding=0)
-        self.convzr_glo = tconv(h_planes, 2 * h_planes, 1, padding=0)
-        self.convq_glo = tconv(h_planes, h_planes, 1, padding=0)
+        self.convzr = uconv(c, 2 * h_planes, 3)
+        self.convq = uconv(c, h_planes, 3)
+        self.w = uconv(h_planes, h_planes, 1, padding=0)
+        self.convzr_glo = uconv(h_planes, 2 * h_planes, 1, padding=0)
+        self.convq_glo = uconv(h_planes, h_planes, 1, padding=0)
 
     def forward(self, net, *inputs):
         inp = torch.cat(inputs, dim=1)

@@ -7,6 +7,9 @@ package does; inside, ``x.permute(0, 3, 1, 2)`` gives the NCHW view that
 import torch
 from torch import nn
 
+from ..ops import cuda_conv
+from ..utils import timing
+
 
 GRAD_CLIP = 0.01
 
@@ -51,6 +54,57 @@ def tconv(cin, cout, kernel=3, stride=1, padding=None):
     """Conv2d with torch's symmetric padding (kernel // 2 unless given)."""
     pad = kernel // 2 if padding is None else padding
     return nn.Conv2d(cin, cout, kernel, stride=stride, padding=pad)
+
+
+class UpdateConv(nn.Conv2d):
+    """The update operator's convolutions (``models/update.py``,
+    ``models/gru.py``): an ``nn.Conv2d`` with the same parameters and
+    ``state_dict`` keys, whose 3x3 calls that ``routes_to_kernel`` accepts go
+    to ``ops.cuda_conv.conv3x3`` (the hand-written kernel on the card, its
+    plain version on the CPU).  Every other call is ``F.conv2d`` (cuDNN on
+    the card); those that are 3x3 are counted as ``conv3x3.cudnn``.  The
+    kernel's weights are packed once per weight version (the tensor, its
+    storage and its ``_version``) and kept here, outside the state_dict."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._packed = None
+
+    def routes_to_kernel(self, x):
+        """The routing rule, but for the device: a 4-D fp32 input and
+        weight, a 3x3 kernel at stride 1, padding 1 (zeros), dilation 1,
+        groups 1, C_in % 32 == 0 and C_out % 64 == 0, and no autograd graph
+        being built (grad mode off, or nothing requires grad)."""
+        w, b = self.weight, self.bias
+        grads = x.requires_grad or w.requires_grad or (b is not None and b.requires_grad)
+        return (x.dtype == torch.float32 and w.dtype == torch.float32 and x.dim() == 4
+                and self.kernel_size == (3, 3) and self.stride == (1, 1)
+                and self.padding == (1, 1) and self.dilation == (1, 1) and self.groups == 1
+                and self.padding_mode == "zeros" and self.in_channels % 32 == 0
+                and self.out_channels % 64 == 0 and not (torch.is_grad_enabled() and grads))
+
+    def packed_weight(self):
+        """``cuda_conv.pack_weight(self.weight)``, packed again only when the
+        weight tensor, its storage or its version changes."""
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.device)
+        if self._packed is None or self._packed[0] is not w or self._packed[1] != key:
+            self._packed = (w, key, cuda_conv.pack_weight(w))
+        return self._packed[2]
+
+    def forward(self, x):
+        if self.routes_to_kernel(x):
+            packed = self.packed_weight() if x.is_cuda else None
+            return cuda_conv.conv3x3(x, self.weight, self.bias, packed)
+        if self.kernel_size == (3, 3):
+            timing.count("conv3x3.cudnn")
+        return super().forward(x)
+
+
+def uconv(cin, cout, kernel=3, padding=None):
+    """``tconv`` for the update operator: an ``UpdateConv`` at stride 1."""
+    pad = kernel // 2 if padding is None else padding
+    return UpdateConv(cin, cout, kernel, padding=pad)
 
 
 def to_nchw(x):

@@ -12,7 +12,7 @@ from torch import nn
 
 from ..utils.timing import section
 from .gru import ConvGRU
-from .layers import GradientClip, tconv, to_nchw, to_nhwc
+from .layers import GradientClip, to_nchw, to_nhwc, uconv
 
 
 def cvx_upsample(data, mask):
@@ -49,10 +49,10 @@ class GraphAgg(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.conv1 = tconv(128, 128, 3)
-        self.conv2 = tconv(128, 128, 3)
-        self.eta = nn.Sequential(tconv(128, 1, 3), GradientClip(), nn.Softplus())
-        self.upmask = nn.Sequential(tconv(128, 8 * 8 * 9, 1, padding=0))
+        self.conv1 = uconv(128, 128, 3)
+        self.conv2 = uconv(128, 128, 3)
+        self.eta = nn.Sequential(uconv(128, 1, 3), GradientClip(), nn.Softplus())
+        self.upmask = nn.Sequential(uconv(128, 8 * 8 * 9, 1, padding=0))
 
     def forward(self, net, kk, num_segments, emask=None):
         """net: [B*N, 128, H, W] NCHW edge states; kk: [N] long segment ids."""
@@ -87,16 +87,16 @@ class UpdateModule(nn.Module):
     def __init__(self):
         super().__init__()
         self.corr_encoder = nn.Sequential(
-            tconv(4 * 49, 128, 1, padding=0), nn.ReLU(), tconv(128, 128, 3), nn.ReLU()
+            uconv(4 * 49, 128, 1, padding=0), nn.ReLU(), uconv(128, 128, 3), nn.ReLU()
         )
         self.flow_encoder = nn.Sequential(
-            tconv(4, 128, 7, padding=3), nn.ReLU(), tconv(128, 64, 3), nn.ReLU()
+            uconv(4, 128, 7, padding=3), nn.ReLU(), uconv(128, 64, 3), nn.ReLU()
         )
         self.weight = nn.Sequential(
-            tconv(128, 128, 3), nn.ReLU(), tconv(128, 2, 3), GradientClip(), nn.Sigmoid()
+            uconv(128, 128, 3), nn.ReLU(), uconv(128, 2, 3), GradientClip(), nn.Sigmoid()
         )
         self.delta = nn.Sequential(
-            tconv(128, 128, 3), nn.ReLU(), tconv(128, 2, 3), GradientClip()
+            uconv(128, 128, 3), nn.ReLU(), uconv(128, 2, 3), GradientClip()
         )
         self.gru = ConvGRU(128, 128 + 128 + 64)
         self.agg = GraphAgg()

@@ -11,6 +11,8 @@ for CPU tensors:
 - K7 ``cuda_corr.corr_extract_windows`` (plain: ``cuda_corr.corr_extract_windows_plain``)
 - K8 ``cuda_corr.corr_build_windows_levels``
   (plain: ``cuda_corr.corr_build_windows_levels_plain``)
+- ``cuda_conv.conv3x3``, the update operator's 3x3 convolutions (plain:
+  ``cuda_conv.conv3x3_plain``, ``F.conv2d``); replaces no TPU kernel
 
 K2-K8 also have bf16 instantiations (``cuda_corr.INSTANCES``): K2
 ``corr_build_bf16`` (bf16 levels) and ``corr_build_bf16_f32`` (fp32 levels),
@@ -25,6 +27,7 @@ them.
 """
 from .corr import pack_pyramid, packed_lookup
 from .cuda_ba import ba_system_blocks, build_system_blocks
+from .cuda_conv import conv3x3, conv3x3_plain
 from .cuda_corr import (
     INSTANCES,
     corr_build,
@@ -55,6 +58,7 @@ _WRAPPERS = {
 # every kernel instantiation by name -> (its wrapper, its plain version)
 KERNELS = {"ba_blocks": (ba_system_blocks, build_system_blocks)}
 KERNELS.update({name: pair for kernel, pair in _WRAPPERS.items() for name in INSTANCES[kernel]})
+KERNELS["conv3x3"] = (conv3x3, conv3x3_plain)
 
 
 def reset_counts():

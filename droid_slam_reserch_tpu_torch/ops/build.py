@@ -46,6 +46,8 @@ _SIGNATURES = {
     "corr_windows_build_info": [_I, _I, _P],
     "corr_build_info": [_P],
     "corr_build_bf16_info": [_I] * 4 + [_P],
+    "conv3x3_launch": [_P] + [_I] * 4 + [ctypes.c_longlong] + [_P] * 3 + [_I] * 2 + [_P] * 2,
+    "conv3x3_info": [_I, _P],
 }
 
 
